@@ -1,0 +1,35 @@
+"""Hand-written Hopper kernels of the port and their launch counts.
+
+The CUDA C++ sources live in ``csrc/``; ``build.py`` compiles them at first
+use. Each op wrapper in ``mpa_tpu_torch.ops`` calls :func:`launched` right
+where it launches its kernel, and nowhere else, so a run can show that its
+path went through the kernels: reset the counts, drive the path, read them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+KERNELS = (
+    "knn_kernel",
+    "fps_kernel",
+    "gather_rows_kernel",
+    "transition_attention_fwd_kernel",
+)
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+# When a list, every launch also appends ``(name, inputs)`` to it, so a
+# measurement can replay each kernel on the very inputs its path gave it.
+recorded: Optional[List[Tuple[str, dict]]] = None
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def launched(name: str, inputs: dict) -> None:
+    LAUNCHES[name] += 1
+    if recorded is not None:
+        recorded.append((name, inputs))

@@ -1,0 +1,6 @@
+"""Task models, addressed by a string registry."""
+
+from mpa_tpu_torch.models.registry import get_model, list_models, register_model
+from mpa_tpu_torch.models.markov_cls import MarkovClassifier
+
+__all__ = ["register_model", "get_model", "list_models", "MarkovClassifier"]

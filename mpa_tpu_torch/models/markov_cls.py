@@ -1,0 +1,61 @@
+"""Markov-process point-cloud classifier (flagship model), inference.
+
+Counterpart of ``mpa_tpu/models/markov_cls.py::MarkovClassifier``: the
+KeepHighResolution encoder, then the head ``fc1 -> bn1 -> LeakyReLU ->
+fc2 -> bn2 -> LeakyReLU -> fc3`` and ``log_softmax``. The head's dropout is
+the identity in eval mode, the only mode of this slice, so it has no field.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mpa_tpu_torch.models.registry import register_model
+from mpa_tpu_torch.nn.keephigh import KeepHighResolutionEncoder
+from mpa_tpu_torch.nn.linear import BatchNorm
+
+
+class MarkovClassifier(nn.Module):
+    def __init__(
+        self,
+        num_classes: int = 15,
+        npoints: Sequence[int] = (512, 256, 128, 64, 32),
+        channels: Sequence[int] = (64, 64, 64, 128, 256, 512),
+        residuals: Sequence[bool] = (True, False, False, True, True, True),
+        num_neighbors: int = 8,
+        encoder_features: int = 1024,
+        use_umbrella: bool = False,
+        compute_dtype: Any = None,
+    ):
+        super().__init__()
+        if use_umbrella:
+            raise NotImplementedError("MarkovClassifier use_umbrella is not ported yet")
+        if compute_dtype is not None:
+            raise NotImplementedError("MarkovClassifier compute_dtype (mixed precision) is not ported yet")
+        self.keep_high = KeepHighResolutionEncoder(
+            npoints=npoints, channels=channels, residuals=residuals,
+            num_neighbors=num_neighbors, out_features=encoder_features,
+        )
+        self.fc1 = nn.Linear(encoder_features, 512)
+        self.bn1 = BatchNorm(512)
+        self.fc2 = nn.Linear(512, 256)
+        self.bn2 = BatchNorm(256)
+        self.fc3 = nn.Linear(256, num_classes)
+
+    def forward(self, points: torch.Tensor) -> torch.Tensor:
+        """points: ``[B, N, 3]`` xyz -> ``[B, num_classes]`` log-probs."""
+        if self.training:
+            raise NotImplementedError("MarkovClassifier training is not ported yet; call .eval()")
+        x = self.keep_high(points[..., :3])
+        x = F.leaky_relu(self.bn1(self.fc1(x)), negative_slope=0.2)
+        x = F.leaky_relu(self.bn2(self.fc2(x)), negative_slope=0.2)
+        return F.log_softmax(self.fc3(x), dim=-1)
+
+
+@register_model("markov_cls")
+def _markov_cls(**kw) -> MarkovClassifier:
+    return MarkovClassifier(**kw)

@@ -1,0 +1,14 @@
+"""Markov transition blocks, channel-last, eval mode."""
+
+from mpa_tpu_torch.nn.linear import BatchNorm, LinearUnit
+from mpa_tpu_torch.nn.local_trans import LocalTrans
+from mpa_tpu_torch.nn.local_merge import LocalMerge
+from mpa_tpu_torch.nn.keephigh import KeepHighResolutionEncoder
+
+__all__ = [
+    "BatchNorm",
+    "LinearUnit",
+    "LocalTrans",
+    "LocalMerge",
+    "KeepHighResolutionEncoder",
+]

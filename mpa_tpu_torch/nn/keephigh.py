@@ -1,0 +1,62 @@
+"""KeepHighResolution encoder, the classification-side Markov state ladder.
+
+Counterpart of ``mpa_tpu/nn/keephigh.py::KeepHighResolutionEncoder``: a
+full-resolution first state, then one LocalMerge per ladder entry with FPS
+between them, ``conv3`` / ``conv4``, the max || mean pool over points, and
+``final_class`` + ``final_bn`` + LeakyReLU(0.2).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mpa_tpu_torch.nn.linear import BatchNorm, LinearUnit
+from mpa_tpu_torch.nn.local_merge import LocalMerge
+from mpa_tpu_torch.ops.fps import farthest_point_sample
+from mpa_tpu_torch.ops.gather import index_points
+
+
+class KeepHighResolutionEncoder(nn.Module):
+    def __init__(
+        self,
+        npoints: Sequence[int] = (512, 256, 128, 64, 32),
+        channels: Sequence[int] = (64, 64, 64, 128, 256, 512),
+        residuals: Sequence[bool] = (True, False, False, True, True, True),
+        num_neighbors: int = 8,
+        out_features: int = 1024,
+        fps_random_start: bool = False,
+    ):
+        super().__init__()
+        if len(channels) != len(npoints) + 1 or len(residuals) != len(channels):
+            raise ValueError("channels and residuals need one entry more than npoints")
+        if fps_random_start:
+            raise NotImplementedError("keyed FPS starts are training-only and not ported yet")
+        self.npoints = tuple(npoints)
+        self.la0 = LocalMerge(None, channels[0], num_neighbors, residuals[0])
+        for i in range(len(self.npoints)):
+            setattr(self, f"la{i + 1}",
+                    LocalMerge(channels[i], channels[i + 1], num_neighbors, residuals[i + 1]))
+        self.conv3 = LinearUnit(channels[-1], channels[-1])
+        self.conv4 = LinearUnit(channels[-1], out_features)
+        self.final_class = nn.Linear(2 * out_features, out_features)
+        self.final_bn = BatchNorm(out_features)
+
+    def forward(self, xyz: torch.Tensor) -> torch.Tensor:
+        """xyz: ``[B, N, 3]`` -> global feature ``[B, out_features]``."""
+        feats, _, _ = self.la0(xyz, xyz)
+        cur_xyz = xyz
+        for i, npoint in enumerate(self.npoints):
+            fps_idx = farthest_point_sample(cur_xyz, npoint)
+            new_xyz = index_points(cur_xyz, fps_idx)
+            feats, _, _ = getattr(self, f"la{i + 1}")(
+                new_xyz, cur_xyz, feature=feats, fps_idx=fps_idx
+            )
+            cur_xyz = new_xyz
+        x = self.conv4(self.conv3(feats))
+        fused = torch.cat([torch.amax(x, dim=1), torch.mean(x, dim=1)], dim=-1)
+        fused = self.final_bn(self.final_class(fused))
+        return F.leaky_relu(fused, negative_slope=0.2)

@@ -1,0 +1,72 @@
+"""Difference-wise local attention, the paper's "probability transition".
+
+Counterpart of ``mpa_tpu/nn/local_trans.py::LocalTrans``, in its folded form:
+the softmax over neighbours of ``(q_i - k_j)/sqrt(C)`` depends on the
+neighbour only through ``E_j = exp(-(W_k x_j)/sqrt(C) - stab)``, computed once
+per source point; in xyz mode the value projection of ``x_j - x_i`` splits
+into a gathered node term ``v(x_j)`` and a per-query shift ``b_v - v(x_i)``.
+``node_pack`` / ``value_shift`` / ``ffn_out`` are separate so that LocalMerge
+can pack branches that share one kNN index into one attention call.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from mpa_tpu_torch.nn.linear import LinearUnit
+from mpa_tpu_torch.ops.attention import transition_attention
+
+
+class LocalTrans(nn.Module):
+    """One difference-attention transition from a source set to centre points.
+
+    Call args:
+      source: ``[B, N, C_in]`` neighbour source set (xyz or features).
+      center: ``[B, S, C_in]`` centre features (already gathered to the
+        target scale).
+      idx: ``[B, S, K]`` neighbour indices into the source set.
+      xyz_mode: geometric mode (k/v act on centre-relative deltas).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, num_neighbors: int,
+                 residual_proj: bool = False, use_tanh: bool = False):
+        super().__init__()
+        if use_tanh:
+            raise NotImplementedError("LocalTrans use_tanh (edge-level path) is not ported")
+        self.out_channels = out_channels
+        self.num_neighbors = num_neighbors
+        # q takes no part in the output (the fold removes it); it exists so
+        # every checkpoint leaf has a home.
+        self.q = nn.Linear(in_channels, out_channels)
+        self.k = nn.Linear(in_channels, out_channels)
+        self.v = nn.Linear(in_channels, out_channels)
+        self.conv_res = LinearUnit(in_channels, out_channels) if residual_proj else None
+        self.ffn = LinearUnit(out_channels, out_channels)
+
+    def node_pack(self, source: torch.Tensor) -> torch.Tensor:
+        """``[B, N, 2C]`` = ``[E || v(source)]``, ``E = exp(-(W_k x)/sqrt(C) - stab)``
+        with ``stab`` the (detached) max over N per batch and channel."""
+        k_src = self.k(source)
+        v_src = self.v(source)
+        neg = -k_src.float() / math.sqrt(float(self.out_channels))
+        stab = torch.amax(neg, dim=1, keepdim=True).detach()
+        e_src = torch.exp(neg - stab).to(v_src.dtype)
+        return torch.cat([e_src, v_src], dim=-1)
+
+    def value_shift(self, center: torch.Tensor) -> torch.Tensor:
+        """xyz-mode per-query value shift ``b_v - v(center)``."""
+        return self.v.bias - self.v(center)
+
+    def ffn_out(self, context: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+        """Residual + FFN head on a precomputed attention context."""
+        residual = center if self.conv_res is None else self.conv_res(center)
+        return residual + self.ffn(context)
+
+    def forward(self, source, center, idx, *, xyz_mode: bool = False) -> torch.Tensor:
+        packed = self.node_pack(source)
+        shifts = self.value_shift(center) if xyz_mode else None
+        context = transition_attention(packed, idx, shifts, 1, self.out_channels)
+        return self.ffn_out(context, center)

@@ -1,0 +1,20 @@
+"""Point-set primitives, channel-last ``[B, N, C]``, int32 indices.
+
+Each op with a kernel has a plain PyTorch version (taken for CPU tensors, and
+the reference its kernel is held against) and a CUDA wrapper (taken for CUDA
+tensors; it launches the kernel or raises).
+"""
+
+from mpa_tpu_torch.ops.pairwise import square_distance
+from mpa_tpu_torch.ops.knn import knn
+from mpa_tpu_torch.ops.fps import farthest_point_sample
+from mpa_tpu_torch.ops.gather import index_points
+from mpa_tpu_torch.ops.attention import transition_attention
+
+__all__ = [
+    "square_distance",
+    "knn",
+    "farthest_point_sample",
+    "index_points",
+    "transition_attention",
+]

@@ -1,0 +1,87 @@
+"""k-nearest-neighbour query.
+
+Counterpart of ``mpa_tpu/ops/knn.py::knn``: exact squared distances in
+float32, the k smallest per query in ascending order, ties to the lowest
+index (``lax.top_k``'s order). On a CUDA tensor it launches ``knn_kernel``
+(``kernels/csrc/knn.cu``); on a CPU tensor it takes :func:`knn_plain`.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from mpa_tpu_torch import kernels
+from mpa_tpu_torch.kernels import build
+from mpa_tpu_torch.ops.pairwise import square_distance
+from mpa_tpu_torch.utils.device import on_cuda
+
+MAX_K = 64
+MAX_C = 1024
+
+
+def knn_plain(
+    k: int, base: torch.Tensor, query: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: full distance matrix, then a stable ascending sort
+    (``torch.topk`` makes no promise about the order of ties)."""
+    d = square_distance(query, base)  # [B, S, N]
+    dist, idx = torch.sort(d, dim=-1, stable=True)
+    return dist[..., :k].contiguous(), idx[..., :k].to(torch.int32).contiguous()
+
+
+def _check(k: int, base: torch.Tensor, query: torch.Tensor) -> None:
+    if base.dim() != 3 or query.dim() != 3:
+        raise ValueError(f"knn: base/query must be [B,N,C]/[B,S,C], got {tuple(base.shape)}, {tuple(query.shape)}")
+    if base.shape[0] != query.shape[0] or base.shape[2] != query.shape[2]:
+        raise ValueError(f"knn: batch/channel mismatch {tuple(base.shape)} vs {tuple(query.shape)}")
+    if not 1 <= k <= base.shape[1]:
+        raise ValueError(f"knn: k={k} must be in [1, N={base.shape[1]}]")
+
+
+def knn_cuda(
+    k: int, base: torch.Tensor, query: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``knn_kernel`` on CUDA tensors."""
+    _check(k, base, query)
+    B, N, C = base.shape
+    S = query.shape[1]
+    if k > MAX_K or C > MAX_C:
+        raise ValueError(f"knn_kernel supports k <= {MAX_K} and C <= {MAX_C}, got k={k}, C={C}")
+    for name, t in (("base", base), ("query", query)):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"knn_kernel: {name} must be a contiguous float32 CUDA tensor")
+    if base.device != query.device:
+        raise ValueError("knn_kernel: base and query on different devices")
+    dist = torch.empty((B, S, k), dtype=torch.float32, device=base.device)
+    idx = torch.empty((B, S, k), dtype=torch.int32, device=base.device)
+    lib = build.load()
+    with torch.cuda.device(base.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(
+            lib.mpa_knn(base.data_ptr(), query.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+                        B, N, S, C, k, stream),
+            "knn_kernel",
+        )
+    kernels.launched("knn_kernel", {"k": k, "base": base, "query": query})
+    return dist, idx
+
+
+def knn(
+    k: int, base: torch.Tensor, query: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest neighbours of each query point among the base points.
+
+    Args:
+      k: number of neighbours (``k <= 64`` on CUDA).
+      base: ``[B, N, C]`` points/features searched over.
+      query: ``[B, S, C]`` query points/features.
+
+    Returns:
+      ``(sqr_dists [B, S, k] float32, idx [B, S, k] int32)``, ascending.
+    """
+    if on_cuda(base, "base"):
+        return knn_cuda(k, base.float().contiguous(), query.float().contiguous())
+    _check(k, base, query)
+    return knn_plain(k, base, query)
