@@ -320,7 +320,7 @@ def main() -> int:
         summary.append(entry)
     log("[4 kernels] times are per request (B=64 x 1024 points): the sum over the "
         "request's launches of each")
-    log(f"[4 card] {card}")
+    print(card, flush=True)  # the card, exactly as nvidia-smi reports it
     log(f"[4 total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
