@@ -4,6 +4,9 @@ The CUDA C++ sources live in ``csrc/``; ``build.py`` compiles them at first
 use. Each op wrapper in ``mpa_tpu_torch.ops`` calls :func:`launched` right
 where it launches its kernel, and nowhere else, so a run can show that its
 path went through the kernels: reset the counts, drive the path, read them.
+The backward kernels (``scatter_add_rows_kernel``,
+``transition_attention_bwd_kernel``) are launched from the ``backward`` of
+their ops' ``torch.autograd.Function`` and are counted and recorded there.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ KERNELS = (
     "fps_kernel",
     "gather_rows_kernel",
     "transition_attention_fwd_kernel",
+    "scatter_add_rows_kernel",
+    "transition_attention_bwd_kernel",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -1,14 +1,17 @@
-"""Markov-process point-cloud classifier (flagship model), inference.
+"""Markov-process point-cloud classifier (flagship model).
 
 Counterpart of ``mpa_tpu/models/markov_cls.py::MarkovClassifier``: the
 KeepHighResolution encoder, then the head ``fc1 -> bn1 -> LeakyReLU ->
-fc2 -> bn2 -> LeakyReLU -> fc3`` and ``log_softmax``. The head's dropout is
-the identity in eval mode, the only mode of this slice, so it has no field.
+dropout -> fc2 -> bn2 -> LeakyReLU -> dropout -> fc3`` and ``log_softmax``.
+Dropout acts in train mode only and draws its masks from the
+``torch.Generator`` the caller passes (flax's ``nn.Dropout``: keep with
+probability ``1 - dropout``, scale kept values by ``1 / (1 - dropout)``);
+torch cannot reproduce JAX's random bits, so parity runs use ``dropout=0``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +31,7 @@ class MarkovClassifier(nn.Module):
         residuals: Sequence[bool] = (True, False, False, True, True, True),
         num_neighbors: int = 8,
         encoder_features: int = 1024,
+        dropout: float = 0.5,
         use_umbrella: bool = False,
         compute_dtype: Any = None,
     ):
@@ -36,6 +40,9 @@ class MarkovClassifier(nn.Module):
             raise NotImplementedError("MarkovClassifier use_umbrella is not ported yet")
         if compute_dtype is not None:
             raise NotImplementedError("MarkovClassifier compute_dtype (mixed precision) is not ported yet")
+        if not 0.0 <= dropout < 1.0:
+            raise ValueError(f"dropout={dropout} must be in [0, 1)")
+        self.dropout = dropout
         self.keep_high = KeepHighResolutionEncoder(
             npoints=npoints, channels=channels, residuals=residuals,
             num_neighbors=num_neighbors, out_features=encoder_features,
@@ -46,14 +53,29 @@ class MarkovClassifier(nn.Module):
         self.bn2 = BatchNorm(256)
         self.fc3 = nn.Linear(256, num_classes)
 
-    def forward(self, points: torch.Tensor) -> torch.Tensor:
-        """points: ``[B, N, 3]`` xyz -> ``[B, num_classes]`` log-probs."""
-        if self.training:
-            raise NotImplementedError("MarkovClassifier training is not ported yet; call .eval()")
+    def forward(
+        self, points: torch.Tensor, *, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        """points: ``[B, N, 3]`` xyz -> ``[B, num_classes]`` log-probs.
+
+        ``generator`` (on the points' device) draws the dropout masks; train
+        mode with ``dropout > 0`` requires it.
+        """
         x = self.keep_high(points[..., :3])
-        x = F.leaky_relu(self.bn1(self.fc1(x)), negative_slope=0.2)
-        x = F.leaky_relu(self.bn2(self.fc2(x)), negative_slope=0.2)
+        for fc, bn in ((self.fc1, self.bn1), (self.fc2, self.bn2)):
+            x = F.leaky_relu(bn(fc(x)), negative_slope=0.2)
+            x = self._dropout(x, generator)
         return F.log_softmax(self.fc3(x), dim=-1)
+
+    def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.dropout == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("MarkovClassifier: train-mode dropout needs a torch.Generator "
+                             "on the model's device")
+        keep = 1.0 - self.dropout
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 @register_model("markov_cls")

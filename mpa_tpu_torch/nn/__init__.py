@@ -1,4 +1,5 @@
-"""Markov transition blocks, channel-last, eval mode."""
+"""Markov transition blocks, channel-last; train mode follows the module's
+``training`` flag (``BatchNorm`` is the only part that reads it)."""
 
 from mpa_tpu_torch.nn.linear import BatchNorm, LinearUnit
 from mpa_tpu_torch.nn.local_trans import LocalTrans

@@ -4,10 +4,10 @@ Counterpart of ``mpa_tpu/nn/linear.py::LinearUnit``. Submodule names follow
 the flax module (``linear``, ``norm``) so a JAX checkpoint maps onto it key
 for key (``utils/convert.py``).
 
-This slice is inference: BatchNorm normalises with its running statistics.
-Training mode raises, because flax keeps the biased batch variance in its
-running statistics and torch the unbiased one; the training slice owns that
-difference.
+BatchNorm follows flax (``nn.BatchNorm(momentum=0.9, epsilon=1e-5,
+use_fast_variance=False)``), not ``torch.nn.BatchNorm1d``, in train mode: it
+normalises with the biased batch variance computed in two passes, and keeps
+that biased variance, not the unbiased one, in its running statistics.
 """
 
 from __future__ import annotations
@@ -21,17 +21,31 @@ from torch import nn
 
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over every non-channel axis of a channel-last tensor
-    (``eps=1e-5``), eval mode only."""
+    (``eps=1e-5``) with flax's train-mode semantics.
+
+    Train mode: ``mean`` and the biased ``var = mean((x - mean)^2)`` over all
+    but the last axis; ``y = (x - mean) * (rsqrt(var + eps) * weight) +
+    bias`` (flax's ``_normalize``); the running statistics become
+    ``0.9 * running + (1 - 0.9) * batch`` with the biased ``var`` (flax
+    ``momentum=0.9`` is torch ``momentum=0.1``). Eval mode normalises with the
+    running statistics.
+    """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm training mode is not ported yet (flax's biased running "
-                "variance); call .eval()"
-            )
+            dims = tuple(range(x.dim() - 1))
+            mean = torch.mean(x, dim=dims)
+            centred = x - mean
+            var = torch.mean(centred * centred, dim=dims)
+            y = centred * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+            keep = 1.0 - self.momentum  # flax's momentum
+            with torch.no_grad():
+                self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
+                self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+            return y
         flat = x.reshape(-1, x.shape[-1])
         y = F.batch_norm(flat, self.running_mean, self.running_var, self.weight, self.bias,
                          False, 0.0, self.eps)

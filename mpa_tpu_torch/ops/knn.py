@@ -4,6 +4,13 @@ Counterpart of ``mpa_tpu/ops/knn.py::knn``: exact squared distances in
 float32, the k smallest per query in ascending order, ties to the lowest
 index (``lax.top_k``'s order). On a CUDA tensor it launches ``knn_kernel``
 (``kernels/csrc/knn.cu``); on a CPU tensor it takes :func:`knn_plain`.
+
+The distances are differentiable on both paths, as in ``mpa_tpu``. On CUDA
+the kernel's values are kept, and the backward is that of
+``sum_c (q - b[idx])^2``, the re-computation ``knn_pallas.py:147-165``
+differentiates: ``2 (q - b[idx]) g`` into ``query`` and its negation
+scatter-added into ``base`` (``gather_rows_kernel`` and
+``scatter_add_rows_kernel``). The indices carry no gradient.
 """
 
 from __future__ import annotations
@@ -12,8 +19,11 @@ from typing import Tuple
 
 import torch
 
+from torch.autograd.function import once_differentiable
+
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
+from mpa_tpu_torch.ops.gather import gather_cuda, scatter_add_cuda
 from mpa_tpu_torch.ops.pairwise import square_distance
 from mpa_tpu_torch.utils.device import on_cuda
 
@@ -68,6 +78,34 @@ def knn_cuda(
     return dist, idx
 
 
+class _KnnCuda(torch.autograd.Function):
+    """``knn_kernel`` forward; the backward of the selected squared
+    distances through the row gather and scatter-add kernels."""
+
+    @staticmethod
+    def forward(ctx, k: int, base: torch.Tensor, query: torch.Tensor):
+        dist, idx = knn_cuda(k, base, query)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(base, query, idx)
+        return dist, idx
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_dist: torch.Tensor, _g_idx):
+        base, query, idx = ctx.saved_tensors
+        B, N, C = base.shape
+        S, k = idx.shape[1], idx.shape[2]
+        flat = idx.reshape(B, S * k)
+        diff = query[:, :, None, :] - gather_cuda(base, flat).reshape(B, S, k, C)
+        d_query_rows = 2.0 * diff * g_dist[..., None]  # [B, S, k, C]
+        d_base = d_query = None
+        if ctx.needs_input_grad[1]:
+            d_base = scatter_add_cuda((-d_query_rows).reshape(B, S * k, C), flat, N)
+        if ctx.needs_input_grad[2]:
+            d_query = d_query_rows.sum(dim=2)
+        return None, d_base, d_query
+
+
 def knn(
     k: int, base: torch.Tensor, query: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,6 +120,6 @@ def knn(
       ``(sqr_dists [B, S, k] float32, idx [B, S, k] int32)``, ascending.
     """
     if on_cuda(base, "base"):
-        return knn_cuda(k, base.float().contiguous(), query.float().contiguous())
+        return _KnnCuda.apply(k, base.float().contiguous(), query.float().contiguous())
     _check(k, base, query)
     return knn_plain(k, base, query)

@@ -13,17 +13,11 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from mpa_tpu_torch.configs import PRESETS
 from mpa_tpu_torch.models import get_model
 from mpa_tpu_torch.utils.convert import from_jax_variables
 from mpa_tpu_torch.utils.device import DeviceLike, resolve_device
 from mpa_tpu_torch.utils.init import init_like_flax
-
-# The model fields of mpa_tpu/configs/presets.py that inference needs, kept
-# here so the port does not import the JAX package.
-PRESETS = {
-    # ScanObjectNN classification (published 86.20% OA), 1024-point clouds.
-    "scanobjectnn_cls": {"model": "markov_cls", "num_classes": 15},
-}
 
 
 class Classifier:
@@ -52,7 +46,7 @@ def load_classifier(
     """Build the preset's classifier on ``device`` (default ``cuda``).
 
     Args:
-      preset: a key of :data:`PRESETS`.
+      preset: a key of ``mpa_tpu_torch.configs.PRESETS``.
       variables: ``mpa_tpu`` variables as numpy arrays (flat
         ``params/...``/``batch_stats/...`` keys or the nested dict), loaded
         strictly; None initialises from ``seed`` with flax's default
@@ -65,7 +59,7 @@ def load_classifier(
         raise KeyError(f"unknown preset {preset!r}; available: {sorted(PRESETS)}")
     cfg = PRESETS[preset]
     dev = resolve_device(device)
-    model = get_model(cfg["model"], num_classes=cfg["num_classes"])
+    model = get_model(cfg.model, num_classes=cfg.num_classes)
     if variables is None:
         init_like_flax(model, torch.Generator().manual_seed(seed))
     else:

@@ -1,0 +1,117 @@
+"""Train and eval steps (counterpart of ``mpa_tpu/train/loop.py``).
+
+``mpa_tpu`` builds a pure jitted step over an immutable ``TrainState``;
+here the state is a small mutable object (model, optimizer, dropout
+generator, step count) and the step updates it in place.
+
+Optimizer semantics follow ``mpa_tpu``'s optax chains:
+
+- ``adam-l2``: L2 folded into the gradient before the moments, which is
+  ``torch.optim.Adam(weight_decay=wd)`` (not AdamW);
+- ``sgd``: heavy-ball momentum with the same in-gradient L2,
+  ``torch.optim.SGD(momentum, dampening=0, weight_decay=wd)``.
+
+Weight decay applies to every parameter, BatchNorm scales and biases
+included, as ``optax.add_decayed_weights`` does. A parameter that takes no
+part in the loss (``LocalTrans.q``) gets a zero gradient in JAX, which the
+decay term then moves through Adam; torch would leave its ``.grad`` as None
+and skip it, so the step gives every such parameter a zero gradient first.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterable, Optional
+
+import torch
+from torch import nn
+
+from mpa_tpu_torch.configs import TrainConfig
+from mpa_tpu_torch.train.losses import smooth_cls_loss
+from mpa_tpu_torch.train.schedules import Schedule, step_decay_schedule
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    generator: Optional[torch.Generator] = None  # dropout masks, on the model's device
+    step: int = 0
+
+
+def make_optimizer(
+    kind: str,
+    params: Iterable[torch.Tensor],
+    learning_rate: float,
+    weight_decay: float = 0.0,
+    momentum: float = 0.9,
+) -> torch.optim.Optimizer:
+    params = list(params)
+    if kind == "adam-l2":
+        return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=weight_decay)
+    if kind == "sgd":
+        return torch.optim.SGD(params, lr=learning_rate, momentum=momentum, dampening=0.0,
+                               weight_decay=weight_decay)
+    raise ValueError(f"unknown optimizer {kind}")
+
+
+def create_train_state(model: nn.Module, cfg: TrainConfig, device: torch.device) -> TrainState:
+    """Move ``model`` to ``device`` and pair it with ``cfg``'s optimizer and a
+    dropout generator on that device, seeded with ``cfg.seed``."""
+    model.to(device)
+    optimizer = make_optimizer(cfg.optimizer, model.parameters(), cfg.learning_rate,
+                               cfg.weight_decay, cfg.momentum)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    return TrainState(model, optimizer, generator)
+
+
+def make_train_step(
+    loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    schedule: Schedule,
+    steps_per_epoch: int,
+):
+    """Build ``train_step(state, points, labels) -> loss`` (detached).
+
+    The learning rate of step ``t`` (counted from 0) is
+    ``schedule(t // steps_per_epoch)``, as ``mpa_tpu``'s optax schedule reads
+    the step count before its update. The model runs in train mode.
+    """
+
+    def train_step(state: TrainState, points: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        lr = float(schedule(state.step // steps_per_epoch))
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(state.model(points, generator=state.generator), labels)
+        loss.backward()
+        for group in state.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        state.optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+    return train_step
+
+
+def make_cls_train_step(cfg: TrainConfig, steps_per_epoch: int):
+    """The classification step of ``cfg``: label-smoothed NLL under its
+    per-epoch step decay."""
+    smoothing = cfg.label_smoothing
+    schedule = step_decay_schedule(cfg.learning_rate, cfg.decay_step, cfg.decay_gamma)
+    return make_train_step(lambda out, labels: smooth_cls_loss(out, labels, smoothing),
+                           schedule, steps_per_epoch)
+
+
+def make_eval_step():
+    """Build ``eval_step(state, points) -> log-probs`` (eval mode, no grad)."""
+
+    def eval_step(state: TrainState, points: torch.Tensor) -> torch.Tensor:
+        state.model.eval()
+        with torch.inference_mode():
+            return state.model(points)
+
+    return eval_step

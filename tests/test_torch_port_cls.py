@@ -253,6 +253,10 @@ def test_port_imports_no_jax():
     scripts = [REPO / "chip_smoke.py", REPO / "profile_port.py"]
     files = sorted((REPO / "mpa_tpu_torch").rglob("*.py")) + scripts
     assert len(files) > 10 and all(p.exists() for p in scripts)
+    walked = {str(p.relative_to(REPO)) for p in files}
+    for module in ("train/loop.py", "train/losses.py", "train/schedules.py", "train/metrics.py",
+                   "data/synthetic.py", "cli/train.py", "configs.py"):
+        assert f"mpa_tpu_torch/{module}" in walked
     bad = {
         str(p.relative_to(REPO)): root
         for p in files

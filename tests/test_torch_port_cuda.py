@@ -1,7 +1,18 @@
 """Port kernels on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors, at shapes around the model's, including
-the tie cases. Every test here needs a CUDA card (the kernels have no CPU
-mode) and skips, through the ``dev`` fixture, without one.
+the tie cases; the backward kernels and the kNN distance gradient against
+the plain versions and torch autograd; one train step on the card against
+the CPU. Every test here needs a CUDA card (the kernels have no CPU mode)
+and skips, through the ``dev`` fixture, without one.
+
+Tolerances: the backward kernels add with ``atomicAdd``, in an order that
+changes from run to run, so their sums are held to a relative tolerance
+(1e-5 for the scatter-add, 1e-4 for the attention backward, whose node
+gradients also subtract near-equal terms) with an absolute floor at 1e-5 of
+the largest entry. The attention cases plant an eps-floored query, whose
+neighbours' dE is about 1e20; those entries and the rest are compared apart,
+each with the floor of its own largest entry. The train step is held to
+``chip_smoke.py``'s limits, on the same inputs.
 
 Run on a machine with an H100:
     python -m pytest tests/test_torch_port_cuda.py -q
@@ -11,10 +22,17 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from mpa_tpu_torch import kernels
-from mpa_tpu_torch.ops.attention import attention_cuda, attention_plain
+from mpa_tpu_torch.ops import index_points, knn, transition_attention
+from mpa_tpu_torch.ops.attention import (
+    attention_bwd_cuda,
+    attention_bwd_plain,
+    attention_cuda,
+    attention_plain,
+)
 from mpa_tpu_torch.ops.fps import fps_cuda, fps_plain
-from mpa_tpu_torch.ops.gather import gather_cuda, gather_plain
+from mpa_tpu_torch.ops.gather import gather_cuda, gather_plain, scatter_add_cuda, scatter_add_plain
 from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
 from mpa_tpu_torch.serve import load_classifier
 
@@ -96,6 +114,129 @@ def test_attention_kernel_matches_plain(dev, n_branches, with_shift, N, S, K, c)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+def _close(got, want, rtol):
+    atol = 1e-5 * float(want.abs().max()) + 1e-30
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("N,E,W,oob", [(1024, 512, 64, False), (512, 4096, 3, False),
+                                         (64, 1000, 130, True), (4096, 2048, 512, False)])
+def test_scatter_add_kernel_matches_plain(dev, N, E, W, oob):
+    g = torch.Generator().manual_seed(N)
+    grads = torch.randn((2, E, W), generator=g)
+    idx = torch.randint(0, N, (2, E), generator=g, dtype=torch.int32)
+    if oob:  # dropped targets
+        idx[:, ::7] = N + 5
+        idx[:, 1::7] = -1
+    grads, idx = grads.to(dev), idx.to(dev)
+    got = scatter_add_cuda(grads, idx, N)
+    want = scatter_add_plain(grads, idx, N)
+    _close(got, want, rtol=1e-5)
+
+
+FLOORED = 4  # the last nodes, E = 0: the neighbours of the eps-floored query
+
+
+def _close_dpacked(got, want, n_branches, c, rtol):
+    """dpacked in two parts, each against its own scale: the E columns of
+    the floored nodes (dE = dw V' / 1e-20, about 1e20) and everything else
+    (order 1)."""
+    floored = torch.zeros_like(want, dtype=torch.bool)
+    for r in range(n_branches):
+        floored[:, -FLOORED:, 2 * r * c:(2 * r + 1) * c] = True
+    assert float(want[floored].abs().max()) > 1e15
+    _close(got[floored], want[floored], rtol)
+    _close(got[~floored], want[~floored], rtol)
+
+
+def _attention_inputs(dev, n_branches, with_shift, N, S, K, c, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    packed = torch.randn((2, N, n_branches * 2 * c), generator=g)
+    for r in range(n_branches):
+        e = slice(2 * r * c, (2 * r + 1) * c)
+        packed[..., e] = packed[..., e].exp()
+        packed[:, -FLOORED:, e] = 0.0  # E = 0 on the last nodes
+    packed[:, 1] = packed[:, 0]  # a duplicate node: equal w, a tie
+    idx = torch.randint(0, N - FLOORED, (2, S, K), generator=g, dtype=torch.int32)
+    idx[:, 0, :2] = torch.tensor([0, 1], dtype=torch.int32)
+    idx[:, 1] = N - FLOORED + torch.arange(K, dtype=torch.int32) % FLOORED  # eps-floored query
+    idx[:, 2] = 5  # all K neighbours one node: a K-way tie
+    shifts = torch.randn((2, S, n_branches * c), generator=g) if with_shift else None
+    gctx = torch.randn((2, S, n_branches * c), generator=g)
+    return (packed.to(dev), idx.to(dev), None if shifts is None else shifts.to(dev),
+            gctx.to(dev))
+
+
+@pytest.mark.parametrize("n_branches,with_shift,N,S,K,c", [
+    (1, True, 1024, 1024, 8, 64),
+    (1, False, 1024, 512, 8, 64),
+    (1, False, 64, 32, 8, 512),
+    (2, True, 300, 100, 16, 24),
+    (2, False, 50, 20, 5, 7),
+    (1, True, 200, 60, 64, 32),
+])
+def test_attention_bwd_kernel_matches_plain(dev, n_branches, with_shift, N, S, K, c):
+    packed, idx, shifts, gctx = _attention_inputs(dev, n_branches, with_shift, N, S, K, c)
+    got_p, got_s = attention_bwd_cuda(packed, idx, shifts, gctx, n_branches, c)
+    want_p, want_s = attention_bwd_plain(packed, idx, shifts, gctx, n_branches, c)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got_p).all()
+    _close_dpacked(got_p, want_p, n_branches, c, rtol=1e-4)
+    if with_shift:
+        _close(got_s, want_s, rtol=1e-5)
+    else:
+        assert got_s is None
+
+
+def test_autograd_functions_on_cuda_match_plain(dev):
+    """index_points, transition_attention and the kNN distances on CUDA
+    tensors: forward through their kernels, backward through theirs, against
+    torch autograd of the plain versions on the same CUDA tensors."""
+    packed, idx, shifts, gctx = _attention_inputs(dev, 1, True, 256, 128, 8, 32)
+    base = _cloud(5, (2, 256, 16), dev, dup=True)
+    query = _cloud(6, (2, 64, 16), dev)
+    fidx = torch.randint(0, 256, (2, 64, 4), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32).to(dev)
+
+    def run(attn, gather, knn_fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (packed, shifts, base, query)]
+        p, s, b, q = leaves
+        dist, _ = knn_fn(8, b, q)
+        loss = (attn(p, idx, s, 1, 32) * gctx).sum() + (gather(b, fidx) ** 2).sum() \
+            + (dist * torch.linspace(0.5, 1.5, 8, device=dev)).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    kernels.reset_launch_counts()
+    got = run(transition_attention, index_points, knn)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["transition_attention_bwd_kernel"] == 1
+    # the gather's backward, and the kNN backward into the base points
+    assert kernels.LAUNCHES["scatter_add_rows_kernel"] == 2
+    want = run(attention_plain, gather_plain, knn_plain)
+    _close_dpacked(got[0], want[0], 1, 32, rtol=1e-4)
+    for a, b in zip(got[1:], want[1:]):
+        _close(a, b, rtol=1e-5)
+
+
+def test_train_step_on_cuda_matches_cpu_and_counts_launches(dev):
+    """One adam-l2 step at full width (B = 16 x 1024, dropout 0) on the card
+    and on the CPU from the same weights, through ``chip_smoke.train_parity``:
+    loss within 1e-4, every gradient within ``chip_smoke.GRAD_LIMIT`` units
+    of ``chip_smoke.grad_error_units``, the updated BatchNorm statistics
+    within 1e-4 relative; and the card step's launch counts."""
+    parity = chip_smoke.train_parity()
+    assert parity["launches"] == {
+        "knn_kernel": 11, "fps_kernel": 5, "gather_rows_kernel": 10,
+        "transition_attention_fwd_kernel": 11, "scatter_add_rows_kernel": 5,
+        "transition_attention_bwd_kernel": 11,
+    }
+    assert parity["loss_diff"] <= 1e-4
+    name, units = parity["grad_units"][0]
+    assert units <= chip_smoke.GRAD_LIMIT, f"grad {name}: {units:.3f} units"
+    name, err = parity["stat"]
+    assert err < 1e-4, f"{name}: relative error {err:.3e}"
+
+
 def test_classifier_on_cuda_matches_cpu_and_counts_launches(dev):
     x = np.random.default_rng(4).standard_normal((4, 1024, 3)).astype(np.float32)
     gpu = load_classifier(seed=0)
@@ -104,5 +245,7 @@ def test_classifier_on_cuda_matches_cpu_and_counts_launches(dev):
     got = gpu(x)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"knn_kernel": 11, "fps_kernel": 5, "gather_rows_kernel": 10,
-                                "transition_attention_fwd_kernel": 11}
+                                "transition_attention_fwd_kernel": 11,
+                                "scatter_add_rows_kernel": 0,
+                                "transition_attention_bwd_kernel": 0}
     torch.testing.assert_close(got.cpu(), cpu(x), rtol=0, atol=1e-3)

@@ -26,9 +26,9 @@ from mpa_tpu_torch.ops import (
     square_distance,
     transition_attention,
 )
-from mpa_tpu_torch.ops.attention import attention_cuda
+from mpa_tpu_torch.ops.attention import attention_bwd_cuda, attention_cuda
 from mpa_tpu_torch.ops.fps import fps_cuda
-from mpa_tpu_torch.ops.gather import gather_cuda
+from mpa_tpu_torch.ops.gather import gather_cuda, scatter_add_cuda
 from mpa_tpu_torch.ops.knn import knn_cuda
 
 
@@ -127,10 +127,13 @@ def test_transition_attention(n_branches, with_shift):
 
 def test_cpu_path_launches_no_kernel():
     kernels.reset_launch_counts()
-    pts = torch.from_numpy(_cloud(8, (1, 32, 3)))
+    pts = torch.from_numpy(_cloud(8, (1, 32, 3))).requires_grad_(True)
     idx = farthest_point_sample(pts, 8)
-    index_points(pts, idx)
-    knn(4, pts, pts)
+    dist, nbr = knn(4, pts, pts)
+    packed = torch.cat([index_points(pts, idx).exp(), pts[:, :8]], dim=-1)
+    out = transition_attention(packed, nbr[:, :8] % 8, None, 1, 3)
+    (out.sum() + dist.sum()).backward()  # the backward takes the plain ops too
+    assert pts.grad is not None and torch.isfinite(pts.grad).all()
     assert kernels.LAUNCHES == {name: 0 for name in kernels.KERNELS}
 
 
@@ -141,8 +144,11 @@ def test_cpu_path_launches_no_kernel():
         lambda t: fps_cuda(t, 4),
         lambda t: gather_cuda(t, torch.zeros((1, 4), dtype=torch.int32)),
         lambda t: attention_cuda(torch.ones((1, 8, 6)), torch.zeros((1, 2, 2), dtype=torch.int32), None, 1, 3),
+        lambda t: scatter_add_cuda(t, torch.zeros((1, 8), dtype=torch.int32), 8),
+        lambda t: attention_bwd_cuda(torch.ones((1, 8, 6)), torch.zeros((1, 2, 2), dtype=torch.int32),
+                                     None, torch.ones((1, 2, 3)), 1, 3),
     ],
-    ids=["knn", "fps", "gather", "attention"],
+    ids=["knn", "fps", "gather", "attention", "scatter_add", "attention_bwd"],
 )
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError):
