@@ -3,41 +3,55 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at the published ``scanobjectnn_cls``
-width (1024 points, 15 classes, full ladder) with random weights from a
-seed, markov_cls inference and markov_cls training, and shows that they run
-through the port's six hand-written kernels (four forward, two backward):
+Drives the port's four main paths at their presets' published widths with
+random weights from a seed: ``markov_cls`` (``scanobjectnn_cls``: 1024
+points, 15 classes, full ladder) served and trained, and ``markov_partseg``
+(``shapenetpart``: 2048 points, ladder 1024/512/256/128, 16 categories, 50
+parts) served and trained. It shows that they run through the port's seven
+hand-written kernels (five forward, two backward):
 
 1. the card (``nvidia-smi`` name and power limit), then the kernel build
    from ``mpa_tpu_torch/kernels/csrc`` and its seconds;
-2. end to end: ``load_classifier`` on ``cuda`` answers two warm-up requests
+2. cls served: ``load_classifier`` on ``cuda`` answers two warm-up requests
    and then three requests of 64 clouds x 1024 points (made with numpy from a
    fixed seed), with every launch count set to 0 just before and read just
    after; the outputs must be finite log-probabilities and match the same
    weights run on the CPU (the plain ops) within 1e-3;
-2b. training: the preset's train step (adam-l2, lr 1e-3, wd 1e-4, label
+2b. cls trained: the preset's train step (adam-l2, lr 1e-3, wd 1e-4, label
    smoothing 0.1, head dropout 0.5, train-mode BatchNorm) on ``cuda`` at
    B = 64 synthetic clouds: two warm-up steps, then five timed steps with
-   every launch count set to 0 just before and read just after (the forward
-   counts above plus 11 ``transition_attention_bwd_kernel`` and 5
-   ``scatter_add_rows_kernel`` per step), finite losses; ten steps on one
-   fixed batch must lower the loss; one step at B = 16 with dropout 0 on
-   ``cuda`` and on the CPU (plain ops) from the same weights must agree in
-   loss (1e-4), in every gradient (``grad_error_units`` at most
-   ``GRAD_LIMIT``) and in the updated BatchNorm statistics (1e-4
-   relative); and ``mpa_tpu_torch.cli.train`` runs three steps and its
-   eval pass in-process;
-3. every kernel launch of one more request of the same shapes, and every
-   backward launch of one more train step, is replayed on its own inputs,
-   kernel against its plain PyTorch version (FPS, gather and kNN indices
-   exactly equal; attention and kNN distances within 1e-5 relative; the
-   scatter-add within 1e-5 and the attention backward within 1e-4 relative,
-   with an absolute floor at 1e-5 of the largest entry, for their atomic
-   adds), with the kernel's, the plain version's and, where one PyTorch
+   every launch count set to 0 just before and read just after, finite
+   losses; ten steps on one fixed batch must lower the loss; one step at
+   B = 16 with dropout 0 on ``cuda`` and on the CPU (plain ops) from the same
+   weights must agree in loss (1e-4), in every gradient
+   (``grad_error_units`` at most the path's ``grad_limit``) and in the
+   updated BatchNorm statistics (1e-4 relative); and
+   ``mpa_tpu_torch.cli.train`` runs three steps and its eval pass in-process;
+2c. part-seg served: ``load_segmenter`` on ``cuda``, two warm-up and three
+   timed requests of 32 clouds x 2048 points with their categories
+   (``realistic_partseg``), launch counts read and asserted
+   (``scatter_mean_kernel`` included), finite log-probs whose rows sum to 1;
+   the first four clouds of a request on the card against the CPU plain ops
+   from the same weights (``segmentation_agreement`` within ``SEG_LIMITS``);
+2d. part-seg trained: the preset's step (SGD 0.1 / momentum 0.9 / wd 1e-4,
+   cosine, smoothing 0.1, dropout 0.5) at B = 32, with the checks of 2b (the
+   parity step at B = 4) and a three-step ``cli.train --preset
+   shapenetpart``;
+3. every kernel launch of one more request of each model, and every
+   backward launch of one more train step of each, is replayed on its own
+   inputs, kernel against its plain PyTorch version (FPS, gather and kNN
+   indices exactly equal; attention and kNN distances within 1e-5 relative;
+   the scatter-add within 1e-5 and the attention backward within 1e-4
+   relative, with an absolute floor at 1e-5 of the largest entry, for their
+   atomic adds; the scatter-mean's count exactly equal, its mean bit-equal
+   to the plain version run on the CPU, unchanged by a second launch, and
+   within 1e-5 of the plain version on the card, whose ``index_add_`` is
+   atomic), with the kernel's, the plain version's and, where one PyTorch
    call computes the same function, that call's time, beside the bound the
-   card's memory rate and float32 rate put on the same work; and the kNN
+   card's memory rate and float32 rate put on the same work; the kNN
    distance gradient of one recorded feature-space kNN is held against
-   torch autograd of the plain kNN;
+   torch autograd of the plain kNN, and the scatter-mean's backward at
+   every recorded launch against autograd of its plain version;
 4. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -48,12 +62,15 @@ the CPU or to a plain version. Without a CUDA card, or away from the repo's
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -61,30 +78,61 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-BATCH, POINTS, REQUESTS, SEED = 64, 1024, 3, 0
-PER_FORWARD = {
+REQUESTS, SEED = 3, 0
+TRAIN_WARMUP, TRAIN_STEPS, FIXED_STEPS = 2, 5, 10
+BACKWARD = ("scatter_add_rows_kernel", "transition_attention_bwd_kernel")
+CLS_FORWARD = {
     "knn_kernel": 11,  # la0 self-kNN + spatial and feature kNN in la1..la5
     "fps_kernel": 5,  # one per ladder step
     "gather_rows_kernel": 10,  # new_xyz and center_feat in la1..la5
     "transition_attention_fwd_kernel": 11,  # la0 + two branches in la1..la5
 }
-PER_TRAIN_STEP = dict(
-    PER_FORWARD,
-    transition_attention_bwd_kernel=11,  # the backward of every attention call
-    scatter_add_rows_kernel=5,  # the backward of center_feat's gather in la1..la5
-)
-BACKWARD = ("scatter_add_rows_kernel", "transition_attention_bwd_kernel")
-TRAIN_WARMUP, TRAIN_STEPS, FIXED_STEPS, PARITY_BATCH, TRAIN_CLOUDS = 2, 5, 10, 16, 512
+PARTSEG_FORWARD = {
+    # la0's self-kNN, spatial + feature in la1..la4 and in the four decoder
+    # states (scale 0 reuses la0's), six fresh ones for Fuse's non-adjacent pairs
+    "knn_kernel": 22,
+    "fps_kernel": 4,
+    "gather_rows_kernel": 18,  # new_xyz and center_feat in la1..la4, ten finer sources in Fuse
+    # la0, then per state one two-branch call (xyz + spatial) and one feature call
+    "transition_attention_fwd_kernel": 17,
+    "scatter_mean_kernel": 14,  # four decoder upsamples, ten coarser sources in Fuse
+}
 # The card's step against the CPU's: loss and BatchNorm statistics (relative)
-# within 1e-4; every gradient within GRAD_LIMIT units of grad_error_units.
+# within 1e-4; every gradient within ``grad_limit`` units of grad_error_units.
 # cuBLAS and the CPU round float32 products differently and the atomic adds
 # land in no fixed order; near-tie selections (feature kNN, max over K, max
-# pool) amplify such last-bit differences in the gradients. On an H100 the
-# correct step reads 4.0 units, and planted faults in the backward kernels
-# read 182.7 (one edge of every scatter-add dropped) and 4194.5 (the
-# attention's correction term dropped); PERF.md has the runs.
-GRAD_LIMIT = 20
-# Gradients that are zero up to rounding in this model: the k projections'
+# pool) amplify such last-bit differences in the gradients. PERF.md has the
+# readings of a correct step and of planted kernel faults that set each limit.
+PATHS = {
+    "cls": dict(
+        preset="scanobjectnn_cls", batch=64, points=1024, parity_batch=16,
+        per_forward=CLS_FORWARD,
+        per_train_step=dict(
+            CLS_FORWARD,
+            transition_attention_bwd_kernel=11,  # the backward of every attention call
+            scatter_add_rows_kernel=5,  # the backward of center_feat's gather in la1..la5
+        ),
+        grad_limit=20,
+    ),
+    "partseg": dict(
+        preset="shapenetpart", batch=32, points=2048, parity_batch=4,
+        per_forward=PARTSEG_FORWARD,
+        per_train_step=dict(
+            PARTSEG_FORWARD,
+            gather_rows_kernel=18 + 14,  # the backward of every scatter-mean
+            transition_attention_bwd_kernel=17,
+            scatter_add_rows_kernel=14,  # center_feat's gathers and Fuse's ten
+        ),
+        grad_limit=20,
+    ),
+}
+# The served part-seg log-probs on the card against the CPU's, per point the
+# largest difference over the 50 parts: limits on its median over the points
+# and on the share of points whose argmax agrees. A feature-space neighbour
+# that flips on a last bit moves single points by far more, so the maximum is
+# reported and not limited. PERF.md has the readings that set the limits.
+SEG_LIMITS = {"median_abs": 1e-4, "argmax_agreement": 0.99}
+# Gradients that are zero up to rounding in these models: the k projections'
 # biases (a shift of k cancels in the attention's normalisation), the q
 # projections (no part in the output), and the biases of the Dense layers
 # ahead of a train-mode BatchNorm. Only these get an absolute floor.
@@ -101,6 +149,8 @@ SOURCES = {
                                 "mpa_tpu/ops/pallas/gather_pallas.py:267"),
     "transition_attention_bwd_kernel": ("mpa_tpu_torch/kernels/csrc/attention_bwd.cu",
                                         "mpa_tpu/ops/pallas/attention_pallas.py:388"),
+    "scatter_mean_kernel": ("mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
+                            "mpa_tpu/ops/pallas/scatter_pallas.py:70"),
 }
 ALSO_REPLACES = {
     "transition_attention_fwd_kernel": "mpa_tpu/ops/pallas/attention_pallas.py:347",
@@ -188,6 +238,14 @@ def bound(name: str, inp: dict):
         B, E, W = inp["grads"].shape
         nbytes = 4 * (B * E * W + B * E + B * inp["num_points"] * W)
         ops = B * E * W  # one add per gradient float
+    elif name == "scatter_mean_kernel":
+        B, S, C = inp["features"].shape
+        K, N = inp["knn_idx"].shape[2], inp["num_fine"]
+        nbytes = 4 * (B * S * C + B * S * K + B * N * C + B * N)
+        # One add per float of every row that lands in a slot (this call's
+        # indices, not the most there could be), one divide per output float.
+        idx = inp["knn_idx"]
+        ops = int(((idx >= 0) & (idx < N)).sum()) * C + B * N * C
     elif name == "transition_attention_bwd_kernel":
         B, N, Win = inp["packed"].shape
         S, K = inp["idx"].shape[1:]
@@ -246,6 +304,27 @@ def check_knn_grad(inp: dict) -> float:
     return err
 
 
+def check_scatter_mean_grad(inp: dict) -> float:
+    """The scatter-mean's gradient on CUDA (``gather_rows_kernel`` on the
+    gradient divided by the kernel's count) against torch autograd of the
+    plain version on the same inputs. Both take one divide and a sum over K
+    per entry, in another order: 1e-5 relative, 1e-6 absolute."""
+    from mpa_tpu_torch.ops.scatter import scatter_mean_plain, scatter_mean_upsample
+
+    # A served request's tensors were made in inference mode; autograd saves
+    # the index, so it takes a copy.
+    feats, idx, n = inp["features"].detach(), inp["knn_idx"].clone(), inp["num_fine"]
+    g = torch.randn((feats.shape[0], n, feats.shape[2]), device=feats.device,
+                    generator=torch.Generator(device=feats.device).manual_seed(SEED))
+    grads = []
+    for fn in (scatter_mean_upsample, lambda f, i, m: scatter_mean_plain(f, i, m)[0]):
+        f = feats.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(f, idx, n), f, g)[0])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
+    return (grads[0] - grads[1]).abs().max().item()
+
+
 def check_call(name: str, inp: dict) -> dict:
     """Kernel against plain version on one recorded call, with its times."""
     # A backward launch records tensors that autograd saved; replay them
@@ -259,6 +338,7 @@ def check_call(name: str, inp: dict) -> dict:
         gather_cuda, gather_plain, scatter_add_cuda, scatter_add_plain,
     )
     from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
+    from mpa_tpu_torch.ops.scatter import scatter_mean_cuda, scatter_mean_plain
 
     library, ref = None, None
     if name == "knn_kernel":
@@ -303,6 +383,36 @@ def check_call(name: str, inp: dict) -> dict:
         err = assert_close_scaled(got, want, rtol=1e-5, what=name)
         ref = want.abs().max().item()
         shape = f"grads {tuple(grads.shape)} into N={n}"
+    elif name == "scatter_mean_kernel":
+        feats, idx, n = inp["features"], inp["knn_idx"], inp["num_fine"]
+        B, S, C = feats.shape
+        K = idx.shape[2]
+        kern = lambda: scatter_mean_cuda(feats, idx, n)  # noqa: E731
+        plain = lambda: scatter_mean_plain(feats, idx, n)  # noqa: E731
+        rows = (idx.long() + torch.arange(B, device=idx.device)[:, None, None] * n).reshape(-1)
+        vals = feats[:, :, None, :].expand(B, S, K, C).reshape(-1, C)
+        ones = torch.ones_like(rows, dtype=torch.float32)
+
+        def library():  # index_add_ of the rows and of ones, then the divide
+            total = torch.zeros((B * n, C), device=feats.device).index_add_(0, rows, vals)
+            cnt = torch.zeros((B * n,), device=feats.device).index_add_(0, rows, ones)
+            return total / cnt.clamp_min(1.0)[:, None]
+
+        (got, gc), (again, _), (want, wc) = kern(), kern(), plain()
+        cpu, cc = scatter_mean_plain(feats.cpu(), idx.cpu(), n)
+        if not (torch.equal(gc, wc) and torch.equal(gc.cpu(), cc)):
+            raise AssertionError("scatter_mean_kernel: the count differs from the plain version")
+        if not torch.equal(got, again):
+            raise AssertionError("scatter_mean_kernel: two launches on the same inputs differ")
+        if not torch.equal(got.cpu(), cpu):
+            raise AssertionError(
+                f"scatter_mean_kernel differs from the plain version on the CPU at "
+                f"{int((got.cpu() != cpu).sum())} places")
+        # The plain version's index_add_ is atomic on the card: a sum of up to a
+        # few dozen rows in another order. The CPU comparison above is the exact one.
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        err = (got - want).abs().max().item()
+        shape = f"features {tuple(feats.shape)} idx {tuple(idx.shape)} into N={n}"
     elif name == "transition_attention_bwd_kernel":
         args = (inp["packed"], inp["idx"], inp["shifts"], inp["gctx"], inp["n_branches"], inp["c"])
         kern, plain = (lambda: attention_bwd_cuda(*args)), (lambda: attention_bwd_plain(*args))
@@ -338,20 +448,29 @@ def check_call(name: str, inp: dict) -> dict:
     return row
 
 
-def training_data():
-    """The training CLI's synthetic clouds: ``TRAIN_CLOUDS`` of ``POINTS``."""
-    from mpa_tpu_torch.data.synthetic import synthetic_clouds
+def path_config(path: str):
+    """The preset of ``path`` ("cls" or "partseg") with this script's seed."""
+    from mpa_tpu_torch.configs import PRESETS
 
-    return synthetic_clouds(TRAIN_CLOUDS, POINTS, 15, seed=SEED)
+    return PRESETS[PATHS[path]["preset"]].with_overrides(seed=SEED)
 
 
-def fresh_model(**kw):
-    """The preset's classifier with weights drawn from ``SEED``."""
+def fresh_model(path: str, **kw):
+    """The path's model at its preset's width, with weights drawn from ``SEED``."""
+    from mpa_tpu_torch.configs import model_kwargs
     from mpa_tpu_torch.models import get_model
     from mpa_tpu_torch.utils.init import init_like_flax
 
-    model = get_model("markov_cls", num_classes=15, **kw)
+    cfg = path_config(path)
+    model = get_model(cfg.model, **model_kwargs(cfg), **kw)
     return init_like_flax(model, torch.Generator().manual_seed(SEED))
+
+
+def make_step(path: str, steps_per_epoch: int):
+    from mpa_tpu_torch.train import TRAIN_STEPS
+
+    cfg = path_config(path)
+    return TRAIN_STEPS[cfg.task](cfg, steps_per_epoch)
 
 
 def grad_error_units(got: dict, want: dict) -> list:
@@ -367,63 +486,77 @@ def grad_error_units(got: dict, want: dict) -> list:
     return sorted(units.items(), key=lambda kv: -kv[1])
 
 
-def train_parity() -> dict:
-    """One adam-l2 step with dropout 0 on the card and on the CPU (plain ops),
-    from the same weights and the first ``PARITY_BATCH`` training clouds.
-    Returns the loss difference, ``grad_error_units`` of the gradients, the
-    worst relative error of a BatchNorm running statistic as ``(name,
-    value)``, the card step's launch counts and both steps' wall seconds."""
+def train_parity(path: str) -> dict:
+    """One step of the path's preset with dropout 0 on the card and on the
+    CPU (plain ops), from the same weights and the first ``parity_batch``
+    training clouds. Returns the loss difference, ``grad_error_units`` of the
+    gradients, the worst error of a BatchNorm running statistic (relative to
+    its norm plus 1e-3 an entry) as ``(name, value)``, the card step's launch
+    counts and both steps' wall seconds."""
     from mpa_tpu_torch import kernels
-    from mpa_tpu_torch.configs import PRESETS
-    from mpa_tpu_torch.train import create_train_state, make_cls_train_step
+    from mpa_tpu_torch.cli import train as cli_train
+    from mpa_tpu_torch.train import create_train_state
 
-    cfg = PRESETS["scanobjectnn_cls"].with_overrides(seed=SEED)
-    pts, labels = training_data()
-    model = fresh_model(dropout=0.0)
+    spec, cfg = PATHS[path], path_config(path)
+    arrays, _ = cli_train.load_dataset(cfg, n_eval=1)
+    head = tuple(a[:spec["parity_batch"]] for a in arrays)
+    model = fresh_model(path, dropout=0.0)
     results = {}
     for device in (torch.device("cuda"), torch.device("cpu")):
         state = create_train_state(copy.deepcopy(model), cfg, device)
-        x = torch.from_numpy(pts[:PARITY_BATCH]).to(device)
-        y = torch.from_numpy(labels[:PARITY_BATCH]).to(device)
+        inputs, labels = cli_train.make_inputs(cfg, head, device)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        loss = float(make_cls_train_step(cfg, TRAIN_CLOUDS // BATCH)(state, x, y))
+        loss = float(make_step(path, len(arrays[0]) // spec["batch"])(state, inputs, labels))
         wall = time.perf_counter() - t0
         grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
         stats = {n: b.detach().cpu() for n, b in state.model.named_buffers() if "running" in n}
         results[device.type] = (loss, grads, stats, wall, dict(kernels.LAUNCHES))
     (lg, gg, sg, wg, launches), (lc, gc, sc, wc, _) = results["cuda"], results["cpu"]
-    stat_err = {n: float((sg[n] - sc[n]).norm() / sc[n].norm().clamp_min(1e-30)) for n in sc}
+    # Relative to the statistic's norm plus 1e-3 an entry: a running mean that
+    # is zero up to rounding (a Dense with a zero bias on centred coordinates)
+    # has no relative error to speak of.
+    stat_err = {n: float((sg[n] - sc[n]).norm() / (sc[n].norm() + 1e-3 * sc[n].numel() ** 0.5))
+                for n in sc}
     return {
         "loss_diff": abs(lg - lc),
         "grad_units": grad_error_units(gg, gc),
         "stat": max(stat_err.items(), key=lambda kv: kv[1]),
-        "launches": launches,
+        "launches": {k: v for k, v in launches.items() if v},
         "cuda_s": wg,
         "cpu_s": wc,
     }
 
 
-def train_phase() -> dict:
-    """Phase 2b: the train step on the card, its launch counts, the loss on a
-    fixed batch, the CUDA step against the CPU step, and the training CLI."""
+def check_launches(tag: str, launches: dict, per_unit: dict, units: int, unit: str) -> None:
+    """Every kernel's count over ``units`` requests or steps is exactly
+    ``per_unit``'s, and a kernel the path does not run was not launched."""
+    for name, count in launches.items():
+        if count != per_unit.get(name, 0) * units:
+            raise AssertionError(f"{tag} {name}: {count} launches over {units} {unit}s, "
+                                 f"want {per_unit.get(name, 0)} per {unit}")
+
+
+def train_phase(path: str, tag: str) -> dict:
+    """Phases 2b and 2d: the path's train step on the card, its launch
+    counts, the loss on a fixed batch, the CUDA step against the CPU step,
+    and the training CLI."""
     from mpa_tpu_torch import kernels
     from mpa_tpu_torch.cli import train as cli_train
-    from mpa_tpu_torch.configs import PRESETS
-    from mpa_tpu_torch.train import create_train_state, make_cls_train_step
+    from mpa_tpu_torch.train import create_train_state
 
-    cfg = PRESETS["scanobjectnn_cls"].with_overrides(seed=SEED)
-    pts, labels = training_data()
-    steps_per_epoch = TRAIN_CLOUDS // BATCH
+    spec, cfg = PATHS[path], path_config(path)
+    B, points = spec["batch"], spec["points"]
+    arrays, _ = cli_train.load_dataset(cfg, n_eval=1)
+    steps_per_epoch = len(arrays[0]) // B
     cuda = torch.device("cuda")
 
     def batch(i):
-        sl = slice(i * BATCH, (i + 1) * BATCH)
-        return torch.from_numpy(pts[sl]).to(cuda), torch.from_numpy(labels[sl]).to(cuda)
+        return cli_train.make_inputs(cfg, tuple(a[i * B:(i + 1) * B] for a in arrays), cuda)
 
     # Timed steps, with the launch counts of exactly those steps.
-    state = create_train_state(fresh_model(), cfg, cuda)
-    step = make_cls_train_step(cfg, steps_per_epoch)
+    state = create_train_state(fresh_model(path), cfg, cuda)
+    step = make_step(path, steps_per_epoch)
     for i in range(TRAIN_WARMUP):
         step(state, *batch(i))
     torch.cuda.synchronize()
@@ -436,12 +569,10 @@ def train_phase() -> dict:
         times.append(time.perf_counter() - t0)
     launches = dict(kernels.LAUNCHES)
     for i, (dt, loss) in enumerate(zip(times, losses)):
-        log(f"[2b train] step {i}: B={BATCH} x {POINTS} pts, loss {loss:.4f}, "
-            f"{dt * 1e3:.3f} ms, {BATCH / dt:.1f} clouds/s")
-    log(f"[2b train] launches over {TRAIN_STEPS} steps: {launches}")
-    for name, per in PER_TRAIN_STEP.items():
-        if launches[name] != per * TRAIN_STEPS:
-            raise AssertionError(f"{name}: {launches[name]} launches, want {per} per train step")
+        log(f"[{tag}] step {i}: B={B} x {points} pts, loss {loss:.4f}, "
+            f"{dt * 1e3:.3f} ms, {B / dt:.1f} clouds/s")
+    log(f"[{tag}] launches over {TRAIN_STEPS} steps: {launches}")
+    check_launches(tag, launches, spec["per_train_step"], TRAIN_STEPS, "train step")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train losses {losses}")
 
@@ -454,37 +585,295 @@ def train_phase() -> dict:
     del state
 
     # Ten steps on one fixed batch must lower the loss.
-    state = create_train_state(fresh_model(), cfg, cuda)
-    step = make_cls_train_step(cfg, steps_per_epoch)
+    state = create_train_state(fresh_model(path), cfg, cuda)
+    step = make_step(path, steps_per_epoch)
     x, y = batch(0)
     fixed = [float(step(state, x, y)) for _ in range(FIXED_STEPS)]
-    log(f"[2b train] {FIXED_STEPS} steps on one batch: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
+    log(f"[{tag}] {FIXED_STEPS} steps on one batch: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
     if not fixed[-1] < fixed[0]:
         raise AssertionError(f"the loss did not fall on a fixed batch: {fixed}")
     del state
 
-    parity = train_parity()
-    log(f"[2b train] cuda vs cpu, one step at B={PARITY_BATCH} "
+    parity = train_parity(path)
+    log(f"[{tag}] cuda vs cpu, one step at B={spec['parity_batch']} "
         f"({parity['cuda_s'] * 1e3:.1f} ms on the card, {parity['cpu_s']:.1f} s on the host): "
         f"loss |d| {parity['loss_diff']:.3e} (limit 1e-4); gradient error in units of "
-        f"grad_error_units (limit {GRAD_LIMIT}), largest: "
+        f"grad_error_units (limit {spec['grad_limit']}), largest: "
         + ", ".join(f"{n} {u:.3f}" for n, u in parity["grad_units"][:3])
         + f"; worst statistic {parity['stat'][0]} rel {parity['stat'][1]:.3e} (limit 1e-4)")
-    if (not parity["loss_diff"] <= 1e-4 or parity["grad_units"][0][1] > GRAD_LIMIT
+    if (not parity["loss_diff"] <= 1e-4 or parity["grad_units"][0][1] > spec["grad_limit"]
             or parity["stat"][1] > 1e-4):
-        raise AssertionError("the CUDA train step differs from the CPU step")
+        raise AssertionError(f"[{tag}] the CUDA train step differs from the CPU step")
 
     # The training CLI, in-process.
-    out = cli_train.main(["--device", "cuda", "--max_steps", "3", "--seed", str(SEED)])
+    out = cli_train.main(["--preset", spec["preset"], "--device", "cuda", "--max_steps", "3",
+                          "--seed", str(SEED)])
     if out["steps"] != 3 or not np.isfinite(out["losses"]).all():
         raise AssertionError(f"cli.train: {out}")
-    log(f"[2b train] cli.train: 3 steps, losses {out['losses']}, eval instance acc "
-        f"{out['instance_acc']:.4f}")
+    log(f"[{tag}] cli.train: 3 steps, losses {out['losses']}, eval "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items() if k not in ("steps", "losses")))
     return {"launches": launches, "recorded": recorded,
             "step_ms": [t * 1e3 for t in times]}
 
 
+def segmentation_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Two ``[B, N, P]`` log-prob tensors compared point by point: the
+    largest difference over the parts at each point (its maximum, median and
+    99th percentile over the points) and the share of points whose argmax
+    agrees."""
+    d = (got.float() - want.float()).abs().amax(-1).flatten()
+    return {
+        "max_abs": d.max().item(),
+        "median_abs": d.median().item(),
+        "p99_abs": torch.quantile(d, 0.99).item(),
+        "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+    }
+
+
+def segmenter_parity(batch: int = PATHS["partseg"]["parity_batch"]) -> dict:
+    """``load_segmenter`` on the card against the CPU (plain ops) from the
+    same weights on ``batch`` synthetic clouds: ``segmentation_agreement``
+    and the CPU's seconds."""
+    from mpa_tpu_torch.data import realistic_partseg
+    from mpa_tpu_torch.serve import load_segmenter
+
+    pts, cats, _ = realistic_partseg(batch, PATHS["partseg"]["points"], seed=SEED)
+    got = load_segmenter("shapenetpart", seed=SEED)(pts, cats).cpu()
+    cpu = load_segmenter("shapenetpart", seed=SEED, device="cpu")
+    t0 = time.perf_counter()
+    want = cpu(pts, cats)
+    return dict(segmentation_agreement(got, want), cpu_s=time.perf_counter() - t0)
+
+
+def serve_phase(path: str, tag: str) -> dict:
+    """Phases 2 and 2c: the path's serving entry point answers two warm-up
+    and ``REQUESTS`` timed requests on the card; launch counts, finite
+    log-probabilities, and the card against the CPU."""
+    from mpa_tpu_torch import kernels
+    from mpa_tpu_torch.data import realistic_partseg
+    from mpa_tpu_torch.serve import load_classifier, load_segmenter
+
+    spec = PATHS[path]
+    B, points = spec["batch"], spec["points"]
+    if path == "partseg":
+        serve = load_segmenter(spec["preset"], seed=SEED)
+        pts, cats, _ = realistic_partseg(B * (REQUESTS + 1), points, seed=SEED)
+        requests = [(pts[i * B:(i + 1) * B], cats[i * B:(i + 1) * B])
+                    for i in range(REQUESTS + 1)]
+        out_shape = (B, points, path_config(path).num_parts)
+    else:
+        serve = load_classifier(spec["preset"], seed=SEED)
+        rng = np.random.default_rng(SEED)
+        requests = [(rng.standard_normal((B, points, 3)).astype(np.float32),)
+                    for _ in range(REQUESTS + 1)]
+        out_shape = (B, path_config(path).num_classes)
+    for _ in range(2):  # warm-up: kernel loading, allocator growth
+        serve(*requests[0])
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    outputs, latencies = [], []
+    for req in requests[1:]:
+        t0 = time.perf_counter()
+        out = serve(*req)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        outputs.append(out)
+    launches = dict(kernels.LAUNCHES)
+
+    # One more request of the same shapes records every kernel's inputs for
+    # phase 3 (recording keeps them alive, so it stays out of the timed ones).
+    kernels.recorded = []
+    serve(*requests[1])
+    recorded, kernels.recorded = kernels.recorded, None
+
+    for i, lat in enumerate(latencies):
+        log(f"[{tag}] request {i}: B={B} x {points} pts, {lat * 1e3:.3f} ms, "
+            f"{B / lat:.1f} clouds/s")
+    log(f"[{tag}] launches over {REQUESTS} requests: {launches}")
+    check_launches(tag, launches, spec["per_forward"], REQUESTS, "request")
+    for out in outputs:
+        if tuple(out.shape) != out_shape or not torch.isfinite(out).all():
+            raise AssertionError(f"[{tag}] bad output {tuple(out.shape)}")
+        torch.testing.assert_close(out.exp().sum(-1), torch.ones(out_shape[:-1], device=out.device),
+                                   rtol=0, atol=1e-4)
+    if path == "partseg":
+        report = segmenter_parity()
+        log(f"[{tag}] cuda vs cpu at B={spec['parity_batch']} (plain ops, {report['cpu_s']:.1f} s "
+            f"on the host): per point max |dlogp| over the parts: median "
+            f"{report['median_abs']:.3e} (limit {SEG_LIMITS['median_abs']:.0e}), 99th percentile "
+            f"{report['p99_abs']:.3e}, max {report['max_abs']:.3e}; argmax agreement "
+            f"{report['argmax_agreement']:.5f} (limit {SEG_LIMITS['argmax_agreement']})")
+        if (not report["median_abs"] <= SEG_LIMITS["median_abs"]
+                or not report["argmax_agreement"] >= SEG_LIMITS["argmax_agreement"]):
+            raise AssertionError(f"[{tag}] cuda and cpu log-probs differ: {report}")
+    else:
+        cpu = load_classifier(spec["preset"], seed=SEED, device="cpu")
+        t0 = time.perf_counter()
+        want = cpu(*requests[1])
+        t_cpu = time.perf_counter() - t0
+        got = outputs[0].cpu()
+        diff = (got - want).abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        log(f"[{tag}] cuda vs cpu (plain ops, {t_cpu:.1f} s on the host): max |dlogp| = "
+            f"{diff:.3e} (limit 1e-3), argmax agreement {agree:.4f}")
+        if not diff <= 1e-3:
+            raise AssertionError(f"[{tag}] cuda and cpu log-probs differ by {diff}")
+    return {"launches": launches, "recorded": recorded,
+            "latency_ms": [t * 1e3 for t in latencies]}
+
+
+def replay(path: str, served: dict, trained: dict) -> list:
+    """Phase 3 for one model: every recorded launch against its plain
+    version, the kNN distance gradient, and the scatter-mean's backward."""
+    rows = []
+    for name, inp in served["recorded"] + trained["recorded"]:
+        row = dict(check_call(name, inp), path=path)
+        rows.append(row)
+        lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        ref = "" if row["max_abs_ref"] is None else f" (of max |ref| {row['max_abs_ref']:.3e})"
+        log(f"[3 {path}] {name} {row['shape']}: max_abs_err {row['max_abs_err']:.3e}{ref}, "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {lib} ms, "
+            f"bound {row['bound_ms']:.4f} ms")
+    knn_feature = next(inp for name, inp in served["recorded"]
+                       if name == "knn_kernel" and inp["base"].shape[-1] > 3)
+    err = check_knn_grad(knn_feature)
+    log(f"[3 {path}] knn distance gradient (gather_rows_kernel + scatter_add_rows_kernel) "
+        f"base {tuple(knn_feature['base'].shape)} query {tuple(knn_feature['query'].shape)}: "
+        f"max_abs_err {err:.3e} against autograd of the plain kNN")
+    errs = [check_scatter_mean_grad(inp) for name, inp in served["recorded"]
+            if name == "scatter_mean_kernel"]
+    if errs:
+        log(f"[3 {path}] scatter-mean backward (gather_rows_kernel) at {len(errs)} recorded "
+            f"launches: max_abs_err {max(errs):.3e} against autograd of the plain version")
+    return rows
+
+
+def summarise(name: str, rows: list, counts: dict) -> dict:
+    """One kernel's entry of the ``kernels`` line. Times are sums over the
+    launches of one served request (forward kernels) or one train step
+    (backward kernels); the top-level ones are the part-seg path's, and
+    ``by_path`` has each model's. ``launches`` is the count in the timed run
+    of the part-seg path the times are per (3 requests or 5 steps);
+    ``launches_by_path`` has all four timed runs."""
+    backward = name in BACKWARD
+
+    def sums(mine):
+        if not mine:
+            return None
+        bytes_ms = sum(r["bytes_ms"] for r in mine)
+        ops_ms = sum(r["ops_ms"] for r in mine)
+        libs = [r["library_ms"] for r in mine]
+        return {
+            "launches_per_unit": len(mine),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_abs_ref": max(r["max_abs_ref"] for r in mine) if backward else None,
+            "ms": sum(r["ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": sum(r["bound_ms"] for r in mine),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None if None in libs else sum(libs),
+        }
+
+    by_path = {path: sums([r for r in rows if r["name"] == name and r["path"] == path])
+               for path in PATHS}
+    source, replaces = SOURCES[name]
+    entry = {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": counts["partseg_train" if backward else "partseg_serve"][name],
+        "per": "train step" if backward else "request",
+        "launches_by_path": {run: c[name] for run, c in counts.items()},
+        **by_path["partseg"],
+        "by_path": by_path,
+    }
+    if name in ALSO_REPLACES:
+        entry["also_replaces"] = ALSO_REPLACES[name]
+    return entry
+
+
+# One-line faults for ``--planted-faults``: (file, text, replacement).
+PLANTED_FAULTS = {
+    "none": None,
+    "first claimant of every slot dropped": (
+        "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
+        "if (c0 + c < C) acc[r] = __fadd_rn(acc[r], row[c]);",
+        "if (c0 + c < C && cnt > 0) acc[r] = __fadd_rn(acc[r], row[c]);"),
+    "count used without the clamp": (
+        "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
+        "const float den = fmaxf(static_cast<float>(cnt), 1.f);",
+        "const float den = static_cast<float>(cnt);"),
+    "a lane's second claim not counted": (
+        "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
+        "            ++cnt;\n          }\n",
+        "          }\n          ++cnt;\n"),
+    "backward without the divide by the count": (
+        "mpa_tpu_torch/ops/scatter.py",
+        "g_norm = (grad / count.clamp_min(1.0)[..., None]).contiguous()",
+        "g_norm = grad.contiguous()"),
+}
+
+
+def parity_readings() -> dict:
+    """``--parity``: the part-seg path's card-against-CPU readings and one
+    scatter-mean replay, each check's failure caught and reported."""
+    out = {}
+    seg = segmenter_parity()
+    out["served"] = {k: seg[k] for k in ("median_abs", "p99_abs", "max_abs", "argmax_agreement")}
+    out["served_within_limits"] = bool(
+        seg["median_abs"] <= SEG_LIMITS["median_abs"]
+        and seg["argmax_agreement"] >= SEG_LIMITS["argmax_agreement"])
+    parity = train_parity("partseg")
+    out["train"] = {"loss_diff": parity["loss_diff"], "grad_units": parity["grad_units"][:3],
+                    "stat": parity["stat"]}
+    gen = torch.Generator().manual_seed(SEED)
+    inp = {"features": torch.randn((4, 1024, 64), generator=gen).cuda(),
+           "knn_idx": torch.randint(0, 2048, (4, 1024, 8), generator=gen,
+                                    dtype=torch.int32).cuda(),
+           "num_fine": 2048}
+    for what, check in (("replay", lambda: check_call("scatter_mean_kernel", inp)),
+                        ("backward", lambda: check_scatter_mean_grad(inp))):
+        try:
+            check()
+            out[what] = "passes"
+        except AssertionError as e:
+            out[what] = "fails: " + str(e).splitlines()[0][:120]
+    return out
+
+
+def planted_faults() -> None:
+    """``--planted-faults``: for each entry of ``PLANTED_FAULTS``, a copy of
+    the port in a temporary directory with that one line changed runs
+    ``chip_smoke.py --parity``; prints each copy's readings. The limits of
+    ``SEG_LIMITS`` and ``grad_limit`` lie between a correct copy's readings
+    and the faulty ones'."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fault in PLANTED_FAULTS.items():
+            root = Path(tmp) / re.sub(r"\W+", "_", name)
+            shutil.copytree(REPO / "mpa_tpu_torch", root / "mpa_tpu_torch",
+                            ignore=shutil.ignore_patterns("_build", "__pycache__"))
+            shutil.copy(REPO / "chip_smoke.py", root / "chip_smoke.py")
+            if fault is not None:
+                path, old, new = fault
+                text = (root / path).read_text()
+                if text.count(old) != 1:
+                    raise AssertionError(f"fault {name!r}: {old!r} not found once in {path}")
+                (root / path).write_text(text.replace(old, new))
+            proc = subprocess.run([sys.executable, "chip_smoke.py", "--parity"], cwd=root,
+                                  capture_output=True, text=True, timeout=900)
+            last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+            log(f"[planted] {name}: exit {proc.returncode} {last or proc.stderr[-400:]}")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parity", action="store_true",
+                    help="only the part-seg path's card-against-CPU readings, as JSON")
+    ap.add_argument("--planted-faults", action="store_true",
+                    help="the --parity readings of copies with one fault planted in each")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
               file=sys.stderr)
@@ -496,7 +885,14 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from mpa_tpu_torch import kernels
     from mpa_tpu_torch.kernels import build
-    from mpa_tpu_torch.serve import load_classifier
+
+    if args.planted_faults:
+        log(f"[planted] {card_line()}")
+        planted_faults()
+        return 0
+    if args.parity:
+        print(json.dumps(parity_readings()), flush=True)
+        return 0
 
     t_all = time.perf_counter()
     card = card_line()
@@ -511,112 +907,31 @@ def main() -> int:
         if "Used" in line or "spill" in line or line.startswith("=="):
             log(f"[1 build] {line.strip()}")
 
-    # -- 2. end to end ---------------------------------------------------------
-    clf = load_classifier("scanobjectnn_cls", seed=SEED)
-    rng = np.random.default_rng(SEED)
-    requests = [rng.standard_normal((BATCH, POINTS, 3)).astype(np.float32)
-                for _ in range(REQUESTS + 1)]
-    for _ in range(2):  # warm-up: kernel loading, allocator growth
-        clf(requests[0])
-    torch.cuda.synchronize()
+    # -- 2, 2b, 3: markov_cls served and trained, its launches replayed ----------
+    served = {"cls": serve_phase("cls", "2 cls served")}
+    trained = {"cls": train_phase("cls", "2b cls trained")}
+    rows = replay("cls", served["cls"], trained["cls"])
+    del served["cls"]["recorded"], trained["cls"]["recorded"]
+    torch.cuda.empty_cache()
 
-    kernels.reset_launch_counts()
-    outputs, latencies = [], []
-    for req in requests[1:]:
-        t0 = time.perf_counter()
-        out = clf(req)
-        torch.cuda.synchronize()
-        latencies.append(time.perf_counter() - t0)
-        outputs.append(out)
-    launches = dict(kernels.LAUNCHES)
+    # -- 2c, 2d, 3: markov_partseg served and trained, its launches replayed -----
+    served["partseg"] = serve_phase("partseg", "2c partseg served")
+    trained["partseg"] = train_phase("partseg", "2d partseg trained")
+    rows += replay("partseg", served["partseg"], trained["partseg"])
+    del served["partseg"]["recorded"], trained["partseg"]["recorded"]
 
-    # One more request of the same shapes records every kernel's inputs for
-    # phase 3 (recording keeps them alive, so it stays out of the timed ones).
-    kernels.recorded = []
-    clf(requests[1])
-    recorded, kernels.recorded = kernels.recorded, None
-
-    for i, lat in enumerate(latencies):
-        log(f"[2 e2e] request {i}: B={BATCH} x {POINTS} pts, {lat * 1e3:.3f} ms, "
-            f"{BATCH / lat:.1f} clouds/s")
-    log(f"[2 e2e] launches over {REQUESTS} requests: {launches}")
-    for name, per in PER_FORWARD.items():
-        if launches[name] != per * REQUESTS:
-            raise AssertionError(f"{name}: {launches[name]} launches, want {per} per forward")
-    for out in outputs:
-        if tuple(out.shape) != (BATCH, 15) or not torch.isfinite(out).all():
-            raise AssertionError(f"bad output {tuple(out.shape)}")
-        torch.testing.assert_close(out.exp().sum(-1), torch.ones(BATCH, device=out.device),
-                                   rtol=0, atol=1e-4)
-    cpu = load_classifier("scanobjectnn_cls", seed=SEED, device="cpu")
-    t0 = time.perf_counter()
-    want = cpu(requests[1])
-    t_cpu = time.perf_counter() - t0
-    got = outputs[0].cpu()
-    diff = (got - want).abs().max().item()
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    log(f"[2 e2e] cuda vs cpu (plain ops, {t_cpu:.1f} s on the host): max |dlogp| = {diff:.3e} "
-        f"(limit 1e-3), argmax agreement {agree:.4f}")
-    if not diff <= 1e-3:
-        raise AssertionError(f"cuda and cpu log-probs differ by {diff}")
-
-    # -- 2b. training ------------------------------------------------------------
-    train = train_phase()
-
-    # -- 3. each kernel against its plain version, on the main paths' inputs ---
-    knn_feature = next(inp for name, inp in recorded
-                       if name == "knn_kernel" and inp["base"].shape[-1] > 3)
-    rows = []
-    for name, inp in recorded + train["recorded"]:
-        row = check_call(name, inp)
-        rows.append(row)
-        lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-        ref = "" if row["max_abs_ref"] is None else f" (of max |ref| {row['max_abs_ref']:.3e})"
-        log(f"[3 kernel] {name} {row['shape']}: max_abs_err {row['max_abs_err']:.3e}{ref}, "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {lib} ms, "
-            f"bound {row['bound_ms']:.4f} ms")
-    err = check_knn_grad(knn_feature)
-    log(f"[3 kernel] knn distance gradient (gather_rows_kernel + scatter_add_rows_kernel) "
-        f"base {tuple(knn_feature['base'].shape)} query {tuple(knn_feature['query'].shape)}: "
-        f"max_abs_err {err:.3e} against autograd of the plain kNN")
-    del recorded, train["recorded"], knn_feature
-
-    summary = []
-    for name in kernels.KERNELS:
-        mine = [r for r in rows if r["name"] == name]
-        bytes_ms = sum(r["bytes_ms"] for r in mine)
-        ops_ms = sum(r["ops_ms"] for r in mine)
-        libs = [r["library_ms"] for r in mine]
-        source, replaces = SOURCES[name]
-        backward = name in BACKWARD
-        entry = {
-            "name": name,
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            # the main path whose timed run the count is from: the served
-            # requests for the forward kernels, the timed train steps for the
-            # backward kernels
-            "launches": train["launches"][name] if backward else launches[name],
-            "train_launches": train["launches"][name],
-            "per": "train step" if backward else "request",
-            ("launches_per_step" if backward else "launches_per_request"): len(mine),
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "max_abs_ref": max(r["max_abs_ref"] for r in mine) if backward else None,
-            "ms": sum(r["ms"] for r in mine),
-            "plain_ms": sum(r["plain_ms"] for r in mine),
-            "bound_ms": sum(r["bound_ms"] for r in mine),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None if None in libs else sum(libs),
-        }
-        if name in ALSO_REPLACES:
-            entry["also_replaces"] = ALSO_REPLACES[name]
-        summary.append(entry)
+    counts = {f"{path}_serve": served[path]["launches"] for path in PATHS}
+    counts.update({f"{path}_train": trained[path]["launches"] for path in PATHS})
+    summary = [summarise(name, rows, counts) for name in kernels.KERNELS]
     log("[4 kernels] times are per request for the forward kernels and per train step for "
-        "the backward kernels (B=64 x 1024 points): the sum over its launches of each")
-    log(f"[4 train] ms per step {train['step_ms']}, median "
-        f"{statistics.median(train['step_ms']):.3f} ms, "
-        f"{BATCH / statistics.median(train['step_ms']) * 1e3:.1f} clouds/s")
+        "the backward kernels: the sum over its launches of each; top level: markov_partseg "
+        "at B=32 x 2048 points; by_path.cls: markov_cls at B=64 x 1024 points")
+    for path, spec in PATHS.items():
+        lat, step = served[path]["latency_ms"], trained[path]["step_ms"]
+        log(f"[4 {path}] request ms {lat}, median {statistics.median(lat):.3f} ms, "
+            f"{spec['batch'] / statistics.median(lat) * 1e3:.1f} clouds/s")
+        log(f"[4 {path}] train step ms {step}, median {statistics.median(step):.3f} ms, "
+            f"{spec['batch'] / statistics.median(step) * 1e3:.1f} clouds/s")
     print(card, flush=True)  # the card, exactly as nvidia-smi reports it
     log(f"[4 total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": summary}), flush=True)

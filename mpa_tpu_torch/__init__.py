@@ -3,13 +3,13 @@
 Mirrors ``mpa_tpu``'s module layout so each module's counterpart is easy to
 find:
 
-- point-set primitives (kNN, FPS, row gather, transition attention), each a
-  plain PyTorch version plus hand-written CUDA kernels,
-  forward and backward                                       -> mpa_tpu_torch.ops
+- point-set primitives (kNN, FPS, row gather, transition attention,
+  scatter-mean upsample), each a plain PyTorch version plus hand-written
+  CUDA kernels, forward and backward                         -> mpa_tpu_torch.ops
 - the kernels' CUDA C++ sources and their build              -> mpa_tpu_torch.kernels
 - Markov transition blocks                                   -> mpa_tpu_torch.nn
 - task models                                                -> mpa_tpu_torch.models
-- inference entry point                                      -> mpa_tpu_torch.serve
+- inference entry points                                     -> mpa_tpu_torch.serve
 - losses, schedules, train / eval steps, metrics             -> mpa_tpu_torch.train
 - synthetic datasets                                         -> mpa_tpu_torch.data
 - presets                                                    -> mpa_tpu_torch.configs

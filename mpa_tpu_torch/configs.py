@@ -9,8 +9,11 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
+    task: str = "cls"  # 'cls' | 'partseg'
     model: str = "markov_cls"
     num_classes: int = 15
+    num_parts: int = 50  # part-seg: global part labels
+    num_categories: int = 16  # part-seg: shape categories
     num_points: int = 1024
     batch_size: int = 64
     # optimisation (reference cls defaults: Adam 1e-3 / wd 1e-4 / StepLR 20x0.7)
@@ -18,14 +21,28 @@ class TrainConfig:
     learning_rate: float = 1e-3
     weight_decay: float = 1e-4
     momentum: float = 0.9
+    scheduler: str = "step"  # 'step' (decay_step, decay_gamma) | 'cos' (epochs, eta_min)
     decay_step: int = 20
     decay_gamma: float = 0.7
+    eta_min: float = 0.0
     epochs: int = 300
     label_smoothing: float = 0.1
     seed: int = 2800
 
     def with_overrides(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+def model_kwargs(cfg: TrainConfig) -> dict:
+    """The constructor arguments of ``cfg.model`` that ``cfg`` fixes. A
+    part-seg ladder halves the cloud four times (1024/512/256/128 at the
+    preset's 2048 points)."""
+    if cfg.task == "partseg":
+        return dict(num_parts=cfg.num_parts, num_categories=cfg.num_categories,
+                    npoints=tuple(cfg.num_points // 2 ** (i + 1) for i in range(4)))
+    if cfg.task == "cls":
+        return dict(num_classes=cfg.num_classes)
+    raise ValueError(f"unknown task {cfg.task}")
 
 
 PRESETS = {
@@ -36,5 +53,15 @@ PRESETS = {
         optimizer="adam-l2", learning_rate=1e-3, weight_decay=1e-4,
         decay_step=20, decay_gamma=0.7,
         epochs=300, seed=2800,
+    ),
+    # ShapeNetPart part segmentation (published 86.76% ins-mIoU), 2048-point
+    # clouds, 16 categories / 50 parts: batch 32, SGD 0.1 / momentum 0.9 /
+    # wd 1e-4, cosine to 1e-3 over 300 epochs, seed 2800. The preset's
+    # scale and shift augmentation is not ported yet.
+    "shapenetpart": TrainConfig(
+        task="partseg", model="markov_partseg", num_parts=50, num_categories=16,
+        num_points=2048, batch_size=32,
+        optimizer="sgd", learning_rate=0.1, weight_decay=1e-4, momentum=0.9,
+        scheduler="cos", eta_min=1e-3, epochs=300, seed=2800,
     ),
 }

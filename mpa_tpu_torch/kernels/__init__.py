@@ -6,7 +6,8 @@ where it launches its kernel, and nowhere else, so a run can show that its
 path went through the kernels: reset the counts, drive the path, read them.
 The backward kernels (``scatter_add_rows_kernel``,
 ``transition_attention_bwd_kernel``) are launched from the ``backward`` of
-their ops' ``torch.autograd.Function`` and are counted and recorded there.
+their ops' ``torch.autograd.Function`` and are counted and recorded there;
+the scatter-mean's backward launches ``gather_rows_kernel``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ KERNELS = (
     "transition_attention_fwd_kernel",
     "scatter_add_rows_kernel",
     "transition_attention_bwd_kernel",
+    "scatter_mean_kernel",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -120,6 +120,7 @@ _SIGNATURES = {
     "mpa_transition_attention_fwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     "mpa_scatter_add_rows": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "mpa_transition_attention_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
+    "mpa_scatter_mean": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
 }
 
 

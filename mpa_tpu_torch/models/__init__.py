@@ -2,5 +2,6 @@
 
 from mpa_tpu_torch.models.registry import get_model, list_models, register_model
 from mpa_tpu_torch.models.markov_cls import MarkovClassifier
+from mpa_tpu_torch.models.markov_partseg import MarkovPartSeg
 
-__all__ = ["register_model", "get_model", "list_models", "MarkovClassifier"]
+__all__ = ["register_model", "get_model", "list_models", "MarkovClassifier", "MarkovPartSeg"]

@@ -19,7 +19,7 @@ from torch import nn
 
 from mpa_tpu_torch.models.registry import register_model
 from mpa_tpu_torch.nn.keephigh import KeepHighResolutionEncoder
-from mpa_tpu_torch.nn.linear import BatchNorm
+from mpa_tpu_torch.nn.linear import BatchNorm, seeded_dropout
 
 
 class MarkovClassifier(nn.Module):
@@ -64,18 +64,8 @@ class MarkovClassifier(nn.Module):
         x = self.keep_high(points[..., :3])
         for fc, bn in ((self.fc1, self.bn1), (self.fc2, self.bn2)):
             x = F.leaky_relu(bn(fc(x)), negative_slope=0.2)
-            x = self._dropout(x, generator)
+            x = seeded_dropout(x, self.dropout, self.training, generator)
         return F.log_softmax(self.fc3(x), dim=-1)
-
-    def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-        if not self.training or self.dropout == 0.0:
-            return x
-        if generator is None:
-            raise ValueError("MarkovClassifier: train-mode dropout needs a torch.Generator "
-                             "on the model's device")
-        keep = 1.0 - self.dropout
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 @register_model("markov_cls")

@@ -1,0 +1,76 @@
+"""Markov part-segmentation model (ShapeNetPart: 16 categories / 50 parts).
+
+Counterpart of ``mpa_tpu/models/markov_partseg.py::MarkovPartSeg`` in exact
+mode: the KeepHighResolutionPartSeg encoder-decoder producing 896-channel
+per-point features, then the head ``conv8`` (896 -> 512) -> dropout ->
+``conv9`` (256) -> ``conv10`` (128) -> ``conv11`` (Dense to ``num_parts``) and
+``log_softmax``. Dropout acts in train mode only and draws its mask from the
+``torch.Generator`` the caller passes; torch cannot reproduce JAX's random
+bits, so parity runs use ``dropout=0``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mpa_tpu_torch.models.registry import register_model
+from mpa_tpu_torch.nn.keephigh_partseg import KeepHighResolutionPartSeg
+from mpa_tpu_torch.nn.linear import LinearUnit, seeded_dropout
+
+
+class MarkovPartSeg(nn.Module):
+    def __init__(
+        self,
+        num_parts: int = 50,
+        num_categories: int = 16,
+        npoints: Sequence[int] = (1024, 512, 256, 128),
+        channels: Sequence[int] = (64, 64, 64, 128, 256),
+        residuals: Sequence[bool] = (True, False, False, True, True),
+        num_neighbors: int = 8,
+        dropout: float = 0.5,
+        compute_dtype: Any = None,
+        neighbor_mode: str = "exact",
+    ):
+        super().__init__()
+        if compute_dtype is not None:
+            raise NotImplementedError("MarkovPartSeg compute_dtype (mixed precision) is not ported yet")
+        if not 0.0 <= dropout < 1.0:
+            raise ValueError(f"dropout={dropout} must be in [0, 1)")
+        self.dropout = dropout
+        self.num_categories = num_categories
+        self.keep_high = KeepHighResolutionPartSeg(
+            npoints=npoints, channels=channels, residuals=residuals,
+            num_neighbors=num_neighbors, num_categories=num_categories,
+            neighbor_mode=neighbor_mode,
+        )
+        self.conv8 = LinearUnit(self.keep_high.out_channels, 512)
+        self.conv9 = LinearUnit(512, 256)
+        self.conv10 = LinearUnit(256, 128)
+        self.conv11 = nn.Linear(128, num_parts)
+
+    def forward(
+        self,
+        inputs: Tuple[torch.Tensor, torch.Tensor],
+        *,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """inputs = (points ``[B, N, 3]``, label_onehot ``[B, num_categories]``)
+        -> per-point log-probs ``[B, N, num_parts]``.
+
+        ``generator`` (on the points' device) draws the dropout mask; train
+        mode with ``dropout > 0`` requires it.
+        """
+        points, label_onehot = inputs
+        x = self.conv8(self.keep_high(points[..., :3], label_onehot))
+        x = seeded_dropout(x, self.dropout, self.training, generator)
+        x = self.conv10(self.conv9(x))
+        return F.log_softmax(self.conv11(x), dim=-1)
+
+
+@register_model("markov_partseg")
+def _markov_partseg(**kw) -> MarkovPartSeg:
+    return MarkovPartSeg(**kw)

@@ -5,6 +5,8 @@ from mpa_tpu_torch.nn.linear import BatchNorm, LinearUnit
 from mpa_tpu_torch.nn.local_trans import LocalTrans
 from mpa_tpu_torch.nn.local_merge import LocalMerge
 from mpa_tpu_torch.nn.keephigh import KeepHighResolutionEncoder
+from mpa_tpu_torch.nn.fuse import Fuse, compose_fps_chain
+from mpa_tpu_torch.nn.keephigh_partseg import KeepHighResolutionPartSeg
 
 __all__ = [
     "BatchNorm",
@@ -12,4 +14,7 @@ __all__ = [
     "LocalTrans",
     "LocalMerge",
     "KeepHighResolutionEncoder",
+    "Fuse",
+    "compose_fps_chain",
+    "KeepHighResolutionPartSeg",
 ]

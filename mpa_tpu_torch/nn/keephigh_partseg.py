@@ -1,0 +1,124 @@
+"""KeepHighResolution part-segmentation encoder-decoder.
+
+Counterpart of ``mpa_tpu/nn/keephigh_partseg.py::KeepHighResolutionPartSeg``
+in exact mode:
+
+- encoder: five Markov states N -> npoints[0] -> ... -> npoints[3] (``la0`` ..
+  ``la4``, channels c0..c4), each a three-branch LocalMerge (xyz, spatial kNN,
+  feature kNN) with FPS between them;
+- decoder: at the coarsest state a LinearUnit (``mlp``) and a Fuse toward
+  scale 4; then for each finer scale the scatter-mean upsample over the
+  encoder's stored kNN index (hoisted behind ``up_conv``'s Dense), a
+  self-attention LocalMerge (``xyz == base_xyz``) and a Fuse toward that
+  scale. ``fuse2`` .. ``fuse5`` see a mix of updated and pre-decoder features,
+  as in the reference;
+- per-point output: ``conv5`` of the finest decoder features (256), the
+  concat of the per-scale global max pools (576 at the default widths) and
+  the category one-hot through ``conv7`` (64): 896 channels.
+
+The Morton-window neighbour modes, mixed precision and a keyed FPS start are
+not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from mpa_tpu_torch.nn.fuse import Fuse
+from mpa_tpu_torch.nn.linear import LinearUnit
+from mpa_tpu_torch.nn.local_merge import LocalMerge
+from mpa_tpu_torch.ops.fps import farthest_point_sample
+from mpa_tpu_torch.ops.gather import index_points
+from mpa_tpu_torch.ops.scatter import scatter_mean_upsample
+
+
+class KeepHighResolutionPartSeg(nn.Module):
+    def __init__(
+        self,
+        npoints: Sequence[int] = (1024, 512, 256, 128),  # scales 1..4 (scale 0 is the input)
+        channels: Sequence[int] = (64, 64, 64, 128, 256),  # c0..c4
+        residuals: Sequence[bool] = (True, False, False, True, True),
+        num_neighbors: int = 8,
+        num_categories: int = 16,
+        label_channels: int = 64,
+        point_channels: int = 256,
+        dtype: Any = None,
+        neighbor_mode: str = "exact",
+        fps_random_start: bool = False,
+    ):
+        super().__init__()
+        if len(channels) != len(npoints) + 1 or len(residuals) != len(channels):
+            raise ValueError("channels and residuals need one entry more than npoints")
+        if neighbor_mode != "exact":
+            raise NotImplementedError(f"neighbor_mode={neighbor_mode!r} is not ported yet")
+        if dtype is not None:
+            raise NotImplementedError("mixed precision (dtype) is not ported yet")
+        if fps_random_start:
+            raise NotImplementedError("keyed FPS starts are training-only and not ported yet")
+        self.npoints = tuple(npoints)
+        ch = self.channels = tuple(channels)
+        K = num_neighbors
+        top = len(self.npoints)  # the coarsest scale
+        self.la0 = LocalMerge(None, ch[0], K, residuals[0], include_xyz_branch=True)
+        for i in range(top):
+            setattr(self, f"la{i + 1}",
+                    LocalMerge(ch[i], ch[i + 1], K, residuals[i + 1], include_xyz_branch=True))
+        self.mlp = LinearUnit(ch[top], ch[top])
+        self.fuse1 = Fuse(ch, top, K)
+        for step, s in enumerate(range(top - 1, -1, -1)):
+            setattr(self, f"up_conv{s + 1}", LinearUnit(ch[s + 1], ch[s]))
+            setattr(self, f"la{s + 1}_up",
+                    LocalMerge(ch[s], ch[s], K, False, include_xyz_branch=True))
+            setattr(self, f"fuse{step + 2}", Fuse(ch, s, K))
+        self.conv7 = LinearUnit(num_categories, label_channels)
+        self.conv5 = LinearUnit(ch[0], point_channels)
+        self.out_channels = point_channels + sum(ch) + label_channels
+
+    def forward(self, xyz: torch.Tensor, label_onehot: torch.Tensor) -> torch.Tensor:
+        """xyz ``[B, N, 3]``, label_onehot ``[B, num_categories]`` ->
+        per-point features ``[B, N, out_channels]``."""
+        B, N, _ = xyz.shape
+        top = len(self.npoints)
+
+        # ---- encoder ladder ------------------------------------------------
+        feats: List[Optional[torch.Tensor]] = [None] * (top + 1)
+        positions: List[Optional[torch.Tensor]] = [xyz] + [None] * top
+        fps_list: List[torch.Tensor] = []
+        knn_list: List[Optional[torch.Tensor]] = [None] * (top + 1)  # scale s into scale s-1
+        feats[0], knn_list[0], dist0 = self.la0(xyz, xyz)  # self-kNN of the full cloud
+        cur_xyz = xyz
+        for i, npoint in enumerate(self.npoints):
+            fps_idx = farthest_point_sample(cur_xyz, npoint)
+            new_xyz = index_points(cur_xyz, fps_idx)
+            feats[i + 1], knn_list[i + 1], _ = getattr(self, f"la{i + 1}")(
+                new_xyz, cur_xyz, feature=feats[i], fps_idx=fps_idx)
+            positions[i + 1] = new_xyz
+            fps_list.append(fps_idx)
+            cur_xyz = new_xyz
+
+        # ---- decoder: up-states interleaved with cross-scale Fuse ----------
+        up_feats: List[Optional[torch.Tensor]] = [None] * (top + 1)
+        up_feats[top] = self.fuse1(feats[:top] + [self.mlp(feats[top])],
+                                   fps_list, knn_list, positions)
+        for step, s in enumerate(range(top - 1, -1, -1)):
+            num_fine = positions[s].shape[1]
+            up = getattr(self, f"up_conv{s + 1}")(
+                up_feats[s + 1],
+                mid_op=lambda y, i=knn_list[s + 1], n=num_fine: scatter_mean_upsample(y, i, n))
+            # Scale 0's self-kNN was searched by la0 on the same positions.
+            f_s, _, _ = getattr(self, f"la{s + 1}_up")(
+                positions[s], positions[s], feature=up,
+                spatial_knn=(dist0, knn_list[0]) if s == 0 else None)
+            # The fuse sees the pre-decoder features at every other scale.
+            mixed = feats[:s] + [f_s] + feats[s + 1:]
+            up_feats[s] = getattr(self, f"fuse{step + 2}")(mixed, fps_list, knn_list, positions)
+
+        # ---- per-point output ----------------------------------------------
+        global_rep = torch.cat([torch.amax(f, dim=1) for f in up_feats], dim=-1)  # [B, sum(ch)]
+        label = self.conv7(label_onehot[:, None, :])  # [B, 1, label_channels]
+        return torch.cat([self.conv5(up_feats[0]),
+                          global_rep[:, None, :].expand(B, N, -1),
+                          label.expand(B, N, -1)], dim=-1)

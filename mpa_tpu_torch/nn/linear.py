@@ -52,6 +52,21 @@ class BatchNorm(nn.BatchNorm1d):
         return y.reshape(x.shape)
 
 
+def seeded_dropout(x: torch.Tensor, p: float, training: bool,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout``: in train mode keep each value with probability
+    ``1 - p`` and scale the kept ones by ``1 / (1 - p)``, the mask drawn from
+    ``generator`` (on ``x``'s device); the identity in eval mode or at
+    ``p == 0``."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator on the model's device")
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class LinearUnit(nn.Module):
     """Linear -> {BatchNorm | none} -> LeakyReLU(0.2)."""
 
@@ -66,9 +81,15 @@ class LinearUnit(nn.Module):
             raise NotImplementedError(f"LinearUnit norm={norm!r} is not ported yet")
 
     def forward(self, x: torch.Tensor, *, mid_op=None) -> torch.Tensor:
-        if mid_op is not None:
-            raise NotImplementedError("LinearUnit mid_op arrives with part-seg")
+        """``mid_op``: an optional linear row-mixing map (the scatter-mean
+        upsample) hoisted between the matmul and its bias,
+        ``act(norm(mid_op(x @ W) + b))``: the matmul runs on the fewer input
+        rows and the row mix at the narrower output width. As in ``mpa_tpu``
+        the product is taken as ``linear(x) - b``, one rounding included, so
+        rows that ``mid_op`` leaves zero come out as the bias."""
         x = self.linear(x)
+        if mid_op is not None:
+            x = mid_op(x - self.linear.bias) + self.linear.bias
         if self.norm is not None:
             x = self.norm(x)
         return F.leaky_relu(x, negative_slope=0.2)

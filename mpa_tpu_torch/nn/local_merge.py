@@ -1,17 +1,24 @@
 """LocalMerge, one Markov "state transition" between point-set scales.
 
-Counterpart of ``mpa_tpu/nn/local_merge.py::LocalMerge`` in its two
-classification forms:
+Counterpart of ``mpa_tpu/nn/local_merge.py::LocalMerge`` in its exact-kNN
+forms:
 
 - the first state (no features yet): one geometric LocalTrans on the
-  coordinates over their self-kNN;
-- later states: two LocalTrans, one over the spatial kNN of the coarse
-  points in the fine set and one over the feature-space kNN, whose outputs
-  are concatenated and fused by ``fc2``.
+  coordinates over their self-kNN, whatever the other switches say;
+- the classification form: two LocalTrans, one over the spatial kNN of the
+  coarse points in the fine set and one over the feature-space kNN, whose
+  outputs are concatenated and fused by ``fc2``;
+- ``include_xyz_branch`` (the part-seg encoder and decoder): a geometric
+  LocalTrans beside those two. It shares the spatial kNN index with the
+  spatial feature branch, so both branches' node tensors are packed into one
+  ``[B, N, 4C]`` tensor and one ``n_branches=2`` attention call reads them;
+  ``fc2`` fuses the three-way concat;
+- ``single_branch``: one feature LocalTrans over the spatial kNN, no
+  feature-space branch and no ``fc2``.
 
-The part-seg forms (``single_branch``, ``include_xyz_branch``), a
-precomputed ``spatial_knn`` and the Morton-window modes are not ported yet
-and raise.
+A precomputed ``spatial_knn`` (the decoder's full-resolution self-kNN, which
+the encoder's first state already searched on the same positions) is taken as
+is. ``use_tanh`` and the Morton-window modes are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from torch import nn
 
 from mpa_tpu_torch.nn.linear import LinearUnit
 from mpa_tpu_torch.nn.local_trans import LocalTrans
+from mpa_tpu_torch.ops.attention import transition_attention
 from mpa_tpu_torch.ops.gather import index_points
 from mpa_tpu_torch.ops.knn import knn
 
@@ -32,7 +40,8 @@ class LocalMerge(nn.Module):
       feature_channels: width of the incoming fine features, or None for the
         first state, which sees coordinates only.
       out_channels / num_neighbors: as in ``mpa_tpu``.
-      residual: residual projection inside the two feature LocalTrans.
+      residual: residual projection inside the feature LocalTrans.
+      include_xyz_branch / single_branch: the part-seg forms above.
     """
 
     def __init__(self, feature_channels: Optional[int], out_channels: int,
@@ -41,22 +50,28 @@ class LocalMerge(nn.Module):
                  single_branch: bool = False, knn_mode: str = "exact",
                  feature_knn_mode: str = "exact"):
         super().__init__()
-        for name, on in (("use_tanh", use_tanh), ("include_xyz_branch", include_xyz_branch),
-                         ("single_branch", single_branch),
+        for name, on in (("use_tanh", use_tanh),
                          ("knn_mode='window'", knn_mode != "exact"),
                          ("feature_knn_mode='window'", feature_knn_mode != "exact")):
             if on:
                 raise NotImplementedError(f"LocalMerge {name} is not ported yet")
+        self.out_channels = out_channels
         self.num_neighbors = num_neighbors
         self.first = feature_channels is None
-        if self.first:
+        self.single_branch = single_branch and not self.first
+        self.include_xyz_branch = include_xyz_branch and not self.first and not single_branch
+        if self.first or self.include_xyz_branch:
             self.xyz_trans = LocalTrans(3, out_channels, num_neighbors, residual_proj=True)
-        else:
-            self.feature_trans = LocalTrans(feature_channels, out_channels, num_neighbors,
-                                            residual_proj=residual)
-            self.feature_trans2 = LocalTrans(feature_channels, out_channels, num_neighbors,
-                                             residual_proj=residual)
-            self.fc2 = LinearUnit(2 * out_channels, out_channels)
+        if self.first:
+            return
+        self.feature_trans = LocalTrans(feature_channels, out_channels, num_neighbors,
+                                        residual_proj=residual)
+        if self.single_branch:
+            return
+        self.feature_trans2 = LocalTrans(feature_channels, out_channels, num_neighbors,
+                                         residual_proj=residual)
+        branches = 3 if self.include_xyz_branch else 2
+        self.fc2 = LinearUnit(branches * out_channels, out_channels)
 
     def forward(
         self,
@@ -65,23 +80,40 @@ class LocalMerge(nn.Module):
         feature: Optional[torch.Tensor] = None,
         fps_idx: Optional[torch.Tensor] = None,
         *,
-        spatial_knn=None,
+        spatial_knn: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """xyz: ``[B, S, 3]`` coarse centres; base_xyz: ``[B, N, 3]`` fine set;
         feature: ``[B, N, C]`` fine features (None on the first state);
-        fps_idx: ``[B, S]`` indices realising ``xyz = base_xyz[fps_idx]``.
+        fps_idx: ``[B, S]`` indices realising ``xyz = base_xyz[fps_idx]``;
+        spatial_knn: ``(dist, idx)`` of this very spatial search (same base,
+        query and k) made earlier in the model, or None to search here.
         Returns ``(features [B, S, out], idx [B, S, K], dist [B, S, K])``."""
-        if spatial_knn is not None:
-            raise NotImplementedError("LocalMerge spatial_knn reuse is not ported yet")
         if (feature is None) != self.first:
             raise ValueError("LocalMerge: feature must be None exactly on the first state")
-        dist, idx = knn(self.num_neighbors, base_xyz, xyz)
+        if spatial_knn is not None:
+            dist, idx = spatial_knn
+        else:
+            dist, idx = knn(self.num_neighbors, base_xyz, xyz)
         if self.first:
             out = self.xyz_trans(base_xyz, xyz, idx, xyz_mode=True)
             return out, idx, dist
         center_feat = index_points(feature, fps_idx) if fps_idx is not None else feature
+        if self.single_branch:
+            return self.feature_trans(feature, center_feat, idx), idx, dist
         _, idx_feat = knn(self.num_neighbors, feature, center_feat)
         m2 = self.feature_trans2(feature, center_feat, idx_feat)
-        m1 = self.feature_trans(feature, center_feat, idx)
-        out = self.fc2(torch.cat([m1, m2], dim=-1))
+        if not self.include_xyz_branch:
+            m1 = self.feature_trans(feature, center_feat, idx)
+            branches = [m1, m2]
+        else:
+            C = self.out_channels
+            packed = torch.cat([self.xyz_trans.node_pack(base_xyz),
+                                self.feature_trans.node_pack(feature)], dim=-1)  # [B, N, 4C]
+            xshift = self.xyz_trans.value_shift(xyz)  # [B, S, C]
+            shifts = torch.cat([xshift, torch.zeros_like(xshift)], dim=-1)
+            ctx = transition_attention(packed, idx, shifts, 2, C)  # [B, S, 2C]
+            xyz_f = self.xyz_trans.ffn_out(ctx[..., :C], xyz)
+            m1 = self.feature_trans.ffn_out(ctx[..., C:], center_feat)
+            branches = [xyz_f, m1, m2]
+        out = self.fc2(torch.cat(branches, dim=-1))
         return out, idx, dist

@@ -10,6 +10,7 @@ from mpa_tpu_torch.ops.knn import knn
 from mpa_tpu_torch.ops.fps import farthest_point_sample
 from mpa_tpu_torch.ops.gather import index_points
 from mpa_tpu_torch.ops.attention import transition_attention
+from mpa_tpu_torch.ops.scatter import scatter_mean_upsample
 
 __all__ = [
     "square_distance",
@@ -17,4 +18,5 @@ __all__ = [
     "farthest_point_sample",
     "index_points",
     "transition_attention",
+    "scatter_mean_upsample",
 ]

@@ -30,6 +30,18 @@ _EPS = 1e-20
 MAX_K = 64
 
 
+def _sum_over_neighbours(E: torch.Tensor) -> torch.Tensor:
+    """``sum_k E[:, :, k]`` accumulated in neighbour order, ``[B, S, K, c]`` ->
+    ``[B, S, 1, c]``. The kernels add in this order; ``torch.sum`` picks its
+    own, and a denominator that differs in its last bit moves ``w`` by a last
+    bit too, which is enough to hand the maximum over K, and with it the
+    whole gradient of that query and channel, to another neighbour."""
+    acc = E[:, :, 0]
+    for k in range(1, E.shape[2]):
+        acc = acc + E[:, :, k]
+    return acc.unsqueeze(2)
+
+
 def attention_plain(
     packed: torch.Tensor,
     idx: torch.Tensor,
@@ -50,7 +62,7 @@ def attention_plain(
         V = G[..., (2 * r + 1) * c : (2 * r + 2) * c]
         if shifts is not None:
             V = V + shifts[:, :, None, r * c : (r + 1) * c]
-        denom = torch.sum(E, dim=2, keepdim=True)
+        denom = _sum_over_neighbours(E)
         attn = E / torch.clamp_min(denom, _EPS) - 1.0
         outs.append(torch.amax(attn * V, dim=2))
     return torch.cat(outs, dim=-1).to(packed.dtype)
@@ -84,7 +96,7 @@ def attention_bwd_plain(
         V = G[..., (2 * r + 1) * c : (2 * r + 2) * c]
         if shifts is not None:
             V = V + shifts[:, :, None, r * c : (r + 1) * c].float()
-        denom = torch.sum(E, dim=2, keepdim=True)
+        denom = _sum_over_neighbours(E)
         denom_f = torch.clamp_min(denom, _EPS)
         attn = E / denom_f - 1.0
         w = attn * V

@@ -1,9 +1,11 @@
-"""Inference entry point (counterpart of ``mpa_tpu.serve.load_inference``).
+"""Inference entry points (counterpart of ``mpa_tpu.serve.load_inference``).
 
 ``load_classifier`` builds the classifier of a preset on a device, with
 weights carried over from ``mpa_tpu`` variables or initialised from a seed,
 and returns a callable ``points [B, N, 3] -> log-probs [B, num_classes]``
-that runs in eval mode under ``torch.inference_mode()``.
+that runs in eval mode under ``torch.inference_mode()``. ``load_segmenter``
+does the same for a part-seg preset: ``(points [B, N, 3], category [B]) ->
+per-point log-probs [B, N, num_parts]``.
 """
 
 from __future__ import annotations
@@ -13,11 +15,23 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from mpa_tpu_torch.configs import PRESETS
+from mpa_tpu_torch.configs import PRESETS, model_kwargs
 from mpa_tpu_torch.models import get_model
 from mpa_tpu_torch.utils.convert import from_jax_variables
 from mpa_tpu_torch.utils.device import DeviceLike, resolve_device
 from mpa_tpu_torch.utils.init import init_like_flax
+
+
+def _as_tensor(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    value = value if torch.is_tensor(value) else np.asarray(value)
+    return torch.as_tensor(value, dtype=dtype).to(device)
+
+
+def _points(points, device: torch.device) -> torch.Tensor:
+    x = _as_tensor(points, torch.float32, device)
+    if x.dim() != 3 or x.shape[-1] < 3:
+        raise ValueError(f"points must be [B, N, 3], got {tuple(x.shape)}")
+    return x.contiguous()
 
 
 class Classifier:
@@ -28,12 +42,46 @@ class Classifier:
         self.device = device
 
     def __call__(self, points) -> torch.Tensor:
-        x = torch.as_tensor(np.asarray(points) if not torch.is_tensor(points) else points,
-                            dtype=torch.float32).to(self.device)
-        if x.dim() != 3 or x.shape[-1] < 3:
-            raise ValueError(f"points must be [B, N, 3], got {tuple(x.shape)}")
+        x = _points(points, self.device)
         with torch.inference_mode():
-            return self.model(x.contiguous())
+            return self.model(x)
+
+
+class Segmenter:
+    """A loaded part segmenter: call it on ``[B, N, 3]`` points and ``[B]``
+    integer shape categories (tensors or numpy)."""
+
+    def __init__(self, model: torch.nn.Module, device: torch.device):
+        self.model = model
+        self.device = device
+
+    def __call__(self, points, category) -> torch.Tensor:
+        x = _points(points, self.device)
+        cat = _as_tensor(category, torch.long, self.device)
+        n_cat = self.model.num_categories
+        if cat.dim() != 1 or cat.shape[0] != x.shape[0]:
+            raise ValueError(f"category must be [B={x.shape[0]}], got {tuple(cat.shape)}")
+        if cat.numel() and not (0 <= int(cat.min()) and int(cat.max()) < n_cat):
+            raise ValueError(f"category values must lie in [0, {n_cat})")
+        onehot = torch.nn.functional.one_hot(cat, n_cat).to(torch.float32)
+        with torch.inference_mode():
+            return self.model((x, onehot))
+
+
+def _load(preset: str, task: str, variables: Optional[Mapping], device: DeviceLike, seed: int):
+    if preset not in PRESETS:
+        raise KeyError(f"unknown preset {preset!r}; available: {sorted(PRESETS)}")
+    cfg = PRESETS[preset]
+    if cfg.task != task:
+        raise ValueError(f"preset {preset!r} is a {cfg.task!r} preset, not {task!r}")
+    dev = resolve_device(device)
+    model = get_model(cfg.model, **model_kwargs(cfg))
+    if variables is None:
+        init_like_flax(model, torch.Generator().manual_seed(seed))
+    else:
+        state, _ = from_jax_variables(variables, model)
+        model.load_state_dict(state, strict=True)
+    return model.eval().to(dev), dev
 
 
 def load_classifier(
@@ -55,15 +103,17 @@ def load_classifier(
       seed: seed of the CPU generator used when ``variables`` is None, so the
         same seed gives the same weights on every device.
     """
-    if preset not in PRESETS:
-        raise KeyError(f"unknown preset {preset!r}; available: {sorted(PRESETS)}")
-    cfg = PRESETS[preset]
-    dev = resolve_device(device)
-    model = get_model(cfg.model, num_classes=cfg.num_classes)
-    if variables is None:
-        init_like_flax(model, torch.Generator().manual_seed(seed))
-    else:
-        state, _ = from_jax_variables(variables, model)
-        model.load_state_dict(state, strict=True)
-    model.eval().to(dev)
-    return Classifier(model, dev)
+    return Classifier(*_load(preset, "cls", variables, device, seed))
+
+
+def load_segmenter(
+    preset: str = "shapenetpart",
+    variables: Optional[Mapping] = None,
+    *,
+    device: DeviceLike = None,
+    seed: int = 0,
+) -> Segmenter:
+    """Build the preset's part segmenter on ``device`` (default ``cuda``);
+    arguments as :func:`load_classifier`. The clouds it is called on must
+    have the preset's ``num_points`` (the FPS ladder is fixed)."""
+    return Segmenter(*_load(preset, "partseg", variables, device, seed))

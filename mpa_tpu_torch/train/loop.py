@@ -27,8 +27,8 @@ import torch
 from torch import nn
 
 from mpa_tpu_torch.configs import TrainConfig
-from mpa_tpu_torch.train.losses import smooth_cls_loss
-from mpa_tpu_torch.train.schedules import Schedule, step_decay_schedule
+from mpa_tpu_torch.train.losses import smooth_cls_loss, smooth_seg_loss
+from mpa_tpu_torch.train.schedules import Schedule, cosine_schedule, step_decay_schedule
 
 
 @dataclasses.dataclass
@@ -71,7 +71,9 @@ def make_train_step(
     schedule: Schedule,
     steps_per_epoch: int,
 ):
-    """Build ``train_step(state, points, labels) -> loss`` (detached).
+    """Build ``train_step(state, points, labels) -> loss`` (detached);
+    ``points`` is whatever the model takes (a part-seg model takes the pair
+    ``(points, category one-hot)``).
 
     The learning rate of step ``t`` (counted from 0) is
     ``schedule(t // steps_per_epoch)``, as ``mpa_tpu``'s optax schedule reads
@@ -97,17 +99,40 @@ def make_train_step(
     return train_step
 
 
+def make_schedule(cfg: TrainConfig) -> Schedule:
+    """``cfg``'s per-epoch learning rate: cosine to ``eta_min`` over
+    ``epochs``, or step decay."""
+    if cfg.scheduler == "cos":
+        return cosine_schedule(cfg.learning_rate, cfg.epochs, cfg.eta_min)
+    if cfg.scheduler == "step":
+        return step_decay_schedule(cfg.learning_rate, cfg.decay_step, cfg.decay_gamma)
+    raise ValueError(f"unknown scheduler {cfg.scheduler}")
+
+
 def make_cls_train_step(cfg: TrainConfig, steps_per_epoch: int):
     """The classification step of ``cfg``: label-smoothed NLL under its
-    per-epoch step decay."""
+    per-epoch schedule."""
     smoothing = cfg.label_smoothing
-    schedule = step_decay_schedule(cfg.learning_rate, cfg.decay_step, cfg.decay_gamma)
     return make_train_step(lambda out, labels: smooth_cls_loss(out, labels, smoothing),
-                           schedule, steps_per_epoch)
+                           make_schedule(cfg), steps_per_epoch)
+
+
+def make_partseg_train_step(cfg: TrainConfig, steps_per_epoch: int):
+    """The part-seg step of ``cfg``: per-point label-smoothed NLL under its
+    per-epoch schedule. Call it as ``step(state, (points, onehot), labels)``
+    with labels ``[B, N]``."""
+    smoothing = cfg.label_smoothing
+    return make_train_step(lambda out, labels: smooth_seg_loss(out, labels, smoothing),
+                           make_schedule(cfg), steps_per_epoch)
+
+
+# The train step of each task, as ``TRAIN_STEPS[cfg.task](cfg, steps_per_epoch)``.
+TRAIN_STEPS = {"cls": make_cls_train_step, "partseg": make_partseg_train_step}
 
 
 def make_eval_step():
-    """Build ``eval_step(state, points) -> log-probs`` (eval mode, no grad)."""
+    """Build ``eval_step(state, points) -> log-probs`` (eval mode, no grad);
+    ``points`` as in :func:`make_train_step`."""
 
     def eval_step(state: TrainState, points: torch.Tensor) -> torch.Tensor:
         state.model.eval()

@@ -1,19 +1,19 @@
 #!/usr/bin/env python3
 """Where a serving request's or a train step's time goes, on the card.
 
-    python3 profile_port.py [--batch 64] [--requests 5] [--trace trace.json]
-    python3 profile_port.py --train [--batch 64] [--requests 5]
+    python3 profile_port.py [--model cls|partseg] [--batch B] [--requests 5] [--trace trace.json]
+    python3 profile_port.py [--model cls|partseg] --train [--batch B] [--requests 5]
 
-Loads the ``scanobjectnn_cls`` classifier of the PyTorch port on ``cuda``
-(random weights, seed 0), answers two warm-up requests, then traces
-``--requests`` requests of ``--batch`` clouds x 1024 points with
-``torch.profiler`` and prints: the host wall time per request, the device's
-busy share of that wall time (the union of kernel intervals), and device
-time per request grouped by kind (the port's kernels, matrix products,
-everything else) and by kernel name. With ``--train`` the unit is the
-preset's train step (adam-l2, dropout 0.5, train-mode BatchNorm) on
-synthetic clouds instead of a request. Needs a CUDA card; exits non-zero
-without one.
+Loads the model's preset of the PyTorch port on ``cuda`` (``scanobjectnn_cls``
+at 1024 points, batch 64, or ``shapenetpart`` at 2048 points, batch 32; random
+weights, seed 0), answers two warm-up requests, then traces ``--requests``
+requests of ``--batch`` clouds with ``torch.profiler`` and prints: the host
+wall time per request, the device's busy share of that wall time (the union
+of kernel intervals), and device time per request grouped by kind (the port's
+kernels, matrix products, everything else) and by kernel name. With
+``--train`` the unit is the preset's train step (its optimizer, dropout 0.5,
+train-mode BatchNorm) on the training CLI's synthetic clouds instead of a
+request. Needs a CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ import torch
 REPO = Path(__file__).resolve().parent
 PORT_KERNELS = ("knn_kernel", "fps_kernel", "gather_rows_kernel",
                 "transition_attention_fwd_kernel", "scatter_add_rows_kernel",
-                "transition_attention_bwd_kernel")
+                "transition_attention_bwd_kernel", "scatter_mean_kernel")
+PRESETS = {"cls": "scanobjectnn_cls", "partseg": "shapenetpart"}
 
 
 def kind(name: str) -> str:
@@ -45,49 +46,65 @@ def kind(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def make_requests(batch: int):
-    """``run(i)`` answers the i-th request of ``batch`` random clouds."""
-    from mpa_tpu_torch.serve import load_classifier
+def make_requests(model: str, batch: int, points: int):
+    """``run(i)`` answers the i-th request of ``batch`` clouds: random ones
+    for the classifier, ``realistic_partseg`` ones with their categories for
+    the segmenter."""
+    from mpa_tpu_torch.data import realistic_partseg
+    from mpa_tpu_torch.serve import load_classifier, load_segmenter
 
-    clf = load_classifier("scanobjectnn_cls", seed=0)
     rng = np.random.default_rng(0)
     reqs = {}
+    if model == "partseg":
+        serve = load_segmenter(PRESETS[model], seed=0)
+
+        def make(i):
+            pts, cats, _ = realistic_partseg(batch, points, seed=i)
+            return torch.from_numpy(pts).cuda(), torch.from_numpy(cats).cuda()
+    else:
+        serve = load_classifier(PRESETS[model], seed=0)
+
+        def make(i):
+            return (torch.from_numpy(
+                rng.standard_normal((batch, points, 3)).astype(np.float32)).cuda(),)
 
     def run(i: int):
         if i not in reqs:
-            reqs[i] = torch.from_numpy(
-                rng.standard_normal((batch, 1024, 3)).astype(np.float32)).cuda()
-        return clf(reqs[i])
+            reqs[i] = make(i)
+        return serve(*reqs[i])
 
     return run
 
 
-def make_train_steps(batch: int):
-    """``run(i)`` takes the preset's train step on the i-th batch of
-    synthetic clouds."""
-    from mpa_tpu_torch.configs import PRESETS
-    from mpa_tpu_torch.data.synthetic import synthetic_clouds
+def make_train_steps(model: str, batch: int):
+    """``run(i)`` takes the preset's train step on the i-th batch of the
+    training CLI's synthetic clouds."""
+    from mpa_tpu_torch.cli import train as cli_train
+    from mpa_tpu_torch.configs import PRESETS as CONFIGS, model_kwargs
     from mpa_tpu_torch.models import get_model
-    from mpa_tpu_torch.train import create_train_state, make_cls_train_step
+    from mpa_tpu_torch.train import TRAIN_STEPS, create_train_state
     from mpa_tpu_torch.utils.init import init_like_flax
 
-    cfg = PRESETS["scanobjectnn_cls"].with_overrides(seed=0)
-    pts, labels = synthetic_clouds(512, 1024, cfg.num_classes, seed=0)
-    model = init_like_flax(get_model(cfg.model, num_classes=cfg.num_classes),
-                           torch.Generator().manual_seed(0))
-    state = create_train_state(model, cfg, torch.device("cuda"))
-    step = make_cls_train_step(cfg, len(pts) // batch)
+    cfg = CONFIGS[PRESETS[model]].with_overrides(seed=0)
+    arrays, _ = cli_train.load_dataset(cfg, n_eval=1)
+    net = init_like_flax(get_model(cfg.model, **model_kwargs(cfg)),
+                         torch.Generator().manual_seed(0))
+    cuda = torch.device("cuda")
+    state = create_train_state(net, cfg, cuda)
+    step = TRAIN_STEPS[cfg.task](cfg, len(arrays[0]) // batch)
 
     def run(i: int):
-        sl = slice((i * batch) % len(pts), (i * batch) % len(pts) + batch)
-        return step(state, torch.from_numpy(pts[sl]).cuda(), torch.from_numpy(labels[sl]).cuda())
+        lo = (i * batch) % (len(arrays[0]) - batch + 1)
+        return step(state, *cli_train.make_inputs(cfg, tuple(a[lo:lo + batch] for a in arrays),
+                                                  cuda))
 
     return run
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--model", default="cls", choices=sorted(PRESETS))
+    ap.add_argument("--batch", type=int, default=None, help="default: the preset's")
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     ap.add_argument("--train", action="store_true", help="profile train steps, not requests")
@@ -96,7 +113,12 @@ def main() -> int:
         print("profile_port: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    run = make_train_steps(args.batch) if args.train else make_requests(args.batch)
+    from mpa_tpu_torch.configs import PRESETS as CONFIGS
+
+    cfg = CONFIGS[PRESETS[args.model]]
+    batch, points = args.batch or cfg.batch_size, cfg.num_points
+    run = (make_train_steps(args.model, batch) if args.train
+           else make_requests(args.model, batch, points))
     for i in range(2):
         run(i)
     torch.cuda.synchronize()
@@ -139,7 +161,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card}")
     unit = "train step" if args.train else "request"
-    print(f"batch {args.batch} x 1024 points, {n} traced {unit}s")
+    print(f"{cfg.model}: batch {batch} x {points} points, {n} traced {unit}s")
     print(f"wall per {unit} (profiler on): {wall_ms:.3f} ms")
     print(f"device busy per {unit}: {busy / 1e3 / n:.3f} ms "
           f"({100 * busy / 1e3 / n / wall_ms:.1f}% of wall); "
@@ -149,7 +171,7 @@ def main() -> int:
     print(f"top kernels by device time per {unit}:")
     for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {v:8.3f} ms  x{count[name] / n:5.1f}  {name[:110]}")
-    print(json.dumps({"unit": unit, "wall_ms": wall_ms, "busy_ms": busy / 1e3 / n,
+    print(json.dumps({"model": cfg.model, "unit": unit, "wall_ms": wall_ms, "busy_ms": busy / 1e3 / n,
                       "by_kind_ms": dict(by_kind), "kernels_per_unit": len(kernels) / n}))
     return 0
 

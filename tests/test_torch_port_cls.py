@@ -30,6 +30,12 @@ from mpa_tpu_torch.utils import from_jax_variables, resolve_device  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 
+# The suite runs several pytest workers side by side. With torch's default of
+# one thread per core in each of them, the many small CPU ops of the port's
+# training tests spend their time waiting on one another (a 5 s test took
+# 400 s). Every CPU test file of the port imports this module.
+torch.set_num_threads(1)
+
 
 def _flat(tree, prefix=""):
     out = {}
@@ -193,9 +199,8 @@ def test_from_jax_variables_round_trip():
     assert set(nested_state) == set(state)
 
 
-def test_load_classifier_from_variables_on_cpu():
-    clf = load_classifier(device="cpu", seed=3)
-    state = clf.model.state_dict()
+def state_to_flax(state):
+    """A port ``state_dict`` as flat flax keys, the inverse of the converter."""
     flat = {}
     for name, t in state.items():
         mod, leaf = name.rsplit(".", 1)
@@ -210,6 +215,12 @@ def test_load_classifier_from_variables_on_cpu():
             flat[f"batch_stats/{path}/mean"] = t.numpy()
         elif leaf == "running_var":
             flat[f"batch_stats/{path}/var"] = t.numpy()
+    return flat
+
+
+def test_load_classifier_from_variables_on_cpu():
+    clf = load_classifier(device="cpu", seed=3)
+    flat = state_to_flax(clf.model.state_dict())
     clf2 = load_classifier(variables=flat, device="cpu")
     x = _x(9, (2, 1024, 3))
     a, b = clf(x), clf2(x)
@@ -255,7 +266,9 @@ def test_port_imports_no_jax():
     assert len(files) > 10 and all(p.exists() for p in scripts)
     walked = {str(p.relative_to(REPO)) for p in files}
     for module in ("train/loop.py", "train/losses.py", "train/schedules.py", "train/metrics.py",
-                   "data/synthetic.py", "cli/train.py", "configs.py"):
+                   "data/synthetic.py", "data/shapenetpart.py", "cli/train.py", "configs.py",
+                   "ops/scatter.py", "nn/fuse.py", "nn/keephigh_partseg.py",
+                   "models/markov_partseg.py", "serve/__init__.py", "kernels/build.py"):
         assert f"mpa_tpu_torch/{module}" in walked
     bad = {
         str(p.relative_to(REPO)): root

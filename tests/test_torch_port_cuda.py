@@ -2,7 +2,8 @@
 version on the same CUDA tensors, at shapes around the model's, including
 the tie cases; the backward kernels and the kNN distance gradient against
 the plain versions and torch autograd; one train step on the card against
-the CPU. Every test here needs a CUDA card (the kernels have no CPU mode)
+the CPU; the scatter-mean kernel and its backward; the part segmenter and its
+train step against the CPU. Every test here needs a CUDA card (the kernels have no CPU mode)
 and skips, through the ``dev`` fixture, without one.
 
 Tolerances: the backward kernels add with ``atomicAdd``, in an order that
@@ -12,7 +13,11 @@ gradients also subtract near-equal terms) with an absolute floor at 1e-5 of
 the largest entry. The attention cases plant an eps-floored query, whose
 neighbours' dE is about 1e20; those entries and the rest are compared apart,
 each with the floor of its own largest entry. The train step is held to
-``chip_smoke.py``'s limits, on the same inputs.
+``chip_smoke.py``'s limits, on the same inputs. The scatter-mean kernel adds
+the claiming rows in a fixed order, the order of a sequential ``index_add_``:
+it is held bit for bit against the plain version run on the CPU, and within
+1e-5 against the plain version on the card, whose ``index_add_`` is
+atomic.
 
 Run on a machine with an H100:
     python -m pytest tests/test_torch_port_cuda.py -q
@@ -34,7 +39,8 @@ from mpa_tpu_torch.ops.attention import (
 from mpa_tpu_torch.ops.fps import fps_cuda, fps_plain
 from mpa_tpu_torch.ops.gather import gather_cuda, gather_plain, scatter_add_cuda, scatter_add_plain
 from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
-from mpa_tpu_torch.serve import load_classifier
+from mpa_tpu_torch.ops.scatter import scatter_mean_cuda, scatter_mean_plain, scatter_mean_upsample
+from mpa_tpu_torch.serve import load_classifier, load_segmenter
 
 
 @pytest.fixture
@@ -221,10 +227,10 @@ def test_autograd_functions_on_cuda_match_plain(dev):
 def test_train_step_on_cuda_matches_cpu_and_counts_launches(dev):
     """One adam-l2 step at full width (B = 16 x 1024, dropout 0) on the card
     and on the CPU from the same weights, through ``chip_smoke.train_parity``:
-    loss within 1e-4, every gradient within ``chip_smoke.GRAD_LIMIT`` units
+    loss within 1e-4, every gradient within the path's ``grad_limit`` units
     of ``chip_smoke.grad_error_units``, the updated BatchNorm statistics
     within 1e-4 relative; and the card step's launch counts."""
-    parity = chip_smoke.train_parity()
+    parity = chip_smoke.train_parity("cls")
     assert parity["launches"] == {
         "knn_kernel": 11, "fps_kernel": 5, "gather_rows_kernel": 10,
         "transition_attention_fwd_kernel": 11, "scatter_add_rows_kernel": 5,
@@ -232,7 +238,7 @@ def test_train_step_on_cuda_matches_cpu_and_counts_launches(dev):
     }
     assert parity["loss_diff"] <= 1e-4
     name, units = parity["grad_units"][0]
-    assert units <= chip_smoke.GRAD_LIMIT, f"grad {name}: {units:.3f} units"
+    assert units <= chip_smoke.PATHS["cls"]["grad_limit"], f"grad {name}: {units:.3f} units"
     name, err = parity["stat"]
     assert err < 1e-4, f"{name}: relative error {err:.3e}"
 
@@ -247,5 +253,105 @@ def test_classifier_on_cuda_matches_cpu_and_counts_launches(dev):
     assert kernels.LAUNCHES == {"knn_kernel": 11, "fps_kernel": 5, "gather_rows_kernel": 10,
                                 "transition_attention_fwd_kernel": 11,
                                 "scatter_add_rows_kernel": 0,
-                                "transition_attention_bwd_kernel": 0}
+                                "transition_attention_bwd_kernel": 0,
+                                "scatter_mean_kernel": 0}
     torch.testing.assert_close(got.cpu(), cpu(x), rtol=0, atol=1e-3)
+
+
+# -- the scatter-mean kernel ------------------------------------------------------
+
+
+def _scatter_case(name, dev):
+    """``(features [B,S,C], idx [B,S,K], N)`` on ``dev`` for a named case."""
+    B, S, K, N, C = {
+        "decoder": (4, 1024, 8, 2048, 64),  # the largest part-seg shape, B cut
+        "fuse_far": (4, 128, 8, 2048, 64),  # most slots unclaimed
+        "wide": (2, 128, 8, 256, 128),
+        "odd": (3, 77, 5, 301, 37),
+        "k1": (2, 100, 1, 64, 16),
+        "c1": (2, 90, 8, 200, 1),
+        "c256": (2, 64, 8, 128, 256),
+        "c300": (1, 50, 3, 70, 300),  # more than one pass over the channels
+        "one_slot": (2, 200, 8, 50, 32),
+        "tiles": (1, 3000, 8, 500, 8),  # S*K spans three staged index tiles
+    }[name]
+    g = torch.Generator().manual_seed(len(name) + S)
+    feats = torch.randn((B, S, C), generator=g)
+    idx = torch.randint(0, N, (B, S, K), generator=g, dtype=torch.int32)
+    if name == "one_slot":
+        idx[:] = 7  # every coarse point claims slot 7, K times over
+    if name == "odd":
+        idx[:, 3, :] = 11  # one coarse point names a slot K times
+        idx[:, 5, 0] = N + 2  # outside [0, N): claims nothing
+        idx[:, 6, 1] = -1
+    return feats.to(dev), idx.to(dev), N
+
+
+SCATTER_CASES = ["decoder", "fuse_far", "wide", "odd", "k1", "c1", "c256", "c300", "one_slot",
+                 "tiles"]
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_scatter_mean_kernel_matches_plain(dev, case):
+    feats, idx, N = _scatter_case(case, dev)
+    got, got_count = scatter_mean_cuda(feats, idx, N)
+    again, _ = scatter_mean_cuda(feats, idx, N)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # a fixed order of the sum: no run-to-run difference
+    want, want_count = scatter_mean_plain(feats, idx, N)
+    assert torch.equal(got_count, want_count)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    cpu, cpu_count = scatter_mean_plain(feats.cpu(), idx.cpu(), N)
+    assert torch.equal(got_count.cpu(), cpu_count)
+    assert torch.equal(got.cpu(), cpu)  # the sequential order, bit for bit
+    if case in ("fuse_far", "odd"):
+        assert (got_count == 0).any() and (got[got_count == 0] == 0).all()
+    if case == "one_slot":
+        assert float(got_count[0, 7]) == 200 * 8 and float(got_count.sum()) == 2 * 200 * 8
+
+
+@pytest.mark.parametrize("case", ["decoder", "fuse_far", "odd", "k1", "c1", "c256", "one_slot"])
+def test_scatter_mean_backward_matches_autograd_of_plain(dev, case):
+    feats, idx, N = _scatter_case(case, dev)
+    idx = idx.clamp(0, N - 1)  # the backward gathers: indices in range
+    g = torch.randn((feats.shape[0], N, feats.shape[2]),
+                    generator=torch.Generator().manual_seed(3)).to(dev)
+    kernels.reset_launch_counts()
+    f = feats.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(scatter_mean_upsample(f, idx, N), f, g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scatter_mean_kernel"] == 1
+    assert kernels.LAUNCHES["gather_rows_kernel"] == 1
+    f = feats.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(scatter_mean_plain(f, idx, N)[0], f, g)
+    # One divide and a sum over K per entry on both sides, in another order.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_segmenter_on_cuda_matches_cpu_and_counts_launches(dev):
+    """Launch counts of one request at full width, and the card against the
+    CPU at B = 4 through ``chip_smoke.segmenter_parity``, held to
+    ``chip_smoke.SEG_LIMITS``."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 2048, 3)).astype(np.float32)
+    kernels.reset_launch_counts()
+    got = load_segmenter(seed=0)(x, rng.integers(0, 16, 2))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == chip_smoke.PARTSEG_FORWARD
+    assert tuple(got.shape) == (2, 2048, 50) and torch.isfinite(got).all()
+    report = chip_smoke.segmenter_parity()
+    assert report["median_abs"] <= chip_smoke.SEG_LIMITS["median_abs"], report
+    assert report["argmax_agreement"] >= chip_smoke.SEG_LIMITS["argmax_agreement"], report
+
+
+def test_partseg_train_step_on_cuda_matches_cpu_and_counts_launches(dev):
+    """One SGD step of the ``shapenetpart`` preset (B = 4 x 2048, dropout 0)
+    on the card and on the CPU from the same weights, through
+    ``chip_smoke.train_parity``, held to ``chip_smoke.py``'s limits."""
+    parity = chip_smoke.train_parity("partseg")
+    assert parity["launches"] == chip_smoke.PATHS["partseg"]["per_train_step"]
+    assert parity["loss_diff"] <= 1e-4, parity["loss_diff"]
+    name, units = parity["grad_units"][0]
+    assert units <= chip_smoke.PATHS["partseg"]["grad_limit"], f"grad {name}: {units:.3f} units"
+    name, err = parity["stat"]
+    assert err < 1e-4, f"{name}: relative error {err:.3e}"
