@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths at their presets' published widths with
+Drives the port's six main paths at their presets' published widths with
 random weights from a seed: ``markov_cls`` (``scanobjectnn_cls``: 1024
-points, 15 classes, full ladder) served and trained, and ``markov_partseg``
+points, 15 classes, full ladder) served and trained, ``markov_partseg``
 (``shapenetpart``: 2048 points, ladder 1024/512/256/128, 16 categories, 50
-parts) served and trained. It shows that they run through the port's seven
-hand-written kernels (five forward, two backward):
+parts) served and trained, and ``markov_semseg`` in the Morton-window mode
+``window_all`` at the large-scene shape (``s3dis_semseg`` at 16384 points,
+B = 2, ladder 8192/4096/2048/1024, 13 classes) served and trained. It shows
+that they run through the port's eleven hand-written kernels (eight
+forward, three backward):
 
 1. the card (``nvidia-smi`` name and power limit), then the kernel build
    from ``mpa_tpu_torch/kernels/csrc`` and its seconds;
@@ -37,6 +40,17 @@ hand-written kernels (five forward, two backward):
    cosine, smoothing 0.1, dropout 0.5) at B = 32, with the checks of 2b (the
    parity step at B = 4) and a three-step ``cli.train --preset
    shapenetpart``;
+2e. semseg served: ``load_semantic_segmenter(num_points=16384,
+   neighbor_mode="window_all")`` on ``cuda``, two warm-up and three timed
+   requests of 2 blocks x 16384 points x 9 features (``synthetic_semseg``),
+   launch counts read and asserted (the four windowed kernels; no exact kNN,
+   attention or scatter-mean), finite log-probs whose rows sum to 1; the
+   card against the CPU plain ops from the same weights at the preset's 4096
+   points, B = 1, within ``SEMSEG_LIMITS``;
+2f. semseg trained: the preset's step (as part-seg's) at B = 2 x 16384 in
+   window_all, with the checks of 2b (the parity step at B = 1 x 4096) and a
+   three-step ``cli.train --preset s3dis_semseg --num_points 16384
+   --batch_size 2 --neighbor_mode window_all``;
 3. every kernel launch of one more request of each model, and every
    backward launch of one more train step of each, is replayed on its own
    inputs, kernel against its plain PyTorch version (FPS, gather and kNN
@@ -46,12 +60,15 @@ hand-written kernels (five forward, two backward):
    atomic adds; the scatter-mean's count exactly equal, its mean bit-equal
    to the plain version run on the CPU, unchanged by a second launch, and
    within 1e-5 of the plain version on the card, whose ``index_add_`` is
-   atomic), with the kernel's, the plain version's and, where one PyTorch
+   atomic; the windowed kNN's indices and distances and the windowed
+   attention forward bit-equal, every windowed index inside its window; the
+   windowed attention backward as the exact one, the windowed scatter-mean as
+   the exact one), with the kernel's, the plain version's and, where one PyTorch
    call computes the same function, that call's time, beside the bound the
    card's memory rate and float32 rate put on the same work; the kNN
-   distance gradient of one recorded feature-space kNN is held against
-   torch autograd of the plain kNN, and the scatter-mean's backward at
-   every recorded launch against autograd of its plain version;
+   distance gradient of one recorded feature-space kNN (windowed for semseg)
+   is held against torch autograd of the plain kNN, and the scatter-means'
+   backward at every recorded launch against autograd of the plain version;
 4. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -80,7 +97,8 @@ import torch
 REPO = Path(__file__).resolve().parent
 REQUESTS, SEED = 3, 0
 TRAIN_WARMUP, TRAIN_STEPS, FIXED_STEPS = 2, 5, 10
-BACKWARD = ("scatter_add_rows_kernel", "transition_attention_bwd_kernel")
+BACKWARD = ("scatter_add_rows_kernel", "transition_attention_bwd_kernel",
+            "windowed_attention_bwd_kernel")
 CLS_FORWARD = {
     "knn_kernel": 11,  # la0 self-kNN + spatial and feature kNN in la1..la5
     "fps_kernel": 5,  # one per ladder step
@@ -96,6 +114,18 @@ PARTSEG_FORWARD = {
     # la0, then per state one two-branch call (xyz + spatial) and one feature call
     "transition_attention_fwd_kernel": 17,
     "scatter_mean_kernel": 14,  # four decoder upsamples, ten coarser sources in Fuse
+}
+# markov_semseg in window_all at 16384 points: every scale pair admits a
+# window, so every search, attention and upsample is windowed, FPS banded.
+SEMSEG_FORWARD = {
+    # la0's self search, spatial + feature in la1..la4, three spatial and four
+    # feature ones in the decoder states (scale 0 reuses la0's), six fresh
+    # ones for Fuse's non-adjacent pairs
+    "windowed_knn_kernel": 22,
+    "fps_kernel": 4,  # one launch per ladder step, its bands folded into the batch
+    "gather_rows_kernel": 18,  # as part-seg
+    "windowed_attention_fwd_kernel": 17,  # as part-seg
+    "windowed_scatter_mean_kernel": 14,  # as part-seg
 }
 # The card's step against the CPU's: loss and BatchNorm statistics (relative)
 # within 1e-4; every gradient within ``grad_limit`` units of grad_error_units.
@@ -125,6 +155,23 @@ PATHS = {
         ),
         grad_limit=20,
     ),
+    "semseg": dict(
+        # s3dis_semseg at the large-scene shape: B = 2 blocks of 16384 points,
+        # ladder 8192/4096/2048/1024, window_all; the card-against-CPU checks
+        # at the preset's own 4096 points, B = 1.
+        preset="s3dis_semseg", batch=2, points=16384, parity_batch=1, parity_points=4096,
+        overrides=dict(num_points=16384, batch_size=2, neighbor_mode="window_all"),
+        cli=["--num_points", "16384", "--batch_size", "2", "--neighbor_mode", "window_all",
+             "--eval_clouds", "4"],
+        per_forward=SEMSEG_FORWARD,
+        per_train_step=dict(
+            SEMSEG_FORWARD,
+            gather_rows_kernel=18 + 14,  # the backward of every scatter-mean
+            windowed_attention_bwd_kernel=17,
+            scatter_add_rows_kernel=14,  # center_feat's gathers and Fuse's ten
+        ),
+        grad_limit=20,
+    ),
 }
 # The served part-seg log-probs on the card against the CPU's, per point the
 # largest difference over the 50 parts: limits on its median over the points
@@ -132,6 +179,8 @@ PATHS = {
 # that flips on a last bit moves single points by far more, so the maximum is
 # reported and not limited. PERF.md has the readings that set the limits.
 SEG_LIMITS = {"median_abs": 1e-4, "argmax_agreement": 0.99}
+# The same for markov_semseg window_all at 4096 points, B = 1 (13 classes).
+SEMSEG_LIMITS = {"median_abs": 1e-4, "argmax_agreement": 0.99}
 # Gradients that are zero up to rounding in these models: the k projections'
 # biases (a shift of k cancels in the attention's normalisation), the q
 # projections (no part in the output), and the biases of the Dense layers
@@ -151,6 +200,14 @@ SOURCES = {
                                         "mpa_tpu/ops/pallas/attention_pallas.py:388"),
     "scatter_mean_kernel": ("mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
                             "mpa_tpu/ops/pallas/scatter_pallas.py:70"),
+    "windowed_knn_kernel": ("mpa_tpu_torch/kernels/csrc/window_knn.cu",
+                            "mpa_tpu/ops/pallas/window_attention.py:153"),
+    "windowed_attention_fwd_kernel": ("mpa_tpu_torch/kernels/csrc/window_attention.cu",
+                                      "mpa_tpu/ops/pallas/window_attention.py:399"),
+    "windowed_attention_bwd_kernel": ("mpa_tpu_torch/kernels/csrc/window_attention_bwd.cu",
+                                      "mpa_tpu/ops/pallas/window_attention.py:431"),
+    "windowed_scatter_mean_kernel": ("mpa_tpu_torch/kernels/csrc/window_scatter_mean.cu",
+                                     "mpa_tpu/ops/pallas/window_attention.py:577"),
 }
 ALSO_REPLACES = {
     "transition_attention_fwd_kernel": "mpa_tpu/ops/pallas/attention_pallas.py:347",
@@ -224,6 +281,13 @@ def bound(name: str, inp: dict):
         S, k = inp["query"].shape[1], inp["k"]
         nbytes = 4 * (B * N * C + B * S * C) + 8 * B * S * k
         ops = B * S * N * (2 * C + 3) + 2 * B * (S + N) * C
+    elif name == "windowed_knn_kernel":
+        B, N, C = inp["base"].shape
+        S, k = inp["query"].shape[1], inp["k"]
+        nbytes = 4 * (B * N * C + B * S * C) + 8 * B * S * k
+        # Each query's distances to its window's rows, the norms, and the
+        # direct-form distances of the k it keeps.
+        ops = B * S * inp["spec"].window * (2 * C + 3) + 2 * B * (S + N) * C + 3 * B * S * k * C
     elif name == "fps_kernel":
         B, N, C = inp["points"].shape
         npoint = inp["npoint"]
@@ -238,7 +302,7 @@ def bound(name: str, inp: dict):
         B, E, W = inp["grads"].shape
         nbytes = 4 * (B * E * W + B * E + B * inp["num_points"] * W)
         ops = B * E * W  # one add per gradient float
-    elif name == "scatter_mean_kernel":
+    elif name in ("scatter_mean_kernel", "windowed_scatter_mean_kernel"):
         B, S, C = inp["features"].shape
         K, N = inp["knn_idx"].shape[2], inp["num_fine"]
         nbytes = 4 * (B * S * C + B * S * K + B * N * C + B * N)
@@ -246,7 +310,7 @@ def bound(name: str, inp: dict):
         # indices, not the most there could be), one divide per output float.
         idx = inp["knn_idx"]
         ops = int(((idx >= 0) & (idx < N)).sum()) * C + B * N * C
-    elif name == "transition_attention_bwd_kernel":
+    elif name in ("transition_attention_bwd_kernel", "windowed_attention_bwd_kernel"):
         B, N, Win = inp["packed"].shape
         S, K = inp["idx"].shape[1:]
         Wo = inp["n_branches"] * inp["c"]
@@ -283,15 +347,21 @@ def assert_close_scaled(got, want, rtol: float, what: str) -> float:
 def check_knn_grad(inp: dict) -> float:
     """The kNN distance gradient on CUDA (kernel values, gather and
     scatter-add kernels backward) against torch autograd of the plain kNN on
-    the same inputs. The plain gradient comes from the expanded form
-    |q|^2 + |b|^2 - 2 q.b, whose terms are of size |q| |g| and cancel, so the
-    absolute floor scales with them."""
+    the same inputs, for an exact or (with a ``spec``) a windowed search. The
+    exact plain gradient comes from the expanded form |q|^2 + |b|^2 - 2 q.b,
+    whose terms are of size |q| |g| and cancel, so the absolute floor scales
+    with them."""
     from mpa_tpu_torch.ops.knn import knn, knn_plain
+    from mpa_tpu_torch.ops.window import windowed_knn_plain, windowed_knn_with_spec
 
     k, base, query = inp["k"], inp["base"], inp["query"]
+    fns = (knn, knn_plain)
+    if "spec" in inp:
+        fns = (lambda k, b, q: windowed_knn_with_spec(k, b, q)[:2],
+               lambda k, b, q: windowed_knn_plain(k, b, q, inp["spec"]))
     weights = torch.linspace(0.5, 1.5, k, device=base.device)
     grads = []
-    for fn in (knn, knn_plain):
+    for fn in fns:
         b, q = base.detach().clone().requires_grad_(True), query.detach().clone().requires_grad_(True)
         dist, _ = fn(k, b, q)
         grads.append(torch.autograd.grad((dist * weights).sum(), (b, q)))
@@ -310,14 +380,18 @@ def check_scatter_mean_grad(inp: dict) -> float:
     plain version on the same inputs. Both take one divide and a sum over K
     per entry, in another order: 1e-5 relative, 1e-6 absolute."""
     from mpa_tpu_torch.ops.scatter import scatter_mean_plain, scatter_mean_upsample
+    from mpa_tpu_torch.ops.window import windowed_scatter_mean
 
     # A served request's tensors were made in inference mode; autograd saves
     # the index, so it takes a copy.
     feats, idx, n = inp["features"].detach(), inp["knn_idx"].clone(), inp["num_fine"]
     g = torch.randn((feats.shape[0], n, feats.shape[2]), device=feats.device,
                     generator=torch.Generator(device=feats.device).manual_seed(SEED))
+    kern = scatter_mean_upsample
+    if "spec" in inp:
+        kern = lambda f, i, m: windowed_scatter_mean(f, i, m, inp["spec"])  # noqa: E731
     grads = []
-    for fn in (scatter_mean_upsample, lambda f, i, m: scatter_mean_plain(f, i, m)[0]):
+    for fn in (kern, lambda f, i, m: scatter_mean_plain(f, i, m)[0]):
         f = feats.clone().requires_grad_(True)
         grads.append(torch.autograd.grad(fn(f, idx, n), f, g)[0])
     torch.cuda.synchronize()
@@ -339,8 +413,14 @@ def check_call(name: str, inp: dict) -> dict:
     )
     from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
     from mpa_tpu_torch.ops.scatter import scatter_mean_cuda, scatter_mean_plain
+    from mpa_tpu_torch.ops.window import (
+        check_in_window, windowed_attention_bwd_cuda, windowed_attention_cuda, windowed_knn_cuda,
+        windowed_knn_plain, windowed_scatter_mean_cuda,
+    )
 
-    library, ref = None, None
+    library, ref, spec = None, None, inp.get("spec")
+    if spec is not None and name != "windowed_knn_kernel":
+        check_in_window(inp["idx"] if "idx" in inp else inp["knn_idx"], spec, name)
     if name == "knn_kernel":
         k, base, query = inp["k"], inp["base"], inp["query"]
         kern, plain = (lambda: knn_cuda(k, base, query)), (lambda: knn_plain(k, base, query))
@@ -352,6 +432,18 @@ def check_call(name: str, inp: dict) -> dict:
         torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-6)
         err = (gd - wd).abs().max().item()
         shape = f"base {tuple(base.shape)} query {tuple(query.shape)} k={k}"
+    elif name == "windowed_knn_kernel":
+        k, base, query = inp["k"], inp["base"], inp["query"]
+        kern = lambda: windowed_knn_cuda(k, base, query, spec)  # noqa: E731
+        plain = lambda: windowed_knn_plain(k, base, query, spec)  # noqa: E731
+        (gd, gi), (wd, wi) = kern(), plain()
+        if not torch.equal(gi, wi):
+            raise AssertionError(f"windowed_knn_kernel indices differ from the plain version "
+                                 f"at {int((gi != wi).sum())} places")
+        if not torch.equal(gd, wd):
+            raise AssertionError("windowed_knn_kernel distances differ from the plain version")
+        err = 0.0
+        shape = f"base {tuple(base.shape)} query {tuple(query.shape)} k={k} window={spec.window}"
     elif name == "fps_kernel":
         pts, npoint, start = inp["points"], inp["npoint"], inp["start_idx"]
         kern, plain = (lambda: fps_cuda(pts, npoint, start)), (lambda: fps_plain(pts, npoint, start))
@@ -383,11 +475,13 @@ def check_call(name: str, inp: dict) -> dict:
         err = assert_close_scaled(got, want, rtol=1e-5, what=name)
         ref = want.abs().max().item()
         shape = f"grads {tuple(grads.shape)} into N={n}"
-    elif name == "scatter_mean_kernel":
+    elif name in ("scatter_mean_kernel", "windowed_scatter_mean_kernel"):
         feats, idx, n = inp["features"], inp["knn_idx"], inp["num_fine"]
         B, S, C = feats.shape
         K = idx.shape[2]
         kern = lambda: scatter_mean_cuda(feats, idx, n)  # noqa: E731
+        if spec is not None:
+            kern = lambda: windowed_scatter_mean_cuda(feats, idx, n, spec)  # noqa: E731
         plain = lambda: scatter_mean_plain(feats, idx, n)  # noqa: E731
         rows = (idx.long() + torch.arange(B, device=idx.device)[:, None, None] * n).reshape(-1)
         vals = feats[:, :, None, :].expand(B, S, K, C).reshape(-1, C)
@@ -401,21 +495,23 @@ def check_call(name: str, inp: dict) -> dict:
         (got, gc), (again, _), (want, wc) = kern(), kern(), plain()
         cpu, cc = scatter_mean_plain(feats.cpu(), idx.cpu(), n)
         if not (torch.equal(gc, wc) and torch.equal(gc.cpu(), cc)):
-            raise AssertionError("scatter_mean_kernel: the count differs from the plain version")
+            raise AssertionError(f"{name}: the count differs from the plain version")
         if not torch.equal(got, again):
-            raise AssertionError("scatter_mean_kernel: two launches on the same inputs differ")
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
         if not torch.equal(got.cpu(), cpu):
             raise AssertionError(
-                f"scatter_mean_kernel differs from the plain version on the CPU at "
+                f"{name} differs from the plain version on the CPU at "
                 f"{int((got.cpu() != cpu).sum())} places")
         # The plain version's index_add_ is atomic on the card: a sum of up to a
         # few dozen rows in another order. The CPU comparison above is the exact one.
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         err = (got - want).abs().max().item()
         shape = f"features {tuple(feats.shape)} idx {tuple(idx.shape)} into N={n}"
-    elif name == "transition_attention_bwd_kernel":
+    elif name in ("transition_attention_bwd_kernel", "windowed_attention_bwd_kernel"):
         args = (inp["packed"], inp["idx"], inp["shifts"], inp["gctx"], inp["n_branches"], inp["c"])
         kern, plain = (lambda: attention_bwd_cuda(*args)), (lambda: attention_bwd_plain(*args))
+        if spec is not None:
+            kern = lambda: windowed_attention_bwd_cuda(*args, spec)  # noqa: E731
         (gp, gs), (wp, ws) = kern(), plain()
         err = assert_close_scaled(gp, wp, rtol=1e-4, what=f"{name} dpacked")
         if args[2] is not None:
@@ -426,7 +522,12 @@ def check_call(name: str, inp: dict) -> dict:
     else:
         args = (inp["packed"], inp["idx"], inp["shifts"], inp["n_branches"], inp["c"])
         kern, plain = (lambda: attention_cuda(*args)), (lambda: attention_plain(*args))
+        if spec is not None:
+            kern = lambda: windowed_attention_cuda(*args, spec)  # noqa: E731
         got, want = kern(), plain()
+        if spec is not None and not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from the plain version at "
+                                 f"{int((got != want).sum())} places")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
         err = (got - want).abs().max().item()
         shape = (f"packed {tuple(args[0].shape)} idx {tuple(args[1].shape)} "
@@ -448,20 +549,27 @@ def check_call(name: str, inp: dict) -> dict:
     return row
 
 
-def path_config(path: str):
-    """The preset of ``path`` ("cls" or "partseg") with this script's seed."""
+def path_config(path: str, parity: bool = False):
+    """The preset of ``path`` (a key of ``PATHS``) with the path's overrides
+    and this script's seed; ``parity`` gives the card-against-CPU checks'
+    cloud size where the path has one of its own."""
     from mpa_tpu_torch.configs import PRESETS
 
-    return PRESETS[PATHS[path]["preset"]].with_overrides(seed=SEED)
+    spec = PATHS[path]
+    cfg = PRESETS[spec["preset"]].with_overrides(seed=SEED, **spec.get("overrides", {}))
+    if parity and "parity_points" in spec:
+        cfg = cfg.with_overrides(num_points=spec["parity_points"])
+    return cfg
 
 
-def fresh_model(path: str, **kw):
-    """The path's model at its preset's width, with weights drawn from ``SEED``."""
+def fresh_model(path: str, cfg=None, **kw):
+    """The path's model (for ``cfg``, default its config) at its preset's
+    width, with weights drawn from ``SEED``."""
     from mpa_tpu_torch.configs import model_kwargs
     from mpa_tpu_torch.models import get_model
     from mpa_tpu_torch.utils.init import init_like_flax
 
-    cfg = path_config(path)
+    cfg = cfg or path_config(path)
     model = get_model(cfg.model, **model_kwargs(cfg), **kw)
     return init_like_flax(model, torch.Generator().manual_seed(SEED))
 
@@ -497,10 +605,10 @@ def train_parity(path: str) -> dict:
     from mpa_tpu_torch.cli import train as cli_train
     from mpa_tpu_torch.train import create_train_state
 
-    spec, cfg = PATHS[path], path_config(path)
+    spec, cfg = PATHS[path], path_config(path, parity=True)
     arrays, _ = cli_train.load_dataset(cfg, n_eval=1)
     head = tuple(a[:spec["parity_batch"]] for a in arrays)
-    model = fresh_model(path, dropout=0.0)
+    model = fresh_model(path, cfg, dropout=0.0)
     results = {}
     for device in (torch.device("cuda"), torch.device("cpu")):
         state = create_train_state(copy.deepcopy(model), cfg, device)
@@ -538,7 +646,7 @@ def check_launches(tag: str, launches: dict, per_unit: dict, units: int, unit: s
 
 
 def train_phase(path: str, tag: str) -> dict:
-    """Phases 2b and 2d: the path's train step on the card, its launch
+    """Phases 2b, 2d and 2f: the path's train step on the card, its launch
     counts, the loss on a fixed batch, the CUDA step against the CPU step,
     and the training CLI."""
     from mpa_tpu_torch import kernels
@@ -607,7 +715,7 @@ def train_phase(path: str, tag: str) -> dict:
 
     # The training CLI, in-process.
     out = cli_train.main(["--preset", spec["preset"], "--device", "cuda", "--max_steps", "3",
-                          "--seed", str(SEED)])
+                          "--seed", str(SEED), *spec.get("cli", [])])
     if out["steps"] != 3 or not np.isfinite(out["losses"]).all():
         raise AssertionError(f"cli.train: {out}")
     log(f"[{tag}] cli.train: 3 steps, losses {out['losses']}, eval "
@@ -630,6 +738,25 @@ def segmentation_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
     }
 
 
+def semseg_parity() -> dict:
+    """``load_semantic_segmenter`` in window_all on the card against the CPU
+    (plain ops) from the same weights, at the preset's 4096 points, B = 1:
+    ``segmentation_agreement`` and the CPU's seconds."""
+    from mpa_tpu_torch.data import synthetic_semseg
+    from mpa_tpu_torch.serve import load_semantic_segmenter
+
+    spec = PATHS["semseg"]
+    kw = dict(seed=SEED, neighbor_mode=spec["overrides"]["neighbor_mode"],
+              num_points=spec["parity_points"])
+    blocks, _ = synthetic_semseg(1, spec["parity_points"], seed=SEED)
+    x = blocks[:spec["parity_batch"]]
+    got = load_semantic_segmenter(spec["preset"], **kw)(x).cpu()
+    cpu = load_semantic_segmenter(spec["preset"], device="cpu", **kw)
+    t0 = time.perf_counter()
+    want = cpu(x)
+    return dict(segmentation_agreement(got, want), cpu_s=time.perf_counter() - t0)
+
+
 def segmenter_parity(batch: int = PATHS["partseg"]["parity_batch"]) -> dict:
     """``load_segmenter`` on the card against the CPU (plain ops) from the
     same weights on ``batch`` synthetic clouds: ``segmentation_agreement``
@@ -646,16 +773,21 @@ def segmenter_parity(batch: int = PATHS["partseg"]["parity_batch"]) -> dict:
 
 
 def serve_phase(path: str, tag: str) -> dict:
-    """Phases 2 and 2c: the path's serving entry point answers two warm-up
-    and ``REQUESTS`` timed requests on the card; launch counts, finite
-    log-probabilities, and the card against the CPU."""
+    """Phases 2, 2c and 2e: the path's serving entry point answers two
+    warm-up and ``REQUESTS`` timed requests on the card; launch counts,
+    finite log-probabilities, and the card against the CPU."""
     from mpa_tpu_torch import kernels
-    from mpa_tpu_torch.data import realistic_partseg
-    from mpa_tpu_torch.serve import load_classifier, load_segmenter
+    from mpa_tpu_torch.data import realistic_partseg, synthetic_semseg
+    from mpa_tpu_torch.serve import load_classifier, load_segmenter, load_semantic_segmenter
 
     spec = PATHS[path]
     B, points = spec["batch"], spec["points"]
-    if path == "partseg":
+    if path == "semseg":
+        serve = load_semantic_segmenter(spec["preset"], seed=SEED, **spec["overrides"])
+        blocks, _ = synthetic_semseg(1, points, seed=SEED)  # 24 blocks of one room
+        requests = [(blocks[i * B:(i + 1) * B],) for i in range(REQUESTS + 1)]
+        out_shape = (B, points, path_config(path).num_classes)
+    elif path == "partseg":
         serve = load_segmenter(spec["preset"], seed=SEED)
         pts, cats, _ = realistic_partseg(B * (REQUESTS + 1), points, seed=SEED)
         requests = [(pts[i * B:(i + 1) * B], cats[i * B:(i + 1) * B])
@@ -697,15 +829,17 @@ def serve_phase(path: str, tag: str) -> dict:
             raise AssertionError(f"[{tag}] bad output {tuple(out.shape)}")
         torch.testing.assert_close(out.exp().sum(-1), torch.ones(out_shape[:-1], device=out.device),
                                    rtol=0, atol=1e-4)
-    if path == "partseg":
-        report = segmenter_parity()
-        log(f"[{tag}] cuda vs cpu at B={spec['parity_batch']} (plain ops, {report['cpu_s']:.1f} s "
-            f"on the host): per point max |dlogp| over the parts: median "
-            f"{report['median_abs']:.3e} (limit {SEG_LIMITS['median_abs']:.0e}), 99th percentile "
-            f"{report['p99_abs']:.3e}, max {report['max_abs']:.3e}; argmax agreement "
-            f"{report['argmax_agreement']:.5f} (limit {SEG_LIMITS['argmax_agreement']})")
-        if (not report["median_abs"] <= SEG_LIMITS["median_abs"]
-                or not report["argmax_agreement"] >= SEG_LIMITS["argmax_agreement"]):
+    if path in ("partseg", "semseg"):
+        report, limits = ((segmenter_parity(), SEG_LIMITS) if path == "partseg"
+                          else (semseg_parity(), SEMSEG_LIMITS))
+        log(f"[{tag}] cuda vs cpu at B={spec['parity_batch']} x "
+            f"{spec.get('parity_points', points)} pts (plain ops, {report['cpu_s']:.1f} s on the "
+            f"host): per point max |dlogp| over the labels: median {report['median_abs']:.3e} "
+            f"(limit {limits['median_abs']:.0e}), 99th percentile {report['p99_abs']:.3e}, max "
+            f"{report['max_abs']:.3e}; argmax agreement {report['argmax_agreement']:.5f} "
+            f"(limit {limits['argmax_agreement']})")
+        if (not report["median_abs"] <= limits["median_abs"]
+                or not report["argmax_agreement"] >= limits["argmax_agreement"]):
             raise AssertionError(f"[{tag}] cuda and cpu log-probs differ: {report}")
     else:
         cpu = load_classifier(spec["preset"], seed=SEED, device="cpu")
@@ -736,13 +870,15 @@ def replay(path: str, served: dict, trained: dict) -> list:
             f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {lib} ms, "
             f"bound {row['bound_ms']:.4f} ms")
     knn_feature = next(inp for name, inp in served["recorded"]
-                       if name == "knn_kernel" and inp["base"].shape[-1] > 3)
+                       if name in ("knn_kernel", "windowed_knn_kernel")
+                       and inp["base"].shape[-1] > 3)
     err = check_knn_grad(knn_feature)
     log(f"[3 {path}] knn distance gradient (gather_rows_kernel + scatter_add_rows_kernel) "
-        f"base {tuple(knn_feature['base'].shape)} query {tuple(knn_feature['query'].shape)}: "
-        f"max_abs_err {err:.3e} against autograd of the plain kNN")
+        f"base {tuple(knn_feature['base'].shape)} query {tuple(knn_feature['query'].shape)}"
+        f"{' windowed' if 'spec' in knn_feature else ''}: max_abs_err {err:.3e} against "
+        f"autograd of the plain kNN")
     errs = [check_scatter_mean_grad(inp) for name, inp in served["recorded"]
-            if name == "scatter_mean_kernel"]
+            if name in ("scatter_mean_kernel", "windowed_scatter_mean_kernel")]
     if errs:
         log(f"[3 {path}] scatter-mean backward (gather_rows_kernel) at {len(errs)} recorded "
             f"launches: max_abs_err {max(errs):.3e} against autograd of the plain version")
@@ -752,11 +888,13 @@ def replay(path: str, served: dict, trained: dict) -> list:
 def summarise(name: str, rows: list, counts: dict) -> dict:
     """One kernel's entry of the ``kernels`` line. Times are sums over the
     launches of one served request (forward kernels) or one train step
-    (backward kernels); the top-level ones are the part-seg path's, and
-    ``by_path`` has each model's. ``launches`` is the count in the timed run
-    of the part-seg path the times are per (3 requests or 5 steps);
-    ``launches_by_path`` has all four timed runs."""
+    (backward kernels); the top-level ones are those of the kernel's own
+    path (markov_semseg window_all for the windowed kernels, markov_partseg
+    for the others), and ``by_path`` has each model's. ``launches`` is the
+    count in the timed run of that path the times are per (3 requests or 5
+    steps); ``launches_by_path`` has all six timed runs."""
     backward = name in BACKWARD
+    main = "semseg" if name.startswith("windowed_") else "partseg"
 
     def sums(mine):
         if not mine:
@@ -783,10 +921,11 @@ def summarise(name: str, rows: list, counts: dict) -> dict:
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": counts["partseg_train" if backward else "partseg_serve"][name],
+        "launches": counts[f"{main}_train" if backward else f"{main}_serve"][name],
         "per": "train step" if backward else "request",
+        "path": main,
         "launches_by_path": {run: c[name] for run, c in counts.items()},
-        **by_path["partseg"],
+        **by_path[main],
         "by_path": by_path,
     }
     if name in ALSO_REPLACES:
@@ -794,47 +933,108 @@ def summarise(name: str, rows: list, counts: dict) -> dict:
     return entry
 
 
-# One-line faults for ``--planted-faults``: (file, text, replacement).
+# One-line faults for ``--planted-faults``: (path whose --parity readings
+# the copy gives, file, text, replacement); "none" gives every path's.
 PLANTED_FAULTS = {
     "none": None,
     "first claimant of every slot dropped": (
-        "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
+        "partseg", "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
         "if (c0 + c < C) acc[r] = __fadd_rn(acc[r], row[c]);",
         "if (c0 + c < C && cnt > 0) acc[r] = __fadd_rn(acc[r], row[c]);"),
     "count used without the clamp": (
-        "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
+        "partseg", "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
         "const float den = fmaxf(static_cast<float>(cnt), 1.f);",
         "const float den = static_cast<float>(cnt);"),
     "a lane's second claim not counted": (
-        "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
+        "partseg", "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
         "            ++cnt;\n          }\n",
         "          }\n          ++cnt;\n"),
     "backward without the divide by the count": (
-        "mpa_tpu_torch/ops/scatter.py",
+        "partseg", "mpa_tpu_torch/ops/scatter.py",
         "g_norm = (grad / count.clamp_min(1.0)[..., None]).contiguous()",
         "g_norm = grad.contiguous()"),
+    "windowed kNN: one lane of the top-k dropped": (
+        "semseg", "mpa_tpu_torch/kernels/csrc/window_knn.cu",
+        "for (int r = lane; r < nt; r += 32) {",
+        "for (int r = lane; r < nt && lane != 31; r += 32) {"),
+    "windowed attention: window offset off by one block": (
+        "semseg", "mpa_tpu_torch/kernels/csrc/window_attention.cu",
+        "auto local = [&](int k) { return my[k] - ch.win0; };",
+        "auto local = [&](int k) { return my[k] - ch.win0 - bn; };"),
+    "windowed attention backward: no tie split": (
+        "semseg", "mpa_tpu_torch/kernels/csrc/window_attention_bwd.cu",
+        "const float dw = __fmul_rn(__fdiv_rn(1.f, cnt), gctx[o]);",
+        "const float dw = gctx[o];"),
+    "windowed scatter-mean: last chunk of the search skipped": (
+        "semseg", "mpa_tpu_torch/kernels/csrc/window_scatter_mean.cu",
+        "const int e_lo = lo * K, e_hi = hi * K;",
+        "const int e_lo = lo * K, e_hi = max(hi - sq, lo) * K;"),
 }
 
 
-def parity_readings() -> dict:
-    """``--parity``: the part-seg path's card-against-CPU readings and one
-    scatter-mean replay, each check's failure caught and reported."""
+def window_replay_inputs() -> dict:
+    """Recorded-call inputs of the four windowed kernels at an encoder pair
+    of the semseg window_all path (8192 queries on 16384 points, Morton
+    order, every fourth point repeated as in S3DIS blocks, so the attention
+    meets tied neighbours), keyed by kernel name."""
+    from mpa_tpu_torch.ops.morton import morton_sort
+    from mpa_tpu_torch.ops.window import make_window_spec, windowed_knn_plain
+
+    gen = torch.Generator().manual_seed(SEED)
+    B, S, N, c = 2, 8192, 16384, 64
+    xyz = torch.randn((B, N, 3), generator=gen)
+    packed = torch.randn((B, N, 4 * c), generator=gen)
+    packed[:, :, :c] = packed[:, :, :c].exp()
+    packed[:, :, 2 * c:3 * c] = packed[:, :, 2 * c:3 * c].exp()
+    xyz[:, 1::4], packed[:, 1::4] = xyz[:, 0::4], packed[:, 0::4]  # repeated points
+    fine, perm = morton_sort(xyz)
+    fine = fine.cuda()
+    packed = torch.gather(packed, 1, perm.long()[..., None].expand(-1, -1, 4 * c)).cuda()
+    coarse = fine[:, ::2].contiguous()
+    spec = make_window_spec(S, N)
+    _, idx = windowed_knn_plain(8, fine, coarse, spec)
+    shifts = torch.randn((B, S, 2 * c), generator=gen).cuda()
+    gctx = torch.randn((B, S, 2 * c), generator=gen).cuda()
+    attn = {"packed": packed, "idx": idx, "shifts": shifts, "n_branches": 2, "c": c,
+            "spec": spec}
+    return {
+        "windowed_knn_kernel": {"k": 8, "base": fine, "query": coarse, "spec": spec},
+        "windowed_attention_fwd_kernel": attn,
+        "windowed_attention_bwd_kernel": dict(attn, gctx=gctx),
+        "windowed_scatter_mean_kernel": {"features": gctx, "knn_idx": idx, "num_fine": N,
+                                         "spec": spec},
+    }
+
+
+def parity_readings(path: str) -> dict:
+    """``--parity PATH``: the path's card-against-CPU readings (``partseg`` or
+    ``semseg``) and replays of its newest kernels on synthetic inputs, each
+    check's failure caught and reported."""
     out = {}
-    seg = segmenter_parity()
+    seg, limits = ((segmenter_parity(), SEG_LIMITS) if path == "partseg"
+                   else (semseg_parity(), SEMSEG_LIMITS))
     out["served"] = {k: seg[k] for k in ("median_abs", "p99_abs", "max_abs", "argmax_agreement")}
     out["served_within_limits"] = bool(
-        seg["median_abs"] <= SEG_LIMITS["median_abs"]
-        and seg["argmax_agreement"] >= SEG_LIMITS["argmax_agreement"])
-    parity = train_parity("partseg")
+        seg["median_abs"] <= limits["median_abs"]
+        and seg["argmax_agreement"] >= limits["argmax_agreement"])
+    parity = train_parity(path)
     out["train"] = {"loss_diff": parity["loss_diff"], "grad_units": parity["grad_units"][:3],
                     "stat": parity["stat"]}
-    gen = torch.Generator().manual_seed(SEED)
-    inp = {"features": torch.randn((4, 1024, 64), generator=gen).cuda(),
-           "knn_idx": torch.randint(0, 2048, (4, 1024, 8), generator=gen,
-                                    dtype=torch.int32).cuda(),
-           "num_fine": 2048}
-    for what, check in (("replay", lambda: check_call("scatter_mean_kernel", inp)),
-                        ("backward", lambda: check_scatter_mean_grad(inp))):
+    if path == "partseg":
+        gen = torch.Generator().manual_seed(SEED)
+        inp = {"features": torch.randn((4, 1024, 64), generator=gen).cuda(),
+               "knn_idx": torch.randint(0, 2048, (4, 1024, 8), generator=gen,
+                                        dtype=torch.int32).cuda(),
+               "num_fine": 2048}
+        checks = [("replay", lambda: check_call("scatter_mean_kernel", inp)),
+                  ("backward", lambda: check_scatter_mean_grad(inp))]
+    else:
+        inputs = window_replay_inputs()
+        checks = [(name, lambda name=name, inp=inp: check_call(name, inp))
+                  for name, inp in inputs.items()]
+        checks.append(("windowed scatter-mean backward", lambda: check_scatter_mean_grad(
+            inputs["windowed_scatter_mean_kernel"])))
+    for what, check in checks:
         try:
             check()
             out[what] = "passes"
@@ -846,31 +1046,36 @@ def parity_readings() -> dict:
 def planted_faults() -> None:
     """``--planted-faults``: for each entry of ``PLANTED_FAULTS``, a copy of
     the port in a temporary directory with that one line changed runs
-    ``chip_smoke.py --parity``; prints each copy's readings. The limits of
-    ``SEG_LIMITS`` and ``grad_limit`` lie between a correct copy's readings
-    and the faulty ones'."""
+    ``chip_smoke.py --parity`` for the fault's path (the copy without a
+    fault for every path); prints each copy's readings. The limits of
+    ``SEG_LIMITS``, ``SEMSEG_LIMITS`` and ``grad_limit`` lie between a
+    correct copy's readings and the faulty ones'."""
     with tempfile.TemporaryDirectory() as tmp:
         for name, fault in PLANTED_FAULTS.items():
             root = Path(tmp) / re.sub(r"\W+", "_", name)
             shutil.copytree(REPO / "mpa_tpu_torch", root / "mpa_tpu_torch",
                             ignore=shutil.ignore_patterns("_build", "__pycache__"))
             shutil.copy(REPO / "chip_smoke.py", root / "chip_smoke.py")
+            paths = ["partseg", "semseg"]
             if fault is not None:
-                path, old, new = fault
-                text = (root / path).read_text()
+                path, file, old, new = fault
+                paths = [path]
+                text = (root / file).read_text()
                 if text.count(old) != 1:
-                    raise AssertionError(f"fault {name!r}: {old!r} not found once in {path}")
-                (root / path).write_text(text.replace(old, new))
-            proc = subprocess.run([sys.executable, "chip_smoke.py", "--parity"], cwd=root,
-                                  capture_output=True, text=True, timeout=900)
-            last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
-            log(f"[planted] {name}: exit {proc.returncode} {last or proc.stderr[-400:]}")
+                    raise AssertionError(f"fault {name!r}: {old!r} not found once in {file}")
+                (root / file).write_text(text.replace(old, new))
+            for path in paths:
+                proc = subprocess.run([sys.executable, "chip_smoke.py", "--parity", path],
+                                      cwd=root, capture_output=True, text=True, timeout=900)
+                last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+                log(f"[planted] {name} ({path}): exit {proc.returncode} "
+                    f"{last or proc.stderr[-400:]}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parity", action="store_true",
-                    help="only the part-seg path's card-against-CPU readings, as JSON")
+    ap.add_argument("--parity", nargs="?", const="partseg", choices=["partseg", "semseg"],
+                    help="only that path's card-against-CPU readings, as JSON")
     ap.add_argument("--planted-faults", action="store_true",
                     help="the --parity readings of copies with one fault planted in each")
     args = ap.parse_args()
@@ -891,7 +1096,7 @@ def main() -> int:
         planted_faults()
         return 0
     if args.parity:
-        print(json.dumps(parity_readings()), flush=True)
+        print(json.dumps(parity_readings(args.parity)), flush=True)
         return 0
 
     t_all = time.perf_counter()
@@ -919,13 +1124,22 @@ def main() -> int:
     trained["partseg"] = train_phase("partseg", "2d partseg trained")
     rows += replay("partseg", served["partseg"], trained["partseg"])
     del served["partseg"]["recorded"], trained["partseg"]["recorded"]
+    torch.cuda.empty_cache()
+
+    # -- 2e, 2f, 3: markov_semseg window_all served and trained, replayed -------
+    served["semseg"] = serve_phase("semseg", "2e semseg served")
+    trained["semseg"] = train_phase("semseg", "2f semseg trained")
+    rows += replay("semseg", served["semseg"], trained["semseg"])
+    del served["semseg"]["recorded"], trained["semseg"]["recorded"]
 
     counts = {f"{path}_serve": served[path]["launches"] for path in PATHS}
     counts.update({f"{path}_train": trained[path]["launches"] for path in PATHS})
     summary = [summarise(name, rows, counts) for name in kernels.KERNELS]
     log("[4 kernels] times are per request for the forward kernels and per train step for "
-        "the backward kernels: the sum over its launches of each; top level: markov_partseg "
-        "at B=32 x 2048 points; by_path.cls: markov_cls at B=64 x 1024 points")
+        "the backward kernels: the sum over its launches of each; top level: the kernel's "
+        "path, markov_semseg window_all at B=2 x 16384 points for the windowed kernels, "
+        "markov_partseg at B=32 x 2048 points for the others; by_path.cls: markov_cls at "
+        "B=64 x 1024 points")
     for path, spec in PATHS.items():
         lat, step = served[path]["latency_ms"], trained[path]["step_ms"]
         log(f"[4 {path}] request ms {lat}, median {statistics.median(lat):.3f} ms, "

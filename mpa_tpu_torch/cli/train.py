@@ -1,9 +1,11 @@
-"""Training CLI (counterpart of ``mpa_tpu/cli/train.py``): classification and
-part segmentation on synthetic clouds.
+"""Training CLI (counterpart of ``mpa_tpu/cli/train.py``): classification,
+part segmentation and semantic segmentation on synthetic data.
 
 Usage:
   python -m mpa_tpu_torch.cli.train --preset scanobjectnn_cls --dataset synthetic --max_steps 5
   python -m mpa_tpu_torch.cli.train --preset shapenetpart --dataset synthetic --max_steps 5
+  python -m mpa_tpu_torch.cli.train --preset s3dis_semseg --num_points 16384 --batch_size 2 \
+      --neighbor_mode window_all --max_steps 5
   python -m mpa_tpu_torch.cli.train --device cpu --batch_size 4 --max_steps 2
 
 Trains the preset's model with the preset's optimizer and schedule, logs each
@@ -13,8 +15,12 @@ reports instance and class-average accuracy over ``synthetic_clouds(128, ...,
 seed=1)``. A part-seg preset trains on ``realistic_partseg(256, ..., seed=0)``
 (composed primitives in the ShapeNetPart label layout, ``mpa_tpu``'s
 synthetic part-seg data) and reports instance and class mIoU of the
-category-masked argmax over ``realistic_partseg(64, ..., seed=1)``. Runs on
-``cuda`` unless ``--device cpu`` is given. Checkpoints, augmentation, vote TTA
+category-masked argmax over ``realistic_partseg(64, ..., seed=1)``. A
+semantic-segmentation preset trains on ``synthetic_semseg`` blocks (8 rooms
+of 24 blocks, seed 0; ``mpa_tpu``'s synthetic S3DIS rooms) and reports the
+block mIoU and point accuracy (``semseg_iou``) over 2 rooms' blocks (seed
+100); ``--neighbor_mode`` picks its neighbour mode. Runs on ``cuda`` unless
+``--device cpu`` is given. Checkpoints, augmentation, vote TTA
 and the real-data loaders are not ported yet.
 """
 
@@ -28,8 +34,9 @@ import numpy as np
 import torch
 
 from mpa_tpu_torch.configs import PRESETS, TrainConfig, model_kwargs
+from mpa_tpu_torch.data.s3dis import semseg_iou
 from mpa_tpu_torch.data.shapenetpart import SEG_PARTS, to_categorical
-from mpa_tpu_torch.data.synthetic import realistic_partseg, synthetic_clouds
+from mpa_tpu_torch.data.synthetic import realistic_partseg, synthetic_clouds, synthetic_semseg
 from mpa_tpu_torch.models import get_model
 from mpa_tpu_torch.train.loop import TRAIN_STEPS, create_train_state, make_eval_step
 from mpa_tpu_torch.train.metrics import (
@@ -41,8 +48,10 @@ from mpa_tpu_torch.train.metrics import (
 from mpa_tpu_torch.utils.device import resolve_device
 from mpa_tpu_torch.utils.init import init_like_flax
 
-# (train clouds, eval clouds) of the synthetic dataset, per task.
-DATASET_SIZES = {"cls": (512, 128), "partseg": (256, 64)}
+# (train clouds, eval clouds) of the synthetic dataset, per task; for
+# semantic segmentation, blocks (24 to a synthetic room).
+DATASET_SIZES = {"cls": (512, 128), "partseg": (256, 64), "semseg": (192, 48)}
+BLOCKS_PER_ROOM = 24
 
 
 def batches(
@@ -62,10 +71,17 @@ def batches(
 def load_dataset(cfg: TrainConfig, n_train: Optional[int] = None, n_eval: Optional[int] = None):
     """``(train arrays, eval arrays)`` of the synthetic dataset of
     ``cfg.task``: ``(points, labels)`` for classification, ``(points,
-    category, per-point labels)`` for part segmentation. The cloud counts
-    default to ``DATASET_SIZES``."""
+    category, per-point labels)`` for part segmentation, ``(blocks,
+    per-point labels)`` for semantic segmentation. The cloud counts default
+    to ``DATASET_SIZES``."""
     n_train = n_train or DATASET_SIZES[cfg.task][0]
     n_eval = n_eval or DATASET_SIZES[cfg.task][1]
+    if cfg.task == "semseg":
+        def blocks(n, seed):
+            rooms = -(-n // BLOCKS_PER_ROOM)
+            return tuple(a[:n] for a in synthetic_semseg(rooms, cfg.num_points, seed=seed))
+
+        return blocks(n_train, 0), blocks(n_eval, 100)
     if cfg.task == "partseg":
         return (realistic_partseg(n_train, cfg.num_points, seed=0),
                 realistic_partseg(n_eval, cfg.num_points, seed=1))
@@ -86,7 +102,8 @@ def make_inputs(cfg: TrainConfig, batch: Tuple[np.ndarray, ...], device: torch.d
 
 def evaluate(cfg: TrainConfig, state, test_arrays, device: torch.device) -> dict:
     """One pass over the eval clouds: ``instance_acc`` / ``class_acc`` for
-    classification, ``ins_miou`` / ``class_miou`` for part segmentation."""
+    classification, ``ins_miou`` / ``class_miou`` for part segmentation,
+    ``block_miou`` / ``point_acc`` for semantic segmentation."""
     eval_step = make_eval_step()
     preds, targets, cats_all = [], [], []
     for batch in batches(test_arrays, cfg.batch_size, drop_last=False):
@@ -98,6 +115,13 @@ def evaluate(cfg: TrainConfig, state, test_arrays, device: torch.device) -> dict
         else:
             preds += list(logp.argmax(-1))
         targets += list(batch[-1])
+    if cfg.task == "semseg":
+        pred = np.concatenate([p.reshape(-1) for p in preds])
+        target = np.concatenate([t.reshape(-1) for t in targets])
+        miou, acc, _ = semseg_iou(pred, target, cfg.num_classes)
+        print(f"eval after {state.step} steps: block-mIoU {miou:.4f}, point acc {acc:.4f} "
+              f"over {len(targets)} blocks", flush=True)
+        return {"block_miou": miou, "point_acc": acc}
     if cfg.task == "partseg":
         ins, cls_m, _ = part_iou_metrics(preds, targets, cats_all, SEG_PARTS)
         print(f"eval after {state.step} steps: ins-mIoU {ins:.4f}, class-mIoU {cls_m:.4f} "
@@ -118,8 +142,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--max_steps", type=int, default=0, help="stop after this many steps (0: all epochs)")
     ap.add_argument("--batch_size", type=int, default=None, help="default: the preset's")
     ap.add_argument("--num_points", type=int, default=None, help="default: the preset's")
-    ap.add_argument("--train_clouds", type=int, default=None, help="default: 512 (cls), 256 (partseg)")
-    ap.add_argument("--eval_clouds", type=int, default=None, help="default: 128 (cls), 64 (partseg)")
+    ap.add_argument("--train_clouds", type=int, default=None,
+                    help="default: 512 (cls), 256 (partseg), 192 blocks (semseg)")
+    ap.add_argument("--eval_clouds", type=int, default=None,
+                    help="default: 128 (cls), 64 (partseg), 48 blocks (semseg)")
+    ap.add_argument("--neighbor_mode", default=None, choices=["exact", "window", "window_all"],
+                    help="segmentation neighbour mode; default: the preset's (exact)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=None, help="default: the preset's")
     return ap.parse_args(argv)
@@ -129,7 +157,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the trainer; returns ``{"steps", "losses"}`` and the eval metrics
     of :func:`evaluate`."""
     args = parse_args(argv)
-    overrides = {k: getattr(args, k) for k in ("batch_size", "num_points", "seed")
+    overrides = {k: getattr(args, k) for k in ("batch_size", "num_points", "seed", "neighbor_mode")
                  if getattr(args, k) is not None}
     cfg = PRESETS[args.preset].with_overrides(**overrides)
     device = resolve_device(args.device)

@@ -9,13 +9,20 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    task: str = "cls"  # 'cls' | 'partseg'
+    task: str = "cls"  # 'cls' | 'partseg' | 'semseg'
     model: str = "markov_cls"
     num_classes: int = 15
     num_parts: int = 50  # part-seg: global part labels
     num_categories: int = 16  # part-seg: shape categories
     num_points: int = 1024
     batch_size: int = 64
+    # segmentation: 'exact' (reference semantics) | 'window' (Morton-window
+    # spatial neighbourhoods) | 'window_all' (feature kNN and FPS banded too)
+    neighbor_mode: str = "exact"
+    # window_all: a scale bands its FPS when every band keeps >= fps_min_band
+    # points and gives >= fps_min_samples samples (ops/fps.py pick_fps_bands)
+    fps_min_band: int = 512
+    fps_min_samples: int = 64
     # optimisation (reference cls defaults: Adam 1e-3 / wd 1e-4 / StepLR 20x0.7)
     optimizer: str = "adam-l2"  # 'adam-l2' | 'sgd'
     learning_rate: float = 1e-3
@@ -35,11 +42,16 @@ class TrainConfig:
 
 def model_kwargs(cfg: TrainConfig) -> dict:
     """The constructor arguments of ``cfg.model`` that ``cfg`` fixes. A
-    part-seg ladder halves the cloud four times (1024/512/256/128 at the
-    preset's 2048 points)."""
-    if cfg.task == "partseg":
-        return dict(num_parts=cfg.num_parts, num_categories=cfg.num_categories,
-                    npoints=tuple(cfg.num_points // 2 ** (i + 1) for i in range(4)))
+    segmentation ladder halves the cloud four times (1024/512/256/128 at the
+    part-seg preset's 2048 points, 2048/1024/512/256 at the semseg preset's
+    4096), as ``mpa_tpu/cli/train.py`` scales it."""
+    if cfg.task in ("partseg", "semseg"):
+        kw = dict(npoints=tuple(cfg.num_points // 2 ** (i + 1) for i in range(4)),
+                  neighbor_mode=cfg.neighbor_mode, fps_min_band=cfg.fps_min_band,
+                  fps_min_samples=cfg.fps_min_samples)
+        if cfg.task == "semseg":
+            return dict(num_classes=cfg.num_classes, **kw)
+        return dict(num_parts=cfg.num_parts, num_categories=cfg.num_categories, **kw)
     if cfg.task == "cls":
         return dict(num_classes=cfg.num_classes)
     raise ValueError(f"unknown task {cfg.task}")
@@ -63,5 +75,14 @@ PRESETS = {
         num_points=2048, batch_size=32,
         optimizer="sgd", learning_rate=0.1, weight_decay=1e-4, momentum=0.9,
         scheduler="cos", eta_min=1e-3, epochs=300, seed=2800,
+    ),
+    # S3DIS semantic segmentation, 4096-point blocks with 9 features, 13
+    # classes: batch 16, SGD 0.1 / momentum 0.9 / wd 1e-4, cosine to 1e-3
+    # over 100 epochs, seed 2800. The large-scene window modes are
+    # ``neighbor_mode`` overrides.
+    "s3dis_semseg": TrainConfig(
+        task="semseg", model="markov_semseg", num_classes=13, num_points=4096,
+        batch_size=16, optimizer="sgd", learning_rate=0.1, weight_decay=1e-4, momentum=0.9,
+        scheduler="cos", eta_min=1e-3, epochs=100, seed=2800,
     ),
 }

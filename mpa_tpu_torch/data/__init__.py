@@ -1,7 +1,13 @@
 """Datasets of the port (numpy, no JAX)."""
 
 from mpa_tpu_torch.data.shapenetpart import SEG_PARTS, to_categorical
-from mpa_tpu_torch.data.synthetic import realistic_partseg, synthetic_clouds, synthetic_partseg
+from mpa_tpu_torch.data.s3dis import block_features, sample_blocks, semseg_iou
+from mpa_tpu_torch.data.synthetic import (
+    realistic_partseg,
+    synthetic_clouds,
+    synthetic_partseg,
+    synthetic_semseg,
+)
 
-__all__ = ["SEG_PARTS", "realistic_partseg", "synthetic_clouds", "synthetic_partseg",
-           "to_categorical"]
+__all__ = ["SEG_PARTS", "block_features", "realistic_partseg", "sample_blocks", "semseg_iou",
+           "synthetic_clouds", "synthetic_partseg", "synthetic_semseg", "to_categorical"]

@@ -1,6 +1,7 @@
 """Synthetic clouds (numpy copies of ``mpa_tpu/data/synthetic.py``'s
-``synthetic_clouds``, ``realistic_partseg`` and ``synthetic_partseg``, so the
-same seed gives the same clouds in both packages)."""
+``synthetic_clouds``, ``realistic_partseg`` and ``synthetic_partseg``, and of
+the synthetic S3DIS rooms of ``mpa_tpu/cli/train.py``, so the same seed gives
+the same clouds in both packages)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from mpa_tpu_torch.data.s3dis import sample_blocks
 from mpa_tpu_torch.data.shapenetpart import SEG_PARTS
 
 
@@ -168,3 +170,30 @@ def synthetic_partseg(
         base = cats[i] * parts_per_cat
         labels[i] = base + (pts[i, :, 2] > 0).astype(np.int64)
     return pts, cats.astype(np.int64), labels
+
+
+def synthetic_semseg(
+    num_rooms: int, num_points: int = 4096, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """S3DIS-style blocks from synthetic rooms (``mpa_tpu/cli/train.py``'s
+    ``_semseg_synthetic``): each room is uniform xyzrgb in a 4 x 3 x 2.5 m box,
+    labelled by three height bands, with 20000 points up to 4096-point blocks
+    and ``5 * num_points`` above (so a block still draws each point about 2.4
+    times, as S3DIS blocks do); 24 blocks per room from ``sample_blocks``.
+    Returns ``(features [24 * num_rooms, num_points, 9] float32, labels
+    [24 * num_rooms, num_points] int64)``."""
+    r = np.random.default_rng(seed)
+    feats, labels = [], []
+    for i in range(num_rooms):
+        n = 20000 if num_points <= 4096 else 5 * num_points
+        pts = np.zeros((n, 6), np.float32)
+        pts[:, 0] = r.uniform(0, 4, n)
+        pts[:, 1] = r.uniform(0, 3, n)
+        pts[:, 2] = r.uniform(0, 2.5, n)
+        pts[:, 3:6] = r.uniform(0, 255, (n, 3))
+        lab = np.digitize(pts[:, 2], [0.8, 1.7]).astype(np.int64)  # three bands
+        bx, by = sample_blocks(pts, lab, num_blocks=24, num_points=num_points,
+                               rng=np.random.default_rng(seed + i))
+        feats.append(bx)
+        labels.append(by)
+    return np.concatenate(feats), np.concatenate(labels)

@@ -5,9 +5,11 @@ use. Each op wrapper in ``mpa_tpu_torch.ops`` calls :func:`launched` right
 where it launches its kernel, and nowhere else, so a run can show that its
 path went through the kernels: reset the counts, drive the path, read them.
 The backward kernels (``scatter_add_rows_kernel``,
-``transition_attention_bwd_kernel``) are launched from the ``backward`` of
-their ops' ``torch.autograd.Function`` and are counted and recorded there;
-the scatter-mean's backward launches ``gather_rows_kernel``.
+``transition_attention_bwd_kernel``, ``windowed_attention_bwd_kernel``) are
+launched from the ``backward`` of their ops' ``torch.autograd.Function`` and
+are counted and recorded there; the scatter-means' backward launches
+``gather_rows_kernel``. The ``windowed_*`` kernels serve the Morton-window
+modes (``ops/window.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ KERNELS = (
     "scatter_add_rows_kernel",
     "transition_attention_bwd_kernel",
     "scatter_mean_kernel",
+    "windowed_knn_kernel",
+    "windowed_attention_fwd_kernel",
+    "windowed_attention_bwd_kernel",
+    "windowed_scatter_mean_kernel",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

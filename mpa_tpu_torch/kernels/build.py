@@ -121,6 +121,10 @@ _SIGNATURES = {
     "mpa_scatter_add_rows": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "mpa_transition_attention_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     "mpa_scatter_mean": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    "mpa_windowed_knn": [_VP, _VP, _VP, _VP] + [_I] * 8 + [_VP],
+    "mpa_windowed_attention_fwd": [_VP, _VP, _VP, _VP] + [_I] * 9 + [_VP],
+    "mpa_windowed_attention_bwd": [_VP] * 6 + [_I] * 9 + [_VP],
+    "mpa_windowed_scatter_mean": [_VP, _VP, _VP, _VP] + [_I] * 8 + [_VP],
 }
 
 

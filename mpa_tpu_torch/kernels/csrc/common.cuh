@@ -17,7 +17,7 @@ namespace mpa {
 
 inline cudaStream_t as_stream(void* s) { return reinterpret_cast<cudaStream_t>(s); }
 
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when it needs it.
 template <typename Kernel>

@@ -28,44 +28,15 @@
 // the warp merges its 32 lists per query: k rounds of a lexicographic
 // (dist, idx) warp minimum over the list heads, the winning lane popping its
 // head.
-#include "common.cuh"
+#include "knn_select.cuh"
 
 namespace {
 
+using mpa::insert;
+using mpa::load_q;
+using mpa::pop_min;
+
 constexpr int WARPS = 8;
-
-template <int QPW>
-__device__ __forceinline__ void load_q(const float* p, float (&q)[QPW]) {
-  if constexpr (QPW == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    q[0] = v.x;
-    q[1] = v.y;
-    q[2] = v.z;
-    q[3] = v.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < QPW; ++i) q[i] = p[i];
-  }
-}
-
-template <int KMAX>
-__device__ __forceinline__ void insert(float (&bd)[KMAX], int (&bi)[KMAX], float d, int j) {
-  if (!(d < bd[KMAX - 1])) return;  // an equal distance never beats a lower index
-  float cd = d;
-  int ci = j;
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    const bool before = (cd < bd[i]) || (cd == bd[i] && ci < bi[i]);
-    if (before) {
-      const float td = bd[i];
-      const int ti = bi[i];
-      bd[i] = cd;
-      bi[i] = ci;
-      cd = td;
-      ci = ti;
-    }
-  }
-}
 
 template <int KMAX, int QPW>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -168,26 +139,9 @@ knn_kernel(const float* __restrict__ base, const float* __restrict__ query,
     if (s >= S) break;  // uniform across the warp
     const size_t o = (static_cast<size_t>(b) * S + s) * k;
     for (int i = 0; i < k; ++i) {
-      float v = bd[q][0];
-      int id = bi[q][0];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, id, off);
-        if (ov < v || (ov == v && oi < id)) {
-          v = ov;
-          id = oi;
-        }
-      }
-      if (bi[q][0] == id) {
-#pragma unroll
-        for (int j = 0; j < KMAX - 1; ++j) {
-          bd[q][j] = bd[q][j + 1];
-          bi[q][j] = bi[q][j + 1];
-        }
-        bd[q][KMAX - 1] = INFINITY;
-        bi[q][KMAX - 1] = INT_MAX;
-      }
+      float v;
+      int id;
+      pop_min<KMAX>(bd[q], bi[q], v, id);
       if (lane == 0) {
         out_d[o + i] = v;
         out_i[o + i] = id;

@@ -1,12 +1,14 @@
 """Markov part-segmentation model (ShapeNetPart: 16 categories / 50 parts).
 
-Counterpart of ``mpa_tpu/models/markov_partseg.py::MarkovPartSeg`` in exact
-mode: the KeepHighResolutionPartSeg encoder-decoder producing 896-channel
+Counterpart of ``mpa_tpu/models/markov_partseg.py::MarkovPartSeg``: the
+KeepHighResolutionPartSeg encoder-decoder producing 896-channel
 per-point features, then the head ``conv8`` (896 -> 512) -> dropout ->
 ``conv9`` (256) -> ``conv10`` (128) -> ``conv11`` (Dense to ``num_parts``) and
 ``log_softmax``. Dropout acts in train mode only and draws its mask from the
 ``torch.Generator`` the caller passes; torch cannot reproduce JAX's random
-bits, so parity runs use ``dropout=0``.
+bits, so parity runs use ``dropout=0``. In the window modes
+(``neighbor_mode``) the cloud is Morton-sorted first and the log-probs are
+put back in the input order.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 from mpa_tpu_torch.models.registry import register_model
 from mpa_tpu_torch.nn.keephigh_partseg import KeepHighResolutionPartSeg
 from mpa_tpu_torch.nn.linear import LinearUnit, seeded_dropout
+from mpa_tpu_torch.nn.window_mode import morton_sort, morton_unsort
 
 
 class MarkovPartSeg(nn.Module):
@@ -34,6 +37,8 @@ class MarkovPartSeg(nn.Module):
         dropout: float = 0.5,
         compute_dtype: Any = None,
         neighbor_mode: str = "exact",
+        fps_min_band: int = 512,
+        fps_min_samples: int = 64,
     ):
         super().__init__()
         if compute_dtype is not None:
@@ -45,7 +50,8 @@ class MarkovPartSeg(nn.Module):
         self.keep_high = KeepHighResolutionPartSeg(
             npoints=npoints, channels=channels, residuals=residuals,
             num_neighbors=num_neighbors, num_categories=num_categories,
-            neighbor_mode=neighbor_mode,
+            neighbor_mode=neighbor_mode, fps_min_band=fps_min_band,
+            fps_min_samples=fps_min_samples,
         )
         self.conv8 = LinearUnit(self.keep_high.out_channels, 512)
         self.conv9 = LinearUnit(512, 256)
@@ -65,10 +71,13 @@ class MarkovPartSeg(nn.Module):
         mode with ``dropout > 0`` requires it.
         """
         points, label_onehot = inputs
-        x = self.conv8(self.keep_high(points[..., :3], label_onehot))
+        xyz, inv_perm = points[..., :3], None
+        if self.keep_high.windowed:
+            xyz, inv_perm = morton_sort(xyz)
+        x = self.conv8(self.keep_high(xyz, label_onehot))
         x = seeded_dropout(x, self.dropout, self.training, generator)
         x = self.conv10(self.conv9(x))
-        return F.log_softmax(self.conv11(x), dim=-1)
+        return morton_unsort(F.log_softmax(self.conv11(x), dim=-1), inv_perm)
 
 
 @register_model("markov_partseg")

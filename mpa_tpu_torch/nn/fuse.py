@@ -1,8 +1,8 @@
 """Fuse, the cross-state (all-pairs) feature exchange between Markov scales.
 
-Counterpart of ``mpa_tpu/nn/fuse.py`` in exact mode. For a target scale t
-among the states (N = 2048/1024/512/256/128, channels c0..c4), every other
-scale's features are brought to it:
+Counterpart of ``mpa_tpu/nn/fuse.py``. For a target scale t among the
+states (N = 2048/1024/512/256/128, channels c0..c4), every other scale's
+features are brought to it:
 
 - finer s < t: gathered by the composed FPS index chain
   ``idx = FPS_t; for j in t-1..s+1: idx = FPS_j[idx]``;
@@ -11,6 +11,13 @@ scale's features are brought to it:
   index, the others search ``knn(K, xyz[t], xyz[s])`` afresh;
 - each pair goes through its own LinearUnit ``conv{s}{t}``, the sum (plus
   the target itself) through ``conv{t}``, with a residual add of the target.
+
+With ``knn_mode='window'`` (every scale Morton-ordered, the window-mode
+models' invariant) a coarser source whose (S, N) pair admits a window takes
+the windowed scatter-mean: the adjacent pair over the stored encoder index
+(windowed iff the pair admits a spec, LocalMerge's admission), the others
+over a fresh windowed kNN of ``xyz[s]`` in ``xyz[t]``. A pair without a
+window takes the exact ops, as in ``mpa_tpu``.
 
 A flax ``Fuse`` creates parameters only for the target it is called with; here
 the target is fixed when the module is built.
@@ -26,7 +33,8 @@ from torch import nn
 from mpa_tpu_torch.nn.linear import LinearUnit
 from mpa_tpu_torch.ops.gather import index_points
 from mpa_tpu_torch.ops.knn import knn
-from mpa_tpu_torch.ops.scatter import scatter_mean_upsample
+from mpa_tpu_torch.ops.window import windowed_knn_with_spec
+from mpa_tpu_torch.nn.window_mode import check_mode, scatter_mean_op, spec_or_none
 
 
 def compose_fps_chain(fps: Sequence[torch.Tensor], src: int, dst: int) -> torch.Tensor:
@@ -51,8 +59,7 @@ class Fuse(nn.Module):
     def __init__(self, channels: Sequence[int], target: int, num_neighbors: int = 8,
                  knn_mode: str = "exact"):
         super().__init__()
-        if knn_mode != "exact":
-            raise NotImplementedError("Fuse knn_mode='window' is not ported yet")
+        self.knn_mode = check_mode("knn_mode", knn_mode, ("exact", "window"))
         self.channels = tuple(channels)
         self.target = target
         self.num_neighbors = num_neighbors
@@ -80,11 +87,15 @@ class Fuse(nn.Module):
             if s < t:  # finer: gather down the FPS chain
                 moved = unit(index_points(features[s], compose_fps_chain(fps, s, t)))
             else:  # coarser: scatter-mean up, at the target's width
+                wspec = None
+                if self.knn_mode == "window":
+                    wspec = spec_or_none(features[s].shape[1], num_fine)
                 if s == t + 1 and knn_idx[s] is not None:
-                    up_idx = knn_idx[s]
+                    up_idx = knn_idx[s]  # windowed exactly when wspec is not None
+                elif wspec is not None:
+                    _, up_idx, wspec = windowed_knn_with_spec(self.num_neighbors, xyz[t], xyz[s])
                 else:
                     _, up_idx = knn(self.num_neighbors, xyz[t], xyz[s])
-                moved = unit(features[s],
-                             mid_op=lambda y, i=up_idx: scatter_mean_upsample(y, i, num_fine))
+                moved = unit(features[s], mid_op=scatter_mean_op(up_idx, num_fine, wspec))
             total = total + moved
         return getattr(self, f"conv{t}")(total) + ft

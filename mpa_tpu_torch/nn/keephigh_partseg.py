@@ -1,7 +1,6 @@
 """KeepHighResolution part-segmentation encoder-decoder.
 
-Counterpart of ``mpa_tpu/nn/keephigh_partseg.py::KeepHighResolutionPartSeg``
-in exact mode:
+Counterpart of ``mpa_tpu/nn/keephigh_partseg.py::KeepHighResolutionPartSeg``:
 
 - encoder: five Markov states N -> npoints[0] -> ... -> npoints[3] (``la0`` ..
   ``la4``, channels c0..c4), each a three-branch LocalMerge (xyz, spatial kNN,
@@ -16,8 +15,10 @@ in exact mode:
   concat of the per-scale global max pools (576 at the default widths) and
   the category one-hot through ``conv7`` (64): 896 channels.
 
-The Morton-window neighbour modes, mixed precision and a keyed FPS start are
-not ported yet and raise.
+``neighbor_mode`` selects the Morton-window modes (``nn/window_mode.py``);
+the caller Morton-sorts the cloud (``MarkovPartSeg`` does), and the scales
+stay sorted because the FPS subsets are sorted. Mixed precision and a keyed
+FPS start are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -30,12 +31,17 @@ from torch import nn
 from mpa_tpu_torch.nn.fuse import Fuse
 from mpa_tpu_torch.nn.linear import LinearUnit
 from mpa_tpu_torch.nn.local_merge import LocalMerge
-from mpa_tpu_torch.ops.fps import farthest_point_sample
+from mpa_tpu_torch.nn.window_mode import (
+    NEIGHBOR_MODES,
+    WindowModes,
+    check_mode,
+    scatter_mean_op,
+    spec_or_none,
+)
 from mpa_tpu_torch.ops.gather import index_points
-from mpa_tpu_torch.ops.scatter import scatter_mean_upsample
 
 
-class KeepHighResolutionPartSeg(nn.Module):
+class KeepHighResolutionPartSeg(WindowModes, nn.Module):
     def __init__(
         self,
         npoints: Sequence[int] = (1024, 512, 256, 128),  # scales 1..4 (scale 0 is the input)
@@ -47,32 +53,34 @@ class KeepHighResolutionPartSeg(nn.Module):
         point_channels: int = 256,
         dtype: Any = None,
         neighbor_mode: str = "exact",
+        fps_min_band: int = 512,
+        fps_min_samples: int = 64,
         fps_random_start: bool = False,
     ):
         super().__init__()
         if len(channels) != len(npoints) + 1 or len(residuals) != len(channels):
             raise ValueError("channels and residuals need one entry more than npoints")
-        if neighbor_mode != "exact":
-            raise NotImplementedError(f"neighbor_mode={neighbor_mode!r} is not ported yet")
         if dtype is not None:
             raise NotImplementedError("mixed precision (dtype) is not ported yet")
         if fps_random_start:
             raise NotImplementedError("keyed FPS starts are training-only and not ported yet")
+        self.neighbor_mode = check_mode("neighbor_mode", neighbor_mode, NEIGHBOR_MODES)
+        self.fps_min_band, self.fps_min_samples = fps_min_band, fps_min_samples
         self.npoints = tuple(npoints)
         ch = self.channels = tuple(channels)
         K = num_neighbors
         top = len(self.npoints)  # the coarsest scale
-        self.la0 = LocalMerge(None, ch[0], K, residuals[0], include_xyz_branch=True)
+        modes = dict(include_xyz_branch=True, knn_mode=self.spatial_mode,
+                     feature_knn_mode=self.feature_mode)
+        self.la0 = LocalMerge(None, ch[0], K, residuals[0], **modes)
         for i in range(top):
-            setattr(self, f"la{i + 1}",
-                    LocalMerge(ch[i], ch[i + 1], K, residuals[i + 1], include_xyz_branch=True))
+            setattr(self, f"la{i + 1}", LocalMerge(ch[i], ch[i + 1], K, residuals[i + 1], **modes))
         self.mlp = LinearUnit(ch[top], ch[top])
-        self.fuse1 = Fuse(ch, top, K)
+        self.fuse1 = Fuse(ch, top, K, knn_mode=self.spatial_mode)
         for step, s in enumerate(range(top - 1, -1, -1)):
             setattr(self, f"up_conv{s + 1}", LinearUnit(ch[s + 1], ch[s]))
-            setattr(self, f"la{s + 1}_up",
-                    LocalMerge(ch[s], ch[s], K, False, include_xyz_branch=True))
-            setattr(self, f"fuse{step + 2}", Fuse(ch, s, K))
+            setattr(self, f"la{s + 1}_up", LocalMerge(ch[s], ch[s], K, False, **modes))
+            setattr(self, f"fuse{step + 2}", Fuse(ch, s, K, knn_mode=self.spatial_mode))
         self.conv7 = LinearUnit(num_categories, label_channels)
         self.conv5 = LinearUnit(ch[0], point_channels)
         self.out_channels = point_channels + sum(ch) + label_channels
@@ -91,7 +99,7 @@ class KeepHighResolutionPartSeg(nn.Module):
         feats[0], knn_list[0], dist0 = self.la0(xyz, xyz)  # self-kNN of the full cloud
         cur_xyz = xyz
         for i, npoint in enumerate(self.npoints):
-            fps_idx = farthest_point_sample(cur_xyz, npoint)
+            fps_idx = self.fps_scale(cur_xyz, npoint)
             new_xyz = index_points(cur_xyz, fps_idx)
             feats[i + 1], knn_list[i + 1], _ = getattr(self, f"la{i + 1}")(
                 new_xyz, cur_xyz, feature=feats[i], fps_idx=fps_idx)
@@ -105,9 +113,11 @@ class KeepHighResolutionPartSeg(nn.Module):
                                    fps_list, knn_list, positions)
         for step, s in enumerate(range(top - 1, -1, -1)):
             num_fine = positions[s].shape[1]
+            # Windowed, the stored encoder index is window-constrained exactly
+            # when the pair admits a spec (LocalMerge's admission).
+            wspec = spec_or_none(positions[s + 1].shape[1], num_fine) if self.windowed else None
             up = getattr(self, f"up_conv{s + 1}")(
-                up_feats[s + 1],
-                mid_op=lambda y, i=knn_list[s + 1], n=num_fine: scatter_mean_upsample(y, i, n))
+                up_feats[s + 1], mid_op=scatter_mean_op(knn_list[s + 1], num_fine, wspec))
             # Scale 0's self-kNN was searched by la0 on the same positions.
             f_s, _, _ = getattr(self, f"la{s + 1}_up")(
                 positions[s], positions[s], feature=up,

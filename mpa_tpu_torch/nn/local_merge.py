@@ -1,7 +1,6 @@
 """LocalMerge, one Markov "state transition" between point-set scales.
 
-Counterpart of ``mpa_tpu/nn/local_merge.py::LocalMerge`` in its exact-kNN
-forms:
+Counterpart of ``mpa_tpu/nn/local_merge.py::LocalMerge``:
 
 - the first state (no features yet): one geometric LocalTrans on the
   coordinates over their self-kNN, whatever the other switches say;
@@ -18,7 +17,15 @@ forms:
 
 A precomputed ``spatial_knn`` (the decoder's full-resolution self-kNN, which
 the encoder's first state already searched on the same positions) is taken as
-is. ``use_tanh`` and the Morton-window modes are not ported yet and raise.
+is.
+
+``knn_mode='window'`` restricts the spatial search to the Morton window
+(``ops/window.py``; the inputs must be Morton-ordered), and the attention
+over its index is the windowed one; ``feature_knn_mode='window'`` (only
+together with it) bands the feature-space search too. A scale pair that
+admits no window takes the exact search, as in ``mpa_tpu``: that is the
+modes' semantics, not a device fallback. ``use_tanh`` is not ported and
+raises.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from mpa_tpu_torch.nn.local_trans import LocalTrans
 from mpa_tpu_torch.ops.attention import transition_attention
 from mpa_tpu_torch.ops.gather import index_points
 from mpa_tpu_torch.ops.knn import knn
+from mpa_tpu_torch.ops.window import windowed_knn_with_spec, windowed_transition_attention
+from mpa_tpu_torch.nn.window_mode import check_mode, spec_or_none
 
 
 class LocalMerge(nn.Module):
@@ -50,11 +59,11 @@ class LocalMerge(nn.Module):
                  single_branch: bool = False, knn_mode: str = "exact",
                  feature_knn_mode: str = "exact"):
         super().__init__()
-        for name, on in (("use_tanh", use_tanh),
-                         ("knn_mode='window'", knn_mode != "exact"),
-                         ("feature_knn_mode='window'", feature_knn_mode != "exact")):
-            if on:
-                raise NotImplementedError(f"LocalMerge {name} is not ported yet")
+        if use_tanh:
+            raise NotImplementedError("LocalMerge use_tanh is not ported")
+        self.knn_mode = check_mode("knn_mode", knn_mode, ("exact", "window"))
+        self.feature_knn_mode = check_mode("feature_knn_mode", feature_knn_mode,
+                                           ("exact", "window"))
         self.out_channels = out_channels
         self.num_neighbors = num_neighbors
         self.first = feature_channels is None
@@ -90,20 +99,20 @@ class LocalMerge(nn.Module):
         Returns ``(features [B, S, out], idx [B, S, K], dist [B, S, K])``."""
         if (feature is None) != self.first:
             raise ValueError("LocalMerge: feature must be None exactly on the first state")
-        if spatial_knn is not None:
-            dist, idx = spatial_knn
-        else:
-            dist, idx = knn(self.num_neighbors, base_xyz, xyz)
+        dist, idx, wspec = self._knn(base_xyz, xyz, spatial_knn, self.knn_mode)
         if self.first:
-            out = self.xyz_trans(base_xyz, xyz, idx, xyz_mode=True)
+            out = self.xyz_trans(base_xyz, xyz, idx, xyz_mode=True, window_spec=wspec)
             return out, idx, dist
         center_feat = index_points(feature, fps_idx) if fps_idx is not None else feature
         if self.single_branch:
-            return self.feature_trans(feature, center_feat, idx), idx, dist
-        _, idx_feat = knn(self.num_neighbors, feature, center_feat)
-        m2 = self.feature_trans2(feature, center_feat, idx_feat)
+            return self.feature_trans(feature, center_feat, idx, window_spec=wspec), idx, dist
+        # Banding the feature search is a stronger approximation than banding
+        # the spatial one, and only defined on Morton-ordered rows.
+        feature_mode = self.feature_knn_mode if self.knn_mode == "window" else "exact"
+        _, idx_feat, wspec_f = self._knn(feature, center_feat, None, feature_mode)
+        m2 = self.feature_trans2(feature, center_feat, idx_feat, window_spec=wspec_f)
         if not self.include_xyz_branch:
-            m1 = self.feature_trans(feature, center_feat, idx)
+            m1 = self.feature_trans(feature, center_feat, idx, window_spec=wspec)
             branches = [m1, m2]
         else:
             C = self.out_channels
@@ -111,9 +120,27 @@ class LocalMerge(nn.Module):
                                 self.feature_trans.node_pack(feature)], dim=-1)  # [B, N, 4C]
             xshift = self.xyz_trans.value_shift(xyz)  # [B, S, C]
             shifts = torch.cat([xshift, torch.zeros_like(xshift)], dim=-1)
-            ctx = transition_attention(packed, idx, shifts, 2, C)  # [B, S, 2C]
+            if wspec is not None:
+                ctx = windowed_transition_attention(packed, idx, shifts, 2, C, wspec)
+            else:
+                ctx = transition_attention(packed, idx, shifts, 2, C)  # [B, S, 2C]
             xyz_f = self.xyz_trans.ffn_out(ctx[..., :C], xyz)
             m1 = self.feature_trans.ffn_out(ctx[..., C:], center_feat)
             branches = [xyz_f, m1, m2]
         out = self.fc2(torch.cat(branches, dim=-1))
         return out, idx, dist
+
+    def _knn(self, base, query, precomputed, mode: str):
+        """``(dist, idx, window spec or None)`` of the K nearest ``base`` rows
+        of each ``query`` row: windowed where ``mode`` is ``'window'`` and the
+        (S, N) pair admits a spec, exact otherwise. ``precomputed`` is this
+        very search made earlier in the model; its spec follows from the
+        shapes alone."""
+        spec = spec_or_none(query.shape[1], base.shape[1]) if mode == "window" else None
+        if precomputed is not None:
+            dist, idx = precomputed
+            return dist, idx, spec
+        if spec is not None:
+            return windowed_knn_with_spec(self.num_neighbors, base, query)
+        dist, idx = knn(self.num_neighbors, base, query)
+        return dist, idx, None

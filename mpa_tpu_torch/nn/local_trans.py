@@ -6,7 +6,9 @@ neighbour only through ``E_j = exp(-(W_k x_j)/sqrt(C) - stab)``, computed once
 per source point; in xyz mode the value projection of ``x_j - x_i`` splits
 into a gathered node term ``v(x_j)`` and a per-query shift ``b_v - v(x_i)``.
 ``node_pack`` / ``value_shift`` / ``ffn_out`` are separate so that LocalMerge
-can pack branches that share one kNN index into one attention call.
+can pack branches that share one kNN index into one attention call. Given a
+``window_spec`` (an index from the windowed kNN), the attention is the
+windowed one (``ops/window.py``), the same function.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from torch import nn
 
 from mpa_tpu_torch.nn.linear import LinearUnit
 from mpa_tpu_torch.ops.attention import transition_attention
+from mpa_tpu_torch.ops.window import windowed_transition_attention
 
 
 class LocalTrans(nn.Module):
@@ -65,8 +68,13 @@ class LocalTrans(nn.Module):
         residual = center if self.conv_res is None else self.conv_res(center)
         return residual + self.ffn(context)
 
-    def forward(self, source, center, idx, *, xyz_mode: bool = False) -> torch.Tensor:
+    def forward(self, source, center, idx, *, xyz_mode: bool = False,
+                window_spec=None) -> torch.Tensor:
         packed = self.node_pack(source)
         shifts = self.value_shift(center) if xyz_mode else None
-        context = transition_attention(packed, idx, shifts, 1, self.out_channels)
+        if window_spec is not None:
+            context = windowed_transition_attention(packed, idx, shifts, 1, self.out_channels,
+                                                    window_spec)
+        else:
+            context = transition_attention(packed, idx, shifts, 1, self.out_channels)
         return self.ffn_out(context, center)

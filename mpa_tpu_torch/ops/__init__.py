@@ -7,10 +7,22 @@ tensors; it launches the kernel or raises).
 
 from mpa_tpu_torch.ops.pairwise import square_distance
 from mpa_tpu_torch.ops.knn import knn
-from mpa_tpu_torch.ops.fps import farthest_point_sample
+from mpa_tpu_torch.ops.fps import (
+    banded_farthest_point_sample,
+    farthest_point_sample,
+    pick_fps_bands,
+)
 from mpa_tpu_torch.ops.gather import index_points
 from mpa_tpu_torch.ops.attention import transition_attention
 from mpa_tpu_torch.ops.scatter import scatter_mean_upsample
+from mpa_tpu_torch.ops.morton import morton_code, morton_order
+from mpa_tpu_torch.ops.window import (
+    WindowSpec,
+    make_window_spec,
+    windowed_knn_with_spec,
+    windowed_scatter_mean,
+    windowed_transition_attention,
+)
 
 __all__ = [
     "square_distance",
@@ -19,4 +31,13 @@ __all__ = [
     "index_points",
     "transition_attention",
     "scatter_mean_upsample",
+    "banded_farthest_point_sample",
+    "pick_fps_bands",
+    "morton_code",
+    "morton_order",
+    "WindowSpec",
+    "make_window_spec",
+    "windowed_knn_with_spec",
+    "windowed_transition_attention",
+    "windowed_scatter_mean",
 ]

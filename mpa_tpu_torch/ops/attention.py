@@ -118,7 +118,7 @@ def attention_bwd_plain(
     return dpacked, dshift
 
 
-def _check(packed, idx, shifts, n_branches, c) -> None:
+def check_args(packed, idx, shifts, n_branches, c) -> None:
     if packed.dim() != 3 or idx.dim() != 3 or packed.shape[0] != idx.shape[0]:
         raise ValueError(
             f"transition_attention: packed [B,N,W] and idx [B,S,K] expected, got "
@@ -132,8 +132,8 @@ def _check(packed, idx, shifts, n_branches, c) -> None:
         raise ValueError(f"transition_attention: shifts shape {tuple(shifts.shape)}")
 
 
-def _check_cuda(name, packed, idx, shifts, n_branches, c, gctx) -> None:
-    _check(packed, idx, shifts, n_branches, c)
+def check_cuda_args(name, packed, idx, shifts, n_branches, c, gctx) -> None:
+    check_args(packed, idx, shifts, n_branches, c)
     K = idx.shape[2]
     if not 1 <= K <= MAX_K:
         raise ValueError(f"{name} supports 1 <= K <= {MAX_K}, got {K}")
@@ -159,7 +159,7 @@ def attention_cuda(
     c: int,
 ) -> torch.Tensor:
     """Launch ``transition_attention_fwd_kernel`` on CUDA tensors."""
-    _check_cuda("transition_attention_fwd_kernel", packed, idx, shifts, n_branches, c,
+    check_cuda_args("transition_attention_fwd_kernel", packed, idx, shifts, n_branches, c,
                 gctx=None)
     B, N, _ = packed.shape
     S, K = idx.shape[1], idx.shape[2]
@@ -192,7 +192,7 @@ def attention_bwd_cuda(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch ``transition_attention_bwd_kernel`` on CUDA tensors; returns
     ``(dpacked, dshift or None)`` as :func:`attention_bwd_plain`."""
-    _check_cuda("transition_attention_bwd_kernel", packed, idx, shifts, n_branches, c, gctx)
+    check_cuda_args("transition_attention_bwd_kernel", packed, idx, shifts, n_branches, c, gctx)
     B, N, W = packed.shape
     S, K = idx.shape[1], idx.shape[2]
     dpacked = torch.empty((B, N, W), dtype=torch.float32, device=packed.device)
@@ -266,5 +266,5 @@ def transition_attention(
             c,
         )
         return out.to(packed.dtype)
-    _check(packed, idx, shifts, n_branches, c)
+    check_args(packed, idx, shifts, n_branches, c)
     return attention_plain(packed, idx, shifts, n_branches, c)

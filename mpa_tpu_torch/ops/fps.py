@@ -7,6 +7,11 @@ update; distances are direct differences ``sum_c (p_c - last_c)^2`` accumulated
 in channel order; the running minimum starts at ``inf``; the argmax takes the
 first maximum. On a CUDA tensor it launches ``fps_kernel``
 (``kernels/csrc/fps.cu``); on a CPU tensor it takes :func:`fps_plain`.
+
+:func:`banded_farthest_point_sample` is the window modes' FPS
+(``mpa_tpu/ops/fps.py:89-165``): a Morton-sorted cloud cut into contiguous
+index bands, each sampled exactly, the bands folded into the batch axis, so
+one ``fps_kernel`` launch runs them all.
 """
 
 from __future__ import annotations
@@ -89,3 +94,36 @@ def farthest_point_sample(
         return fps_cuda(points.float().contiguous(), npoint, start_idx)
     _check(points, npoint, start_idx)
     return fps_plain(points, npoint, start_idx)
+
+
+def pick_fps_bands(N: int, npoint: int, *, min_band: int = 512, min_samples: int = 64) -> int:
+    """The largest power-of-two band count G such that every band keeps at
+    least ``min_band`` points and gives at least ``min_samples`` samples; 1
+    (exact FPS) when no banding fits."""
+    g = 1
+    while (N % (g * 2) == 0 and npoint % (g * 2) == 0
+           and N // (g * 2) >= min_band and npoint // (g * 2) >= min_samples):
+        g *= 2
+    return g
+
+
+def banded_farthest_point_sample(
+    points: torch.Tensor, npoint: int, n_bands: int, *, start_idx: int = 0
+) -> torch.Tensor:
+    """FPS inside each of ``n_bands`` contiguous index bands of a
+    Morton-sorted cloud, ``npoint / n_bands`` samples per band, each band
+    starting at its own ``start_idx``.
+
+    Returns ``[B, npoint]`` int32 indices into N, grouped by band in index
+    order (each band's block in selection order); ``n_bands == 1`` is
+    :func:`farthest_point_sample`.
+    """
+    if n_bands <= 1:
+        return farthest_point_sample(points, npoint, start_idx=start_idx)
+    B, N, C = points.shape
+    if N % n_bands or npoint % n_bands:
+        raise ValueError(f"n_bands={n_bands} must divide N={N} and npoint={npoint}")
+    nb, pb = N // n_bands, npoint // n_bands
+    local = farthest_point_sample(points.reshape(B * n_bands, nb, C), pb, start_idx=start_idx)
+    offsets = torch.arange(n_bands, dtype=torch.int32, device=local.device)[None, :, None] * nb
+    return (local.reshape(B, n_bands, pb) + offsets).reshape(B, npoint)

@@ -78,6 +78,25 @@ def knn_cuda(
     return dist, idx
 
 
+def knn_distance_grads(base, query, idx, g_dist, need_base: bool, need_query: bool):
+    """The gradients of the selected distances ``sum_c (q - b[idx])^2`` on
+    CUDA tensors: ``2 (q - b[idx]) g`` summed over the neighbours into
+    ``query`` and its negation scatter-added into ``base``, through
+    ``gather_rows_kernel`` and ``scatter_add_rows_kernel``. Returns
+    ``(d_base or None, d_query or None)``."""
+    B, N, C = base.shape
+    S, k = idx.shape[1], idx.shape[2]
+    flat = idx.reshape(B, S * k)
+    diff = query[:, :, None, :] - gather_cuda(base, flat).reshape(B, S, k, C)
+    d_query_rows = 2.0 * diff * g_dist[..., None]  # [B, S, k, C]
+    d_base = d_query = None
+    if need_base:
+        d_base = scatter_add_cuda((-d_query_rows).reshape(B, S * k, C), flat, N)
+    if need_query:
+        d_query = d_query_rows.sum(dim=2)
+    return d_base, d_query
+
+
 class _KnnCuda(torch.autograd.Function):
     """``knn_kernel`` forward; the backward of the selected squared
     distances through the row gather and scatter-add kernels."""
@@ -93,16 +112,8 @@ class _KnnCuda(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_dist: torch.Tensor, _g_idx):
         base, query, idx = ctx.saved_tensors
-        B, N, C = base.shape
-        S, k = idx.shape[1], idx.shape[2]
-        flat = idx.reshape(B, S * k)
-        diff = query[:, :, None, :] - gather_cuda(base, flat).reshape(B, S, k, C)
-        d_query_rows = 2.0 * diff * g_dist[..., None]  # [B, S, k, C]
-        d_base = d_query = None
-        if ctx.needs_input_grad[1]:
-            d_base = scatter_add_cuda((-d_query_rows).reshape(B, S * k, C), flat, N)
-        if ctx.needs_input_grad[2]:
-            d_query = d_query_rows.sum(dim=2)
+        d_base, d_query = knn_distance_grads(base, query, idx, g_dist, ctx.needs_input_grad[1],
+                                             ctx.needs_input_grad[2])
         return None, d_base, d_query
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 
-def _dot_in_channel_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def dot_in_channel_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``sum_c a[..., c] * b[..., c]`` accumulated in channel order."""
     acc = a[..., 0] * b[..., 0]
     for c in range(1, a.shape[-1]):
@@ -37,8 +37,8 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """
     src = src.float()
     dst = dst.float()
-    s2 = _dot_in_channel_order(src, src)  # [..., N]
-    d2 = _dot_in_channel_order(dst, dst)  # [..., M]
-    cross = _dot_in_channel_order(src.unsqueeze(-2), dst.unsqueeze(-3))  # [..., N, M]
+    s2 = dot_in_channel_order(src, src)  # [..., N]
+    d2 = dot_in_channel_order(dst, dst)  # [..., M]
+    cross = dot_in_channel_order(src.unsqueeze(-2), dst.unsqueeze(-3))  # [..., N, M]
     out = (s2.unsqueeze(-1) + d2.unsqueeze(-2)) - 2.0 * cross
     return torch.clamp_min(out, 0.0)

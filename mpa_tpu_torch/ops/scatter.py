@@ -53,7 +53,7 @@ def scatter_mean_plain(
     return out.reshape(B, num_fine, C), count.reshape(B, num_fine)
 
 
-def _check(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int) -> None:
+def check_args(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int) -> None:
     if (features.dim() != 3 or knn_idx.dim() != 3
             or tuple(knn_idx.shape[:2]) != tuple(features.shape[:2])):
         raise ValueError(
@@ -71,7 +71,7 @@ def scatter_mean_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``scatter_mean_kernel``: features ``[B,S,C]`` f32, knn_idx
     ``[B,S,K]`` int32 -> ``(mean [B,num_fine,C], count [B,num_fine])`` f32."""
-    _check(features, knn_idx, num_fine)
+    check_args(features, knn_idx, num_fine)
     for arg, t, dt in (("features", features, torch.float32), ("knn_idx", knn_idx, torch.int32)):
         if t.device.type != "cuda" or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"scatter_mean_kernel: {arg} must be a contiguous {dt} CUDA tensor")
@@ -143,7 +143,7 @@ def scatter_mean_upsample(
       ``[B, N, C]`` mean of the claiming coarse features per fine point;
       zeros for unclaimed slots.
     """
-    _check(features, knn_idx, num_fine)
+    check_args(features, knn_idx, num_fine)
     if on_cuda(features, "features"):
         out = _ScatterMean.apply(features.float().contiguous(),
                                  knn_idx.to(torch.int32).contiguous(), num_fine)

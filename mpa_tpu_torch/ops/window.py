@@ -1,0 +1,418 @@
+"""Morton-window neighbour search, transition attention and scatter-mean.
+
+Counterpart of ``mpa_tpu/ops/pallas/window_attention.py``, the opt-in window
+modes for large scenes. When every scale's points are kept in Morton order
+(``ops/morton.py``), a query's k nearest neighbours lie in a narrow index
+band, and each op works on a per-chunk window whose position is a function
+of the row alone (:class:`WindowSpec`): S queries in ``n_chunks`` chunks of
+``sq`` rows, padded by ``sq/2`` rows at each end so that each padded chunk
+is centred on its window; padded chunk ``c`` sees the base rows ``[g*bn,
+g*bn + 2*bn)``, ``g = clamp(c - 1, 0, n_chunks - 2)``. Original row ``s``
+lies in padded chunk ``(s + sq/2) // sq``.
+
+- :func:`windowed_knn_with_spec`: the k nearest inside the window
+  ("k nearest within the Morton window", an approximation of exact kNN);
+- :func:`windowed_transition_attention` and :func:`windowed_scatter_mean`:
+  the exact ops' functions, for an index that lies in its row's window.
+
+On a CUDA tensor each is a ``torch.autograd.Function`` over a hand-written
+kernel (``kernels/csrc/window_*.cu``: ``windowed_knn_kernel``,
+``windowed_attention_fwd_kernel`` / ``windowed_attention_bwd_kernel``,
+``windowed_scatter_mean_kernel``); on a CPU tensor it takes the plain
+version: :func:`windowed_knn_plain`, and for the other two the exact ops'
+plain versions, which compute the same function for any index, as
+``mpa_tpu`` takes its generic references off the TPU.
+
+An index outside its row's window is a caller error (the windowed kNN never
+makes one). The attention kernels still read such a row, from device
+memory; the scatter-mean kernel does not see it. :func:`check_in_window`
+checks an index with torch ops (``chip_smoke.py`` checks every recorded
+one).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from mpa_tpu_torch import kernels
+from mpa_tpu_torch.kernels import build
+from mpa_tpu_torch.ops.attention import attention_plain
+from mpa_tpu_torch.ops.attention import check_args as check_attention
+from mpa_tpu_torch.ops.attention import check_cuda_args as check_attention_cuda
+from mpa_tpu_torch.ops.knn import knn_distance_grads
+from mpa_tpu_torch.ops.pairwise import dot_in_channel_order
+from mpa_tpu_torch.ops.scatter import MAX_B, scatter_mean_bwd_cuda, scatter_mean_plain
+from mpa_tpu_torch.ops.scatter import check_args as check_scatter
+from mpa_tpu_torch.utils.device import on_cuda
+
+MAX_KNN_K = 32  # windowed_knn_kernel's lane-per-neighbour distance pass
+MAX_KNN_C = 1024
+MAX_ATTENTION_WINDOW = 8192  # window.cuh kMaxWindow
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowSpec:
+    """Banding contract shared by the windowed ops: S queries and N nodes,
+    both Morton-ordered; ``n_chunks`` chunks of ``sq`` queries and as many
+    node blocks of ``bn``."""
+
+    S: int
+    N: int
+    sq: int
+    bn: int
+    n_chunks: int
+
+    @property
+    def window(self) -> int:
+        return 2 * self.bn
+
+    @property
+    def pad(self) -> int:
+        return self.sq // 2
+
+    def window_start(self, device=None) -> torch.Tensor:
+        """``[S]`` int64: the first window row of every query row."""
+        s = torch.arange(self.S, device=device)
+        g = torch.clamp((s + self.pad) // self.sq - 1, 0, self.n_chunks - 2)
+        return g * self.bn
+
+
+def make_window_spec(S: int, N: int, sq: int = 128) -> WindowSpec:
+    """The spec for S queries over N nodes. Requires the models' power-of-two
+    scales: ``S % sq == 0`` (``sq`` capped at ``S // 2``), at least two
+    chunks, ``N`` divisible by the chunk count, ``bn`` and ``sq`` multiples
+    of 8; raises ValueError otherwise (``window_attention.py:93-107``)."""
+    sq = min(sq, S // 2)
+    if sq <= 0 or S % sq:
+        raise ValueError(f"S={S} not divisible by sq={sq}")
+    n_chunks = S // sq
+    if n_chunks < 2:
+        raise ValueError(f"need >= 2 chunks (S={S}, sq={sq})")
+    if N % n_chunks:
+        raise ValueError(f"N={N} not divisible by n_chunks={n_chunks}")
+    bn = N // n_chunks
+    if bn % 8 or sq % 8:
+        raise ValueError(f"bn={bn} and sq={sq} must be multiples of 8")
+    return WindowSpec(S=S, N=N, sq=sq, bn=bn, n_chunks=n_chunks)
+
+
+def check_in_window(idx: torch.Tensor, spec: WindowSpec, what: str) -> None:
+    """Raise ValueError unless every ``idx[b, s, :]`` lies in row s's window."""
+    if tuple(idx.shape[1:2]) != (spec.S,):
+        raise ValueError(f"{what}: idx has {idx.shape[1]} rows, the spec {spec.S}")
+    win0 = spec.window_start(idx.device)[None, :, None]
+    outside = (idx < win0) | (idx >= win0 + spec.window)
+    if bool(outside.any()):
+        raise ValueError(f"{what}: {int(outside.sum())} indices lie outside their rows' "
+                         f"windows ({spec})")
+
+
+def _spec_for(spec: WindowSpec, S: int, N: int, what: str) -> None:
+    if (spec.S, spec.N) != (S, N):
+        raise ValueError(f"{what}: the spec is for (S, N) = ({spec.S}, {spec.N}), "
+                         f"the call has ({S}, {N})")
+
+
+def _spec_args(spec: WindowSpec):
+    return spec.sq, spec.bn, spec.n_chunks
+
+
+# -- the windowed kNN ------------------------------------------------------------
+
+
+def direct_distance(base: torch.Tensor, query: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``sum_c (q_c - b[idx]_c)^2`` in channel order, ``[B, S, k]``,
+    differentiable in ``base`` and ``query``."""
+    B, S, k = idx.shape
+    C = base.shape[-1]
+    rows = torch.gather(base.float(), 1, idx.reshape(B, S * k, 1).long().expand(-1, -1, C))
+    diff = query.float()[:, :, None, :] - rows.reshape(B, S, k, C)
+    return dot_in_channel_order(diff, diff)
+
+
+def windowed_knn_plain(
+    k: int, base: torch.Tensor, query: torch.Tensor, spec: WindowSpec
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version, ``window_attention.py::windowed_knn_reference`` chunk by
+    chunk: ``d = (|q|^2 + |b|^2) - 2 q.b`` over the chunk's window (each dot
+    product in channel order, not clamped at 0), a stable ascending sort, so
+    ties go to the lowest index, and the k first as global indices. Returns
+    ``(direct-form distances [B,S,k] f32, idx [B,S,k] int32)``."""
+    B, N, C = base.shape
+    nc, sq, bn, pad = spec.n_chunks, spec.sq, spec.bn, spec.pad
+    with torch.no_grad():
+        b = base.detach().float()
+        qp = F.pad(query.detach().float(), (0, 0, pad, pad)).reshape(B, nc + 1, sq, C)
+        win0 = torch.clamp(torch.arange(nc + 1, device=b.device) - 1, 0, nc - 2) * bn
+        rows = win0[:, None] + torch.arange(spec.window, device=b.device)  # [nc+1, 2bn]
+        band = b[:, rows]  # [B, nc+1, 2bn, C]
+        q2 = dot_in_channel_order(qp, qp)
+        b2 = dot_in_channel_order(band, band)
+        cross = dot_in_channel_order(qp.unsqueeze(-2), band.unsqueeze(-3))  # [B, nc+1, sq, 2bn]
+        d = (q2.unsqueeze(-1) + b2.unsqueeze(-2)) - 2.0 * cross
+        local = torch.sort(d, dim=-1, stable=True)[1][..., :k]
+        idx = (local + win0[None, :, None, None]).reshape(B, (nc + 1) * sq, k)
+        idx = idx[:, pad:pad + spec.S].to(torch.int32).contiguous()
+    return direct_distance(base, query, idx), idx
+
+
+def _check_knn(k: int, base: torch.Tensor, query: torch.Tensor, spec: WindowSpec) -> None:
+    if base.dim() != 3 or query.dim() != 3 or base.shape[0] != query.shape[0] \
+            or base.shape[2] != query.shape[2]:
+        raise ValueError(f"windowed kNN: base [B,N,C] and query [B,S,C] expected, got "
+                         f"{tuple(base.shape)}, {tuple(query.shape)}")
+    _spec_for(spec, query.shape[1], base.shape[1], "windowed kNN")
+    if not 1 <= k <= spec.window:
+        raise ValueError(f"windowed kNN: k={k} must be in [1, window={spec.window}]")
+
+
+def windowed_knn_cuda(
+    k: int, base: torch.Tensor, query: torch.Tensor, spec: WindowSpec
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``windowed_knn_kernel`` on CUDA tensors."""
+    _check_knn(k, base, query, spec)
+    B, N, C = base.shape
+    S = query.shape[1]
+    if k > MAX_KNN_K or C > MAX_KNN_C:
+        raise ValueError(f"windowed_knn_kernel supports k <= {MAX_KNN_K} and C <= {MAX_KNN_C}, "
+                         f"got k={k}, C={C}")
+    for name, t in (("base", base), ("query", query)):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"windowed_knn_kernel: {name} must be a contiguous float32 CUDA tensor")
+    if base.device != query.device:
+        raise ValueError("windowed_knn_kernel: base and query on different devices")
+    dist = torch.empty((B, S, k), dtype=torch.float32, device=base.device)
+    idx = torch.empty((B, S, k), dtype=torch.int32, device=base.device)
+    lib = build.load()
+    with torch.cuda.device(base.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(
+            lib.mpa_windowed_knn(base.data_ptr(), query.data_ptr(), dist.data_ptr(),
+                                 idx.data_ptr(), B, N, S, C, k, *_spec_args(spec), stream),
+            "windowed_knn_kernel",
+        )
+    kernels.launched("windowed_knn_kernel", {"k": k, "base": base, "query": query, "spec": spec})
+    return dist, idx
+
+
+class _WindowedKnnCuda(torch.autograd.Function):
+    """``windowed_knn_kernel`` forward; the backward of the direct-form
+    distances through the row gather and scatter-add kernels, as ``knn``'s."""
+
+    @staticmethod
+    def forward(ctx, k: int, base: torch.Tensor, query: torch.Tensor, spec: WindowSpec):
+        dist, idx = windowed_knn_cuda(k, base, query, spec)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(base, query, idx)
+        return dist, idx
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_dist: torch.Tensor, _g_idx):
+        base, query, idx = ctx.saved_tensors
+        d_base, d_query = knn_distance_grads(base, query, idx, g_dist, ctx.needs_input_grad[1],
+                                             ctx.needs_input_grad[2])
+        return None, d_base, d_query, None
+
+
+def windowed_knn_with_spec(
+    k: int, base: torch.Tensor, query: torch.Tensor, sq: int = 128
+) -> Tuple[torch.Tensor, torch.Tensor, WindowSpec]:
+    """The k nearest base rows of each query inside its chunk's Morton window.
+
+    Args:
+      k: neighbours per query (``<= 32`` on CUDA).
+      base: ``[B, N, C]``, Morton-ordered.
+      query: ``[B, S, C]``, in the same Morton-consistent order.
+      sq: chunk rows before the cap at ``S // 2``.
+
+    Returns:
+      ``(sqr_dists [B,S,k], idx [B,S,k] int32, spec)``: ascending within the
+      window, ties to the lowest index, global indices; the distances
+      recomputed in direct form from the selected rows and differentiable;
+      ``spec`` is the window the search used, for the attention and
+      scatter-mean that follow. Raises ValueError (from
+      :func:`make_window_spec`) when the scale pair admits no window.
+    """
+    spec = make_window_spec(query.shape[1], base.shape[1], sq=sq)
+    if on_cuda(base, "base"):
+        dist, idx = _WindowedKnnCuda.apply(k, base.float().contiguous(),
+                                          query.float().contiguous(), spec)
+        return dist, idx, spec
+    _check_knn(k, base, query, spec)
+    dist, idx = windowed_knn_plain(k, base, query, spec)
+    return dist, idx, spec
+
+
+# -- the windowed transition attention --------------------------------------------------
+
+
+def _check_window_attention(name, packed, idx, shifts, n_branches, c, spec, gctx=None) -> None:
+    check_attention_cuda(name, packed, idx, shifts, n_branches, c, gctx)
+    _spec_for(spec, idx.shape[1], packed.shape[1], name)
+    if spec.window > MAX_ATTENTION_WINDOW:
+        raise ValueError(f"{name}: window {spec.window} > {MAX_ATTENTION_WINDOW}")
+
+
+def windowed_attention_cuda(packed, idx, shifts, n_branches: int, c: int,
+                            spec: WindowSpec) -> torch.Tensor:
+    """Launch ``windowed_attention_fwd_kernel``; the function of
+    ``attention_plain``."""
+    name = "windowed_attention_fwd_kernel"
+    _check_window_attention(name, packed, idx, shifts, n_branches, c, spec)
+    B, N, _ = packed.shape
+    S, K = idx.shape[1], idx.shape[2]
+    out = torch.empty((B, S, n_branches * c), dtype=torch.float32, device=packed.device)
+    lib = build.load()
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(
+            lib.mpa_windowed_attention_fwd(
+                packed.data_ptr(), idx.data_ptr(),
+                None if shifts is None else shifts.data_ptr(), out.data_ptr(),
+                B, N, S, K, n_branches, c, *_spec_args(spec), stream),
+            name,
+        )
+    kernels.launched(name, {"packed": packed, "idx": idx, "shifts": shifts,
+                            "n_branches": n_branches, "c": c, "spec": spec})
+    return out
+
+
+def windowed_attention_bwd_cuda(packed, idx, shifts, gctx, n_branches: int, c: int,
+                                spec: WindowSpec) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch ``windowed_attention_bwd_kernel``; returns ``(dpacked, dshift or
+    None)``, the function of ``attention_bwd_plain``."""
+    name = "windowed_attention_bwd_kernel"
+    _check_window_attention(name, packed, idx, shifts, n_branches, c, spec, gctx)
+    B, N, W = packed.shape
+    S, K = idx.shape[1], idx.shape[2]
+    dpacked = torch.empty((B, N, W), dtype=torch.float32, device=packed.device)
+    dshift = None if shifts is None else torch.empty_like(shifts)
+    lib = build.load()
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(
+            lib.mpa_windowed_attention_bwd(
+                packed.data_ptr(), idx.data_ptr(),
+                None if shifts is None else shifts.data_ptr(), gctx.data_ptr(),
+                dpacked.data_ptr(), None if dshift is None else dshift.data_ptr(),
+                B, N, S, K, n_branches, c, *_spec_args(spec), stream),
+            name,
+        )
+    kernels.launched(name, {"packed": packed, "idx": idx, "shifts": shifts, "gctx": gctx,
+                            "n_branches": n_branches, "c": c, "spec": spec})
+    return dpacked, dshift
+
+
+class _WindowedAttention(torch.autograd.Function):
+    """``windowed_attention_fwd_kernel`` forward,
+    ``windowed_attention_bwd_kernel`` backward (``_wattn``'s custom VJP).
+    Saves the node tensors, not the gathered edge rows."""
+
+    @staticmethod
+    def forward(ctx, packed, idx, shifts, n_branches: int, c: int, spec: WindowSpec):
+        ctx.save_for_backward(packed, idx, shifts)
+        ctx.n_branches, ctx.c, ctx.spec = n_branches, c, spec
+        return windowed_attention_cuda(packed, idx, shifts, n_branches, c, spec)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gctx):
+        packed, idx, shifts = ctx.saved_tensors
+        dpacked, dshift = windowed_attention_bwd_cuda(
+            packed, idx, shifts, gctx.float().contiguous(), ctx.n_branches, ctx.c, ctx.spec)
+        return dpacked, None, dshift, None, None, None
+
+
+def windowed_transition_attention(
+    packed: torch.Tensor,
+    idx: torch.Tensor,
+    shifts: Optional[torch.Tensor],
+    n_branches: int,
+    c: int,
+    spec: WindowSpec,
+) -> torch.Tensor:
+    """``transition_attention`` (same arguments and result) for an ``idx``
+    inside its rows' windows of ``spec``, the windowed kNN's guarantee."""
+    if on_cuda(packed, "packed"):
+        out = _WindowedAttention.apply(
+            packed.float().contiguous(), idx.to(torch.int32).contiguous(),
+            None if shifts is None else shifts.float().contiguous(), n_branches, c, spec)
+        return out.to(packed.dtype)
+    check_attention(packed, idx, shifts, n_branches, c)
+    _spec_for(spec, idx.shape[1], packed.shape[1], "windowed attention")
+    return attention_plain(packed, idx, shifts, n_branches, c)
+
+
+# -- the windowed scatter-mean -------------------------------------------------------------
+
+
+def windowed_scatter_mean_cuda(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int,
+                               spec: WindowSpec) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``windowed_scatter_mean_kernel``: ``(mean [B,N,C], count [B,N])``
+    f32, the function of ``scatter_mean_plain`` for an in-window index."""
+    name = "windowed_scatter_mean_kernel"
+    check_scatter(features, knn_idx, num_fine)
+    _spec_for(spec, features.shape[1], num_fine, name)
+    for arg, t, dt in (("features", features, torch.float32), ("knn_idx", knn_idx, torch.int32)):
+        if t.device.type != "cuda" or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous {dt} CUDA tensor")
+    if features.device != knn_idx.device:
+        raise ValueError(f"{name}: features and knn_idx on different devices")
+    B, S, C = features.shape
+    K = knn_idx.shape[2]
+    if B > MAX_B or C < 1 or K < 1 or S * K >= 2 ** 31:
+        raise ValueError(f"{name}: B <= {MAX_B}, C >= 1, K >= 1 and S*K < 2^31 expected, "
+                         f"got B={B}, S={S}, K={K}, C={C}")
+    out = torch.empty((B, num_fine, C), dtype=torch.float32, device=features.device)
+    count = torch.empty((B, num_fine), dtype=torch.float32, device=features.device)
+    lib = build.load()
+    with torch.cuda.device(features.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(
+            lib.mpa_windowed_scatter_mean(features.data_ptr(), knn_idx.data_ptr(), out.data_ptr(),
+                                          count.data_ptr(), B, S, K, num_fine, C,
+                                          *_spec_args(spec), stream),
+            name,
+        )
+    kernels.launched(name, {"features": features, "knn_idx": knn_idx, "num_fine": num_fine,
+                            "spec": spec})
+    return out, count
+
+
+class _WindowedScatterMean(torch.autograd.Function):
+    """``windowed_scatter_mean_kernel`` forward; the backward of the exact
+    op (``window_attention.py::_wscatter_bwd``): the gradient divided by
+    the count, gathered through ``gather_rows_kernel``, summed over K."""
+
+    @staticmethod
+    def forward(ctx, features, knn_idx, num_fine: int, spec: WindowSpec):
+        out, count = windowed_scatter_mean_cuda(features, knn_idx, num_fine, spec)
+        ctx.save_for_backward(knn_idx, count)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        knn_idx, count = ctx.saved_tensors
+        return scatter_mean_bwd_cuda(grad.float(), knn_idx, count), None, None, None
+
+
+def windowed_scatter_mean(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int,
+                          spec: WindowSpec) -> torch.Tensor:
+    """``scatter_mean_upsample`` (same arguments and result) for a
+    ``knn_idx`` inside its coarse rows' windows of ``spec``, the windowed
+    kNN's guarantee (differentiable in ``features``)."""
+    check_scatter(features, knn_idx, num_fine)
+    if on_cuda(features, "features"):
+        out = _WindowedScatterMean.apply(features.float().contiguous(),
+                                         knn_idx.to(torch.int32).contiguous(), num_fine, spec)
+        return out.to(features.dtype)
+    _spec_for(spec, features.shape[1], num_fine, "windowed scatter-mean")
+    return scatter_mean_plain(features, knn_idx, num_fine)[0].to(features.dtype)

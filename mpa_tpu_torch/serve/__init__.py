@@ -5,7 +5,9 @@ weights carried over from ``mpa_tpu`` variables or initialised from a seed,
 and returns a callable ``points [B, N, 3] -> log-probs [B, num_classes]``
 that runs in eval mode under ``torch.inference_mode()``. ``load_segmenter``
 does the same for a part-seg preset: ``(points [B, N, 3], category [B]) ->
-per-point log-probs [B, N, num_parts]``.
+per-point log-probs [B, N, num_parts]``, and ``load_semantic_segmenter`` for
+a semantic-segmentation preset: ``blocks [B, N, 9] -> per-point log-probs
+[B, N, num_classes]``.
 """
 
 from __future__ import annotations
@@ -68,10 +70,28 @@ class Segmenter:
             return self.model((x, onehot))
 
 
-def _load(preset: str, task: str, variables: Optional[Mapping], device: DeviceLike, seed: int):
+class SemanticSegmenter:
+    """A loaded semantic segmenter: call it on ``[B, N, 3 + F]`` blocks (xyz
+    and the model's F extra features; tensor or numpy)."""
+
+    def __init__(self, model: torch.nn.Module, device: torch.device):
+        self.model = model
+        self.device = device
+
+    def __call__(self, points) -> torch.Tensor:
+        x = _points(points, self.device)
+        want = 3 + self.model.feature_channels
+        if x.shape[-1] != want:
+            raise ValueError(f"points must be [B, N, {want}], got {tuple(x.shape)}")
+        with torch.inference_mode():
+            return self.model(x)
+
+
+def _load(preset: str, task: str, variables: Optional[Mapping], device: DeviceLike, seed: int,
+          **overrides):
     if preset not in PRESETS:
         raise KeyError(f"unknown preset {preset!r}; available: {sorted(PRESETS)}")
-    cfg = PRESETS[preset]
+    cfg = PRESETS[preset].with_overrides(**overrides)
     if cfg.task != task:
         raise ValueError(f"preset {preset!r} is a {cfg.task!r} preset, not {task!r}")
     dev = resolve_device(device)
@@ -117,3 +137,22 @@ def load_segmenter(
     arguments as :func:`load_classifier`. The clouds it is called on must
     have the preset's ``num_points`` (the FPS ladder is fixed)."""
     return Segmenter(*_load(preset, "partseg", variables, device, seed))
+
+
+def load_semantic_segmenter(
+    preset: str = "s3dis_semseg",
+    variables: Optional[Mapping] = None,
+    *,
+    device: DeviceLike = None,
+    seed: int = 0,
+    **overrides,
+) -> SemanticSegmenter:
+    """Build the preset's semantic segmenter on ``device`` (default
+    ``cuda``); ``preset``, ``variables``, ``device`` and ``seed`` as
+    :func:`load_classifier`. ``overrides`` replace fields of the preset
+    before the model is built: ``num_points`` (the FPS ladder halves it four
+    times; the blocks must have that many points), ``batch_size`` and
+    ``neighbor_mode`` (``"exact"``, ``"window"`` or ``"window_all"``), so the
+    16384-point ``window_all`` configuration is
+    ``load_semantic_segmenter(num_points=16384, neighbor_mode="window_all")``."""
+    return SemanticSegmenter(*_load(preset, "semseg", variables, device, seed, **overrides))

@@ -10,6 +10,7 @@ from mpa_tpu_torch.train.loop import (
     make_optimizer,
     make_partseg_train_step,
     make_schedule,
+    make_semseg_train_step,
     make_train_step,
 )
 from mpa_tpu_torch.train.metrics import (
@@ -34,6 +35,7 @@ __all__ = [
     "make_optimizer",
     "make_partseg_train_step",
     "make_schedule",
+    "make_semseg_train_step",
     "make_train_step",
     "part_iou_metrics",
     "smooth_cls_loss",

@@ -117,17 +117,30 @@ def make_cls_train_step(cfg: TrainConfig, steps_per_epoch: int):
                            make_schedule(cfg), steps_per_epoch)
 
 
-def make_partseg_train_step(cfg: TrainConfig, steps_per_epoch: int):
-    """The part-seg step of ``cfg``: per-point label-smoothed NLL under its
-    per-epoch schedule. Call it as ``step(state, (points, onehot), labels)``
-    with labels ``[B, N]``."""
+def _seg_train_step(cfg: TrainConfig, steps_per_epoch: int):
     smoothing = cfg.label_smoothing
     return make_train_step(lambda out, labels: smooth_seg_loss(out, labels, smoothing),
                            make_schedule(cfg), steps_per_epoch)
 
 
+def make_partseg_train_step(cfg: TrainConfig, steps_per_epoch: int):
+    """The part-seg step of ``cfg``: per-point label-smoothed NLL under its
+    per-epoch schedule. Call it as ``step(state, (points, onehot), labels)``
+    with labels ``[B, N]``."""
+    return _seg_train_step(cfg, steps_per_epoch)
+
+
+def make_semseg_train_step(cfg: TrainConfig, steps_per_epoch: int):
+    """The semantic-segmentation step of ``cfg`` (``s3dis_semseg``: SGD 0.1,
+    momentum 0.9, wd 1e-4, cosine to 1e-3, smoothing 0.1, head dropout 0.5
+    from the state's generator): per-point label-smoothed NLL. Call it as
+    ``step(state, blocks [B, N, 9], labels [B, N])``."""
+    return _seg_train_step(cfg, steps_per_epoch)
+
+
 # The train step of each task, as ``TRAIN_STEPS[cfg.task](cfg, steps_per_epoch)``.
-TRAIN_STEPS = {"cls": make_cls_train_step, "partseg": make_partseg_train_step}
+TRAIN_STEPS = {"cls": make_cls_train_step, "partseg": make_partseg_train_step,
+               "semseg": make_semseg_train_step}
 
 
 def make_eval_step():

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where a serving request's or a train step's time goes, on the card.
 
-    python3 profile_port.py [--model cls|partseg] [--batch B] [--requests 5] [--trace trace.json]
-    python3 profile_port.py [--model cls|partseg] --train [--batch B] [--requests 5]
+    python3 profile_port.py [--model cls|partseg|semseg] [--batch B] [--requests 5] [--trace t.json]
+    python3 profile_port.py [--model cls|partseg|semseg] --train [--batch B] [--requests 5]
 
 Loads the model's preset of the PyTorch port on ``cuda`` (``scanobjectnn_cls``
-at 1024 points, batch 64, or ``shapenetpart`` at 2048 points, batch 32; random
+at 1024 points, batch 64; ``shapenetpart`` at 2048 points, batch 32; or
+``s3dis_semseg`` in the ``window_all`` mode at 16384 points, batch 2; random
 weights, seed 0), answers two warm-up requests, then traces ``--requests``
 requests of ``--batch`` clouds with ``torch.profiler`` and prints: the host
 wall time per request, the device's busy share of that wall time (the union
@@ -30,10 +31,16 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-PORT_KERNELS = ("knn_kernel", "fps_kernel", "gather_rows_kernel",
+# The windowed names first: "knn_kernel" and "scatter_mean_kernel" are
+# parts of theirs.
+PORT_KERNELS = ("windowed_knn_kernel", "windowed_attention_fwd_kernel",
+                "windowed_attention_bwd_kernel", "windowed_scatter_mean_kernel",
+                "knn_kernel", "fps_kernel", "gather_rows_kernel",
                 "transition_attention_fwd_kernel", "scatter_add_rows_kernel",
                 "transition_attention_bwd_kernel", "scatter_mean_kernel")
-PRESETS = {"cls": "scanobjectnn_cls", "partseg": "shapenetpart"}
+PRESETS = {"cls": "scanobjectnn_cls", "partseg": "shapenetpart", "semseg": "s3dis_semseg"}
+# Preset fields each model is profiled with, beyond the preset's own.
+OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="window_all")}
 
 
 def kind(name: str) -> str:
@@ -50,12 +57,19 @@ def make_requests(model: str, batch: int, points: int):
     """``run(i)`` answers the i-th request of ``batch`` clouds: random ones
     for the classifier, ``realistic_partseg`` ones with their categories for
     the segmenter."""
-    from mpa_tpu_torch.data import realistic_partseg
-    from mpa_tpu_torch.serve import load_classifier, load_segmenter
+    from mpa_tpu_torch.data import realistic_partseg, synthetic_semseg
+    from mpa_tpu_torch.serve import load_classifier, load_segmenter, load_semantic_segmenter
 
     rng = np.random.default_rng(0)
     reqs = {}
-    if model == "partseg":
+    if model == "semseg":
+        serve = load_semantic_segmenter(PRESETS[model], seed=0, **OVERRIDES[model])
+        blocks = synthetic_semseg(1, points, seed=0)[0]  # 24 blocks, made before any trace
+
+        def make(i):
+            lo = (i * batch) % (len(blocks) - batch + 1)
+            return (torch.from_numpy(blocks[lo:lo + batch]).cuda(),)
+    elif model == "partseg":
         serve = load_segmenter(PRESETS[model], seed=0)
 
         def make(i):
@@ -85,7 +99,7 @@ def make_train_steps(model: str, batch: int):
     from mpa_tpu_torch.train import TRAIN_STEPS, create_train_state
     from mpa_tpu_torch.utils.init import init_like_flax
 
-    cfg = CONFIGS[PRESETS[model]].with_overrides(seed=0)
+    cfg = CONFIGS[PRESETS[model]].with_overrides(seed=0, **OVERRIDES.get(model, {}))
     arrays, _ = cli_train.load_dataset(cfg, n_eval=1)
     net = init_like_flax(get_model(cfg.model, **model_kwargs(cfg)),
                          torch.Generator().manual_seed(0))
@@ -115,7 +129,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from mpa_tpu_torch.configs import PRESETS as CONFIGS
 
-    cfg = CONFIGS[PRESETS[args.model]]
+    cfg = CONFIGS[PRESETS[args.model]].with_overrides(**OVERRIDES.get(args.model, {}))
     batch, points = args.batch or cfg.batch_size, cfg.num_points
     run = (make_train_steps(args.model, batch) if args.train
            else make_requests(args.model, batch, points))

@@ -268,7 +268,9 @@ def test_port_imports_no_jax():
     for module in ("train/loop.py", "train/losses.py", "train/schedules.py", "train/metrics.py",
                    "data/synthetic.py", "data/shapenetpart.py", "cli/train.py", "configs.py",
                    "ops/scatter.py", "nn/fuse.py", "nn/keephigh_partseg.py",
-                   "models/markov_partseg.py", "serve/__init__.py", "kernels/build.py"):
+                   "models/markov_partseg.py", "serve/__init__.py", "kernels/build.py",
+                   "ops/morton.py", "ops/window.py", "nn/window_mode.py",
+                   "models/markov_semseg.py", "data/s3dis.py"):
         assert f"mpa_tpu_torch/{module}" in walked
     bad = {
         str(p.relative_to(REPO)): root

@@ -3,8 +3,11 @@ version on the same CUDA tensors, at shapes around the model's, including
 the tie cases; the backward kernels and the kNN distance gradient against
 the plain versions and torch autograd; one train step on the card against
 the CPU; the scatter-mean kernel and its backward; the part segmenter and its
-train step against the CPU. Every test here needs a CUDA card (the kernels have no CPU mode)
-and skips, through the ``dev`` fixture, without one.
+train step against the CPU; the four Morton-window kernels at the
+``markov_semseg`` window shapes and at ragged ones, and the semantic
+segmenter and its train step against the CPU. Every test here needs a CUDA
+card (the kernels have no CPU mode) and skips, through the ``dev`` fixture,
+without one.
 
 Tolerances: the backward kernels add with ``atomicAdd``, in an order that
 changes from run to run, so their sums are held to a relative tolerance
@@ -17,7 +20,10 @@ each with the floor of its own largest entry. The train step is held to
 the claiming rows in a fixed order, the order of a sequential ``index_add_``:
 it is held bit for bit against the plain version run on the CPU, and within
 1e-5 against the plain version on the card, whose ``index_add_`` is
-atomic.
+atomic. The windowed kNN and the windowed attention forward do the plain
+versions' arithmetic in the same order and are held bit for bit; the
+windowed attention backward adds with atomics (shared, then global) and is
+held as the exact one; the windowed scatter-mean as the exact one.
 
 Run on a machine with an H100:
     python -m pytest tests/test_torch_port_cuda.py -q
@@ -40,6 +46,17 @@ from mpa_tpu_torch.ops.fps import fps_cuda, fps_plain
 from mpa_tpu_torch.ops.gather import gather_cuda, gather_plain, scatter_add_cuda, scatter_add_plain
 from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
 from mpa_tpu_torch.ops.scatter import scatter_mean_cuda, scatter_mean_plain, scatter_mean_upsample
+from mpa_tpu_torch.ops.morton import morton_sort
+from mpa_tpu_torch.ops.window import (
+    make_window_spec,
+    windowed_attention_bwd_cuda,
+    windowed_attention_cuda,
+    windowed_knn_cuda,
+    windowed_knn_plain,
+    windowed_knn_with_spec,
+    windowed_scatter_mean,
+    windowed_scatter_mean_cuda,
+)
 from mpa_tpu_torch.serve import load_classifier, load_segmenter
 
 
@@ -254,7 +271,10 @@ def test_classifier_on_cuda_matches_cpu_and_counts_launches(dev):
                                 "transition_attention_fwd_kernel": 11,
                                 "scatter_add_rows_kernel": 0,
                                 "transition_attention_bwd_kernel": 0,
-                                "scatter_mean_kernel": 0}
+                                "scatter_mean_kernel": 0, "windowed_knn_kernel": 0,
+                                "windowed_attention_fwd_kernel": 0,
+                                "windowed_attention_bwd_kernel": 0,
+                                "windowed_scatter_mean_kernel": 0}
     torch.testing.assert_close(got.cpu(), cpu(x), rtol=0, atol=1e-3)
 
 
@@ -353,5 +373,180 @@ def test_partseg_train_step_on_cuda_matches_cpu_and_counts_launches(dev):
     assert parity["loss_diff"] <= 1e-4, parity["loss_diff"]
     name, units = parity["grad_units"][0]
     assert units <= chip_smoke.PATHS["partseg"]["grad_limit"], f"grad {name}: {units:.3f} units"
+    name, err = parity["stat"]
+    assert err < 1e-4, f"{name}: relative error {err:.3e}"
+
+
+# -- the Morton-window kernels -------------------------------------------------------
+
+
+def _morton_pair(seed, B, S, N, C, dev, dup=False):
+    """Morton-ordered base ``[B,N,C]`` and query ``[B,S,C]``: for C = 3
+    stride subsamples of one sorted cloud (how the model's scales relate
+    after sorted FPS); wider, features in the same row order. ``dup``
+    repeats rows, as S3DIS blocks drawn with replacement do."""
+    M = max(S, N)
+    rng = np.random.default_rng(seed)
+    xyz = rng.standard_normal((B, M, 3)).astype(np.float32)
+    if dup:
+        xyz[:, 1::4] = xyz[:, 0::4][:, : xyz[:, 1::4].shape[1]]
+    cloud = morton_sort(torch.from_numpy(xyz))[0]
+    if C != 3:
+        cloud = torch.from_numpy(np.cumsum(rng.standard_normal((B, M, C)), 1).astype(np.float32)
+                                 / 8)
+    return cloud[:, :: M // N].contiguous().to(dev), cloud[:, :: M // S].contiguous().to(dev)
+
+
+# (S, N, C) at the markov_semseg window_all shapes (16384 points; the la0
+# self search, an encoder pair, the smallest encoder pair, the widest Fuse
+# window) and ragged ones.
+WINDOW_KNN = [(16384, 16384, 3, True), (8192, 16384, 64, False), (1024, 2048, 128, False),
+              (1024, 16384, 3, False), (2048, 2048, 64, True), (256, 512, 5, True),
+              (32, 64, 3, False), (64, 256, 16, False)]
+
+
+@pytest.mark.parametrize("S,N,C,dup", WINDOW_KNN)
+def test_windowed_knn_kernel_matches_plain(dev, S, N, C, dup):
+    base, query = _morton_pair(S + C, 2, S, N, C, dev, dup)
+    spec = make_window_spec(S, N)
+    gd, gi = windowed_knn_cuda(8, base, query, spec)
+    wd, wi = windowed_knn_plain(8, base, query, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi), f"{int((gi != wi).sum())} indices differ"
+    assert torch.equal(gd, wd)
+    win0 = spec.window_start(dev)[None, :, None]
+    assert bool(((gi >= win0) & (gi < win0 + spec.window)).all())
+
+
+def test_windowed_knn_gradient_matches_autograd_of_plain(dev):
+    base, query = _morton_pair(3, 2, 512, 1024, 16, dev)
+    w = torch.linspace(0.5, 1.5, 8, device=dev)
+    grads = []
+    for on_card in (True, False):
+        b, q = base.clone().requires_grad_(True), query.clone().requires_grad_(True)
+        if on_card:
+            dist, _, _ = windowed_knn_with_spec(8, b, q)
+        else:
+            dist, _ = windowed_knn_plain(8, b, q, make_window_spec(512, 1024))
+        grads.append(torch.autograd.grad((dist * w).sum(), (b, q)))
+    for got, want in zip(*grads):
+        _close(got, want, rtol=1e-5)
+
+
+def _window_attention_inputs(dev, n_branches, with_shift, S, N, c, seed, outside=False):
+    """packed, in-window idx from the windowed kNN, shifts and gctx, with a
+    duplicate node (ties) and, with ``outside``, indices anywhere in [0, N)."""
+    base, query = _morton_pair(seed, 2, S, N, 3, dev, dup=True)
+    spec = make_window_spec(S, N)
+    _, idx = windowed_knn_plain(8, base, query, spec)
+    g = torch.Generator().manual_seed(seed)
+    packed = torch.randn((2, N, n_branches * 2 * c), generator=g)
+    for r in range(n_branches):
+        e = slice(2 * r * c, (2 * r + 1) * c)
+        packed[..., e] = packed[..., e].exp()
+    packed = packed.to(dev)
+    if outside:
+        idx = torch.randint(0, N, idx.shape, generator=g, dtype=torch.int32).to(dev)
+    shifts = torch.randn((2, S, n_branches * c), generator=g).to(dev) if with_shift else None
+    gctx = torch.randn((2, S, n_branches * c), generator=g).to(dev)
+    return spec, packed, idx, shifts, gctx
+
+
+# (n_branches, shifts, S, N, c): the semseg window shapes (la0's 256-row
+# window with shifts, an encoder pair's packed call at 512 rows, the decoder's
+# self-attention) and ragged ones, up to a 4096-row window.
+WINDOW_ATTENTION = [(1, True, 16384, 16384, 64), (2, True, 8192, 16384, 64),
+                    (1, False, 8192, 16384, 64), (2, True, 1024, 2048, 256),
+                    (1, False, 1024, 1024, 128), (2, False, 256, 512, 7),
+                    (1, True, 1024, 16384, 24), (1, True, 64, 128, 3)]
+
+
+@pytest.mark.parametrize("n_branches,with_shift,S,N,c", WINDOW_ATTENTION)
+def test_windowed_attention_kernels_match_plain(dev, n_branches, with_shift, S, N, c):
+    spec, packed, idx, shifts, gctx = _window_attention_inputs(
+        dev, n_branches, with_shift, S, N, c, seed=S + c)
+    got = windowed_attention_cuda(packed, idx, shifts, n_branches, c, spec)
+    want = attention_plain(packed, idx, shifts, n_branches, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    got_p, got_s = windowed_attention_bwd_cuda(packed, idx, shifts, gctx, n_branches, c, spec)
+    want_p, want_s = attention_bwd_plain(packed, idx, shifts, gctx, n_branches, c)
+    torch.cuda.synchronize()
+    _close(got_p, want_p, rtol=1e-4)
+    if with_shift:
+        _close(got_s, want_s, rtol=1e-5)
+    else:
+        assert got_s is None
+
+
+def test_windowed_attention_kernels_read_indices_outside_the_window(dev):
+    """An index outside its window is still read (from device memory), not
+    dropped: the kernels then compute the exact ops' function all the same."""
+    spec, packed, idx, shifts, gctx = _window_attention_inputs(dev, 2, True, 1024, 2048, 16, 7,
+                                                               outside=True)
+    win0 = spec.window_start(dev)[None, :, None]
+    assert bool(((idx < win0) | (idx >= win0 + spec.window)).any())
+    got = windowed_attention_cuda(packed, idx, shifts, 2, 16, spec)
+    assert torch.equal(got, attention_plain(packed, idx, shifts, 2, 16))
+    got_p, got_s = windowed_attention_bwd_cuda(packed, idx, shifts, gctx, 2, 16, spec)
+    want_p, want_s = attention_bwd_plain(packed, idx, shifts, gctx, 2, 16)
+    _close(got_p, want_p, rtol=1e-4)
+    _close(got_s, want_s, rtol=1e-5)
+
+
+# (S, N, C): the semseg decoder and Fuse upsamples at 16384 points and ragged ones.
+WINDOW_SCATTER = [(8192, 16384, 64), (1024, 16384, 64), (2048, 8192, 128), (256, 512, 37),
+                  (16, 32, 300), (64, 64, 1)]
+
+
+@pytest.mark.parametrize("S,N,C", WINDOW_SCATTER)
+def test_windowed_scatter_mean_kernel_matches_plain(dev, S, N, C):
+    fine, coarse = _morton_pair(S + N, 2, S, N, 3, dev, dup=True)
+    spec = make_window_spec(S, N)
+    _, idx = windowed_knn_plain(8, fine, coarse, spec)
+    feats = torch.randn((2, S, C), generator=torch.Generator().manual_seed(C)).to(dev)
+    got, got_count = windowed_scatter_mean_cuda(feats, idx, N, spec)
+    torch.cuda.synchronize()
+    cpu, cpu_count = scatter_mean_plain(feats.cpu(), idx.cpu(), N)
+    assert torch.equal(got_count.cpu(), cpu_count)
+    assert torch.equal(got.cpu(), cpu)  # the sequential order, bit for bit
+    kernels.reset_launch_counts()
+    f = feats.clone().requires_grad_(True)
+    g = torch.randn((2, N, C), generator=torch.Generator().manual_seed(1)).to(dev)
+    (grad,) = torch.autograd.grad(windowed_scatter_mean(f, idx, N, spec), f, g)
+    assert kernels.LAUNCHES["windowed_scatter_mean_kernel"] == 1
+    assert kernels.LAUNCHES["gather_rows_kernel"] == 1
+    f = feats.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(scatter_mean_plain(f, idx, N)[0], f, g)
+    torch.testing.assert_close(grad, want, rtol=1e-5, atol=1e-6)
+
+
+def test_semantic_segmenter_on_cuda_matches_cpu_and_counts_launches(dev):
+    """Launch counts of one window_all request at 16384 points, and the card
+    against the CPU at the preset's 4096 points, B = 1, through
+    ``chip_smoke.semseg_parity``, held to ``chip_smoke.SEMSEG_LIMITS``."""
+    from mpa_tpu_torch.data import synthetic_semseg
+    from mpa_tpu_torch.serve import load_semantic_segmenter
+
+    blocks, _ = synthetic_semseg(1, 16384, seed=0)
+    kernels.reset_launch_counts()
+    got = load_semantic_segmenter(num_points=16384, neighbor_mode="window_all")(blocks[:2])
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == chip_smoke.SEMSEG_FORWARD
+    assert tuple(got.shape) == (2, 16384, 13) and torch.isfinite(got).all()
+    report = chip_smoke.semseg_parity()
+    assert report["median_abs"] <= chip_smoke.SEMSEG_LIMITS["median_abs"], report
+    assert report["argmax_agreement"] >= chip_smoke.SEMSEG_LIMITS["argmax_agreement"], report
+
+
+def test_semseg_train_step_on_cuda_matches_cpu_and_counts_launches(dev):
+    """One SGD step of ``s3dis_semseg`` window_all (B = 1 x 4096, dropout 0)
+    on the card and on the CPU from the same weights, through
+    ``chip_smoke.train_parity``, held to ``chip_smoke.py``'s limits."""
+    parity = chip_smoke.train_parity("semseg")
+    assert parity["launches"] == chip_smoke.PATHS["semseg"]["per_train_step"]
+    assert parity["loss_diff"] <= 1e-4, parity["loss_diff"]
+    name, units = parity["grad_units"][0]
+    assert units <= chip_smoke.PATHS["semseg"]["grad_limit"], f"grad {name}: {units:.3f} units"
     name, err = parity["stat"]
     assert err < 1e-4, f"{name}: relative error {err:.3e}"

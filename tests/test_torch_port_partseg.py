@@ -253,8 +253,17 @@ def test_local_merge_matches_frozen_oracle():
 @pytest.mark.parametrize("kw", [dict(use_tanh=True), dict(knn_mode="window"),
                                 dict(feature_knn_mode="window")])
 def test_unported_local_merge_modes_raise(kw):
-    with pytest.raises(NotImplementedError):
-        LocalMerge(16, 16, 8, **kw)
+    """``use_tanh`` is not ported and raises; the window modes are ported
+    (held against ``mpa_tpu`` in ``tests/test_torch_port_semseg.py``) and an
+    unknown mode raises instead."""
+    if "use_tanh" in kw:
+        with pytest.raises(NotImplementedError):
+            LocalMerge(16, 16, 8, **kw)
+        return
+    (key, mode), = kw.items()
+    assert getattr(LocalMerge(16, 16, 8, **kw), key) == mode
+    with pytest.raises(ValueError, match=key):
+        LocalMerge(16, 16, 8, **{key: "ball"})
 
 
 # -- Fuse ---------------------------------------------------------------------------
@@ -325,8 +334,11 @@ def test_fuse_matches_frozen_oracle(target):
 
 
 def test_fuse_window_mode_raises():
-    with pytest.raises(NotImplementedError):
-        Fuse((8, 8, 8, 16, 32), 0, knn_mode="window")
+    """The window mode is ported (``tests/test_torch_port_semseg.py``); an
+    unknown mode raises."""
+    assert Fuse((8, 8, 8, 16, 32), 0, knn_mode="window").knn_mode == "window"
+    with pytest.raises(ValueError, match="knn_mode"):
+        Fuse((8, 8, 8, 16, 32), 0, knn_mode="ball")
 
 
 # -- the whole model -----------------------------------------------------------------
@@ -375,10 +387,12 @@ def test_markov_partseg_matches_frozen_torch_oracle():
 def test_partseg_registry_and_unported_options():
     assert "markov_partseg" in list_models() and "markov_cls" in list_models()
     assert isinstance(get_model("markov_partseg", npoints=LADDER), MarkovPartSeg)
-    for kw in (dict(neighbor_mode="window"), dict(neighbor_mode="window_all"),
-               dict(compute_dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError):
-            MarkovPartSeg(**kw)
+    for mode in ("window", "window_all"):  # ported: tests/test_torch_port_window.py
+        assert MarkovPartSeg(neighbor_mode=mode).keep_high.neighbor_mode == mode
+    with pytest.raises(ValueError, match="neighbor_mode"):
+        MarkovPartSeg(neighbor_mode="ball")
+    with pytest.raises(NotImplementedError):
+        MarkovPartSeg(compute_dtype=torch.bfloat16)
     for kw in (dict(dtype=torch.bfloat16), dict(fps_random_start=True)):
         with pytest.raises(NotImplementedError):
             KeepHighResolutionPartSeg(**kw)
