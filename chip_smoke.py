@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's six main paths at their presets' published widths with
+Drives the port's eight main paths at their presets' published widths with
 random weights from a seed: ``markov_cls`` (``scanobjectnn_cls``: 1024
 points, 15 classes, full ladder) served and trained, ``markov_partseg``
 (``shapenetpart``: 2048 points, ladder 1024/512/256/128, 16 categories, 50
-parts) served and trained, and ``markov_semseg`` in the Morton-window mode
+parts) served and trained, ``markov_semseg`` in the Morton-window mode
 ``window_all`` at the large-scene shape (``s3dis_semseg`` at 16384 points,
-B = 2, ladder 8192/4096/2048/1024, 13 classes) served and trained. It shows
-that they run through the port's eleven hand-written kernels (eight
-forward, three backward):
+B = 2, ladder 8192/4096/2048/1024, 13 classes) served and trained, and
+``repsurf_ssg_2x`` (``scanobjectnn_2x``: 1024 points, 15 classes, SA ladder
+512/128/32, widths up to 2048) served and trained. It shows that they run
+through the port's twelve hand-written kernels (nine forward, three
+backward):
 
 1. the card (``nvidia-smi`` name and power limit), then the kernel build
    from ``mpa_tpu_torch/kernels/csrc`` and its seconds;
@@ -51,6 +53,19 @@ forward, three backward):
    window_all, with the checks of 2b (the parity step at B = 1 x 4096) and a
    three-step ``cli.train --preset s3dis_semseg --num_points 16384
    --batch_size 2 --neighbor_mode window_all``;
+2g. repsurf served: ``load_classifier("scanobjectnn_2x")`` on ``cuda``, two
+   warm-up and three timed requests of 64 ``surface_clouds`` x 1024
+   points (surfaces normalised to the unit sphere, as ScanObjectNN's
+   objects are, so that the balls hold neighbours), launch counts read and asserted (three ``ball_query_kernel``
+   launches a request), finite log-probs, the card against the CPU plain ops
+   from the same weights within 1e-3;
+2h. repsurf trained: the preset's adam-l2 step (dropout 0.4, the umbrella's
+   normal flips from the state's generator) at B = 64 ``surface_clouds``,
+   with the checks of 2b
+   (the parity step at B = 16 with the same flips on both sides) and a
+   three-step ``cli.train --preset scanobjectnn_2x``; then one request of
+   ``markov_semseg`` in the ``window`` mode at 16384 points (B = 2), whose
+   exact FPS over 16384 points is replayed in phase 3;
 3. every kernel launch of one more request of each model, and every
    backward launch of one more train step of each, is replayed on its own
    inputs, kernel against its plain PyTorch version (FPS, gather and kNN
@@ -63,7 +78,8 @@ forward, three backward):
    atomic; the windowed kNN's indices and distances and the windowed
    attention forward bit-equal, every windowed index inside its window; the
    windowed attention backward as the exact one, the windowed scatter-mean as
-   the exact one), with the kernel's, the plain version's and, where one PyTorch
+   the exact one; the ball query's sentinel stage bit-equal), with the
+   kernel's, the plain version's and, where one PyTorch
    call computes the same function, that call's time, beside the bound the
    card's memory rate and float32 rate put on the same work; the kNN
    distance gradient of one recorded feature-space kNN (windowed for semseg)
@@ -99,6 +115,15 @@ REQUESTS, SEED = 3, 0
 TRAIN_WARMUP, TRAIN_STEPS, FIXED_STEPS = 2, 5, 10
 BACKWARD = ("scatter_add_rows_kernel", "transition_attention_bwd_kernel",
             "windowed_attention_bwd_kernel")
+# repsurf_ssg_2x: the umbrella's self-kNN and its one gather, and per ball
+# stage FPS, the ball query and the gathers of the new centres and normals
+# and of the grouped normals and centres (and features, from sa2 on).
+REPSURF_FORWARD = {
+    "knn_kernel": 1,
+    "fps_kernel": 3,
+    "ball_query_kernel": 3,
+    "gather_rows_kernel": 15,  # 1 + 4 + 5 + 5
+}
 CLS_FORWARD = {
     "knn_kernel": 11,  # la0 self-kNN + spatial and feature kNN in la1..la5
     "fps_kernel": 5,  # one per ladder step
@@ -172,6 +197,17 @@ PATHS = {
         ),
         grad_limit=20,
     ),
+    "repsurf": dict(
+        preset="scanobjectnn_2x", batch=64, points=1024, parity_batch=16,
+        per_forward=REPSURF_FORWARD,
+        per_train_step=dict(
+            REPSURF_FORWARD,
+            # the backward of each gather whose source carries a gradient: the
+            # normals' (new and grouped, 3 + 3) and the features' (sa2, sa3)
+            scatter_add_rows_kernel=8,
+        ),
+        grad_limit=20,
+    ),
 }
 # The served part-seg log-probs on the card against the CPU's, per point the
 # largest difference over the 50 parts: limits on its median over the points
@@ -181,12 +217,21 @@ PATHS = {
 SEG_LIMITS = {"median_abs": 1e-4, "argmax_agreement": 0.99}
 # The same for markov_semseg window_all at 4096 points, B = 1 (13 classes).
 SEMSEG_LIMITS = {"median_abs": 1e-4, "argmax_agreement": 0.99}
+# The served repsurf log-probs against the CPU's: cls's limit on the largest
+# difference (phase 2g holds it; ``--parity repsurf`` reads it).
+REPSURF_LIMITS = {"max_abs": 1e-3}
 # Gradients that are zero up to rounding in these models: the k projections'
 # biases (a shift of k cancels in the attention's normalisation), the q
 # projections (no part in the output), and the biases of the Dense layers
-# ahead of a train-mode BatchNorm. Only these get an absolute floor.
+# ahead of a train-mode BatchNorm (in repsurf also the umbrella's last one,
+# whose shift every consumer of the normals passes to a train-mode
+# BatchNorm, and the last BatchNorm bias of the group-all stage: its max over
+# 32 centres is positive in every cloud, so the shift passes through the max
+# to the head's train-mode BatchNorm). Only these get an absolute floor.
 ROUNDING_ZERO = re.compile(
-    r"(\.k\.bias|\.q\.(weight|bias)|\.linear\.bias|^fc[12]\.bias|\.final_class\.bias)$")
+    r"(\.k\.bias|\.q\.(weight|bias)|\.linear\.bias|^fc[12]\.bias|\.final_class\.bias"
+    r"|\.mlp_[lf]0\.bias|\.conv\d+\.bias|surface_constructor\.mlp[12]\.bias"
+    r"|^sa4\.mlps\.bn1\.bias)$")
 SOURCES = {
     "knn_kernel": ("mpa_tpu_torch/kernels/csrc/knn.cu", "mpa_tpu/ops/pallas/knn_pallas.py:102"),
     "fps_kernel": ("mpa_tpu_torch/kernels/csrc/fps.cu", "mpa_tpu/ops/pallas/fps_pallas.py:70"),
@@ -208,8 +253,11 @@ SOURCES = {
                                       "mpa_tpu/ops/pallas/window_attention.py:431"),
     "windowed_scatter_mean_kernel": ("mpa_tpu_torch/kernels/csrc/window_scatter_mean.cu",
                                      "mpa_tpu/ops/pallas/window_attention.py:577"),
+    "ball_query_kernel": ("mpa_tpu_torch/kernels/csrc/ball_query.cu",
+                          "mpa_tpu/ops/pallas/ball_pallas.py:72"),
 }
 ALSO_REPLACES = {
+    "gather_rows_kernel": "mpa_tpu/ops/pallas/gather_pallas.py:69",
     "transition_attention_fwd_kernel": "mpa_tpu/ops/pallas/attention_pallas.py:347",
     "scatter_add_rows_kernel": "mpa_tpu/ops/pallas/gather_pallas.py:190",
     "transition_attention_bwd_kernel": "mpa_tpu/ops/pallas/attention_pallas.py:483",
@@ -288,6 +336,17 @@ def bound(name: str, inp: dict):
         # Each query's distances to its window's rows, the norms, and the
         # direct-form distances of the k it keeps.
         ops = B * S * inp["spec"].window * (2 * C + 3) + 2 * B * (S + N) * C + 3 * B * S * k * C
+    elif name == "ball_query_kernel":
+        B, N, C = inp["xyz"].shape
+        S, ns = inp["new_xyz"].shape[1], inp["nsample"]
+        nbytes = 4 * (B * N * C + B * S * C + B * S * ns)
+        # Each centre's distance tests up to its nsample-th hit, or to every
+        # point where it has fewer (this call's balls, not the most there
+        # could be).
+        from mpa_tpu_torch.ops.ball_query import ball_query_plain
+
+        last = ball_query_plain(inp["radius"], ns, inp["xyz"], inp["new_xyz"])[..., -1].long()
+        ops = int(torch.where(last < N, last + 1, N).sum()) * (2 * C + 3)
     elif name == "fps_kernel":
         B, N, C = inp["points"].shape
         npoint = inp["npoint"]
@@ -407,6 +466,7 @@ def check_call(name: str, inp: dict) -> dict:
     from mpa_tpu_torch.ops.attention import (
         attention_bwd_cuda, attention_bwd_plain, attention_cuda, attention_plain,
     )
+    from mpa_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_plain
     from mpa_tpu_torch.ops.fps import fps_cuda, fps_plain
     from mpa_tpu_torch.ops.gather import (
         gather_cuda, gather_plain, scatter_add_cuda, scatter_add_plain,
@@ -444,6 +504,19 @@ def check_call(name: str, inp: dict) -> dict:
             raise AssertionError("windowed_knn_kernel distances differ from the plain version")
         err = 0.0
         shape = f"base {tuple(base.shape)} query {tuple(query.shape)} k={k} window={spec.window}"
+    elif name == "ball_query_kernel":
+        args = (inp["radius"], inp["nsample"], inp["xyz"], inp["new_xyz"])
+        kern, plain = (lambda: ball_query_cuda(*args)), (lambda: ball_query_plain(*args))
+        got, want = kern(), plain()
+        if not torch.equal(got, want):
+            raise AssertionError(f"ball_query_kernel differs from the plain version at "
+                                 f"{int((got != want).sum())} places")
+        err = 0.0
+        hits = (want < args[2].shape[1]).sum(-1).float()
+        shape = (f"xyz {tuple(args[2].shape)} new_xyz {tuple(args[3].shape)} r={args[0]} "
+                 f"nsample={args[1]}, hits per centre {hits.mean().item():.2f} "
+                 f"(full {(hits == args[1]).float().mean().item():.3f}, centre alone "
+                 f"{(hits == 1).float().mean().item():.3f})")
     elif name == "fps_kernel":
         pts, npoint, start = inp["points"], inp["npoint"], inp["start_idx"]
         kern, plain = (lambda: fps_cuda(pts, npoint, start)), (lambda: fps_plain(pts, npoint, start))
@@ -574,6 +647,20 @@ def fresh_model(path: str, cfg=None, **kw):
     return init_like_flax(model, torch.Generator().manual_seed(SEED))
 
 
+def train_arrays(path: str, cfg):
+    """The path's training set: the training CLI's synthetic one, but for
+    repsurf ``surface_clouds``, whose radius-0.1 balls hold neighbours on
+    the surface (the CLI's volume clouds leave most with their centre
+    alone)."""
+    from mpa_tpu_torch.cli import train as cli_train
+    from mpa_tpu_torch.data import surface_clouds
+
+    if path == "repsurf":
+        return surface_clouds(cli_train.DATASET_SIZES["cls"][0], cfg.num_points,
+                              cfg.num_classes, seed=0)
+    return cli_train.load_dataset(cfg, n_eval=1)[0]
+
+
 def make_step(path: str, steps_per_epoch: int):
     from mpa_tpu_torch.train import TRAIN_STEPS
 
@@ -594,21 +681,38 @@ def grad_error_units(got: dict, want: dict) -> list:
     return sorted(units.items(), key=lambda kv: -kv[1])
 
 
+def fix_flips(model: torch.nn.Module, batch: int) -> None:
+    """Hand a model with an umbrella constructor the same normal flips on
+    every device: ``batch`` alternating signs (+1, -1, ...) passed to each
+    forward, where the train step would draw them from the device's
+    generator (a CUDA and a CPU generator draw different bits)."""
+    if getattr(model, "surface_constructor", None) is None:
+        return
+    flips = torch.tensor([1.0 - 2.0 * (i % 2) for i in range(batch)])
+
+    def hook(module, args, kwargs):
+        return args, dict(kwargs, flips=flips.to(args[0].device))
+
+    model.register_forward_pre_hook(hook, with_kwargs=True)
+
+
 def train_parity(path: str) -> dict:
     """One step of the path's preset with dropout 0 on the card and on the
-    CPU (plain ops), from the same weights and the first ``parity_batch``
-    training clouds. Returns the loss difference, ``grad_error_units`` of the
-    gradients, the worst error of a BatchNorm running statistic (relative to
-    its norm plus 1e-3 an entry) as ``(name, value)``, the card step's launch
-    counts and both steps' wall seconds."""
+    CPU (plain ops), from the same weights, with the same umbrella flips
+    (``fix_flips``), on the first ``parity_batch`` training clouds. Returns
+    the loss difference, ``grad_error_units`` of the gradients, the worst
+    error of a BatchNorm running statistic (relative to its norm plus 1e-3
+    an entry) as ``(name, value)``, the card step's launch counts and both
+    steps' wall seconds."""
     from mpa_tpu_torch import kernels
     from mpa_tpu_torch.cli import train as cli_train
     from mpa_tpu_torch.train import create_train_state
 
     spec, cfg = PATHS[path], path_config(path, parity=True)
-    arrays, _ = cli_train.load_dataset(cfg, n_eval=1)
+    arrays = train_arrays(path, cfg)
     head = tuple(a[:spec["parity_batch"]] for a in arrays)
     model = fresh_model(path, cfg, dropout=0.0)
+    fix_flips(model, spec["parity_batch"])
     results = {}
     for device in (torch.device("cuda"), torch.device("cpu")):
         state = create_train_state(copy.deepcopy(model), cfg, device)
@@ -655,7 +759,7 @@ def train_phase(path: str, tag: str) -> dict:
 
     spec, cfg = PATHS[path], path_config(path)
     B, points = spec["batch"], spec["points"]
-    arrays, _ = cli_train.load_dataset(cfg, n_eval=1)
+    arrays = train_arrays(path, cfg)
     steps_per_epoch = len(arrays[0]) // B
     cuda = torch.device("cuda")
 
@@ -777,7 +881,7 @@ def serve_phase(path: str, tag: str) -> dict:
     warm-up and ``REQUESTS`` timed requests on the card; launch counts,
     finite log-probabilities, and the card against the CPU."""
     from mpa_tpu_torch import kernels
-    from mpa_tpu_torch.data import realistic_partseg, synthetic_semseg
+    from mpa_tpu_torch.data import realistic_partseg, surface_clouds, synthetic_semseg
     from mpa_tpu_torch.serve import load_classifier, load_segmenter, load_semantic_segmenter
 
     spec = PATHS[path]
@@ -793,6 +897,11 @@ def serve_phase(path: str, tag: str) -> dict:
         requests = [(pts[i * B:(i + 1) * B], cats[i * B:(i + 1) * B])
                     for i in range(REQUESTS + 1)]
         out_shape = (B, points, path_config(path).num_parts)
+    elif path == "repsurf":
+        serve = load_classifier(spec["preset"], seed=SEED)
+        pts, _ = surface_clouds(B * (REQUESTS + 1), points, seed=SEED)
+        requests = [(pts[i * B:(i + 1) * B],) for i in range(REQUESTS + 1)]
+        out_shape = (B, path_config(path).num_classes)
     else:
         serve = load_classifier(spec["preset"], seed=SEED)
         rng = np.random.default_rng(SEED)
@@ -857,26 +966,57 @@ def serve_phase(path: str, tag: str) -> dict:
             "latency_ms": [t * 1e3 for t in latencies]}
 
 
+def replay_call(path: str, name: str, inp: dict) -> dict:
+    """``check_call`` on one recorded launch, logged, tagged with ``path``."""
+    row = dict(check_call(name, inp), path=path)
+    lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    ref = "" if row["max_abs_ref"] is None else f" (of max |ref| {row['max_abs_ref']:.3e})"
+    log(f"[3 {path}] {name} {row['shape']}: max_abs_err {row['max_abs_err']:.3e}{ref}, "
+        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {lib} ms, "
+        f"bound {row['bound_ms']:.4f} ms")
+    return row
+
+
+def fps_16384_phase() -> list:
+    """One request of ``markov_semseg`` in the ``window`` mode at 16384
+    points, B = 2 ``synthetic_semseg`` blocks, on the card: its exact FPS
+    runs ``fps_kernel`` over 16384 points. The log-probs must be finite and
+    every such launch is replayed against ``fps_plain``."""
+    from mpa_tpu_torch import kernels
+    from mpa_tpu_torch.data import synthetic_semseg
+    from mpa_tpu_torch.serve import load_semantic_segmenter
+
+    serve = load_semantic_segmenter(PATHS["semseg"]["preset"], seed=SEED, num_points=16384,
+                                    neighbor_mode="window")
+    blocks, _ = synthetic_semseg(1, 16384, seed=SEED)
+    kernels.recorded = []
+    out = serve(blocks[:2])
+    torch.cuda.synchronize()
+    recorded, kernels.recorded = kernels.recorded, None
+    if tuple(out.shape) != (2, 16384, 13) or not torch.isfinite(out).all():
+        raise AssertionError(f"[2h semseg window 16384] bad output {tuple(out.shape)}")
+    rows = [replay_call("semseg_window_16384", name, inp) for name, inp in recorded
+            if name == "fps_kernel" and inp["points"].shape[1] == 16384]
+    if not rows:
+        raise AssertionError("no fps_kernel launch over 16384 points in the window mode")
+    return rows
+
+
 def replay(path: str, served: dict, trained: dict) -> list:
     """Phase 3 for one model: every recorded launch against its plain
     version, the kNN distance gradient, and the scatter-mean's backward."""
-    rows = []
-    for name, inp in served["recorded"] + trained["recorded"]:
-        row = dict(check_call(name, inp), path=path)
-        rows.append(row)
-        lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-        ref = "" if row["max_abs_ref"] is None else f" (of max |ref| {row['max_abs_ref']:.3e})"
-        log(f"[3 {path}] {name} {row['shape']}: max_abs_err {row['max_abs_err']:.3e}{ref}, "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {lib} ms, "
-            f"bound {row['bound_ms']:.4f} ms")
-    knn_feature = next(inp for name, inp in served["recorded"]
-                       if name in ("knn_kernel", "windowed_knn_kernel")
-                       and inp["base"].shape[-1] > 3)
-    err = check_knn_grad(knn_feature)
-    log(f"[3 {path}] knn distance gradient (gather_rows_kernel + scatter_add_rows_kernel) "
-        f"base {tuple(knn_feature['base'].shape)} query {tuple(knn_feature['query'].shape)}"
-        f"{' windowed' if 'spec' in knn_feature else ''}: max_abs_err {err:.3e} against "
-        f"autograd of the plain kNN")
+    rows = [replay_call(path, name, inp)
+            for name, inp in served["recorded"] + trained["recorded"]]
+    # repsurf's one kNN (the umbrella's, on coordinates) keeps only indices.
+    knn_feature = next((inp for name, inp in served["recorded"]
+                        if name in ("knn_kernel", "windowed_knn_kernel")
+                        and inp["base"].shape[-1] > 3), None)
+    if knn_feature is not None:
+        err = check_knn_grad(knn_feature)
+        log(f"[3 {path}] knn distance gradient (gather_rows_kernel + scatter_add_rows_kernel) "
+            f"base {tuple(knn_feature['base'].shape)} query {tuple(knn_feature['query'].shape)}"
+            f"{' windowed' if 'spec' in knn_feature else ''}: max_abs_err {err:.3e} against "
+            f"autograd of the plain kNN")
     errs = [check_scatter_mean_grad(inp) for name, inp in served["recorded"]
             if name in ("scatter_mean_kernel", "windowed_scatter_mean_kernel")]
     if errs:
@@ -889,12 +1029,15 @@ def summarise(name: str, rows: list, counts: dict) -> dict:
     """One kernel's entry of the ``kernels`` line. Times are sums over the
     launches of one served request (forward kernels) or one train step
     (backward kernels); the top-level ones are those of the kernel's own
-    path (markov_semseg window_all for the windowed kernels, markov_partseg
-    for the others), and ``by_path`` has each model's. ``launches`` is the
-    count in the timed run of that path the times are per (3 requests or 5
-    steps); ``launches_by_path`` has all six timed runs."""
+    path (markov_semseg window_all for the windowed kernels, repsurf_ssg_2x
+    for the ball query, markov_partseg for the others), and ``by_path`` has
+    each model's; ``other_replays`` the replays of launches outside the
+    timed paths (FPS over 16384 points). ``launches`` is the count in the
+    timed run of that path the times are per (3 requests or 5 steps);
+    ``launches_by_path`` has all eight timed runs."""
     backward = name in BACKWARD
-    main = "semseg" if name.startswith("windowed_") else "partseg"
+    main = ("semseg" if name.startswith("windowed_")
+            else "repsurf" if name == "ball_query_kernel" else "partseg")
 
     def sums(mine):
         if not mine:
@@ -930,6 +1073,12 @@ def summarise(name: str, rows: list, counts: dict) -> dict:
     }
     if name in ALSO_REPLACES:
         entry["also_replaces"] = ALSO_REPLACES[name]
+    others = {r["path"] for r in rows if r["name"] == name and r["path"] not in PATHS}
+    if others:
+        entry["other_replays"] = {
+            p: dict(sums([r for r in rows if r["name"] == name and r["path"] == p]),
+                    shape=next(r["shape"] for r in rows if r["name"] == name and r["path"] == p))
+            for p in sorted(others)}
     return entry
 
 
@@ -969,6 +1118,14 @@ PLANTED_FAULTS = {
         "semseg", "mpa_tpu_torch/kernels/csrc/window_scatter_mean.cu",
         "const int e_lo = lo * K, e_hi = hi * K;",
         "const int e_lo = lo * K, e_hi = max(hi - sq, lo) * K;"),
+    "ball query: the last 32 base points never tested": (
+        "repsurf", "mpa_tpu_torch/kernels/csrc/ball_query.cu",
+        "for (int r0 = 0; r0 < nt && count < nsample; r0 += 32) {",
+        "for (int r0 = 0; r0 < nt - 32 && count < nsample; r0 += 32) {"),
+    "ball query: the radius compared where its square belongs": (
+        "repsurf", "mpa_tpu_torch/kernels/csrc/ball_query.cu",
+        "in = d <= r2;",
+        "in = d <= sqrtf(r2);"),
 }
 
 
@@ -1006,21 +1163,46 @@ def window_replay_inputs() -> dict:
     }
 
 
+def repsurf_parity(batch: int = PATHS["repsurf"]["parity_batch"]) -> dict:
+    """``load_classifier("scanobjectnn_2x")`` on the card against the CPU
+    (plain ops) from the same weights on ``batch`` ``surface_clouds``:
+    ``segmentation_agreement`` of the log-probs (one row per cloud), and the
+    inputs of the request's ``ball_query_kernel`` launches."""
+    from mpa_tpu_torch import kernels
+    from mpa_tpu_torch.data import surface_clouds
+    from mpa_tpu_torch.serve import load_classifier
+
+    spec = PATHS["repsurf"]
+    x, _ = surface_clouds(batch, spec["points"], seed=SEED)
+    kernels.recorded = []
+    got = load_classifier(spec["preset"], seed=SEED)(x).cpu()
+    recorded, kernels.recorded = kernels.recorded, None
+    cpu = load_classifier(spec["preset"], seed=SEED, device="cpu")
+    t0 = time.perf_counter()
+    want = cpu(x)
+    return dict(segmentation_agreement(got[None], want[None]), cpu_s=time.perf_counter() - t0,
+                ball_query=[inp for name, inp in recorded if name == "ball_query_kernel"])
+
+
 def parity_readings(path: str) -> dict:
-    """``--parity PATH``: the path's card-against-CPU readings (``partseg`` or
-    ``semseg``) and replays of its newest kernels on synthetic inputs, each
+    """``--parity PATH``: the path's card-against-CPU readings (``partseg``,
+    ``semseg`` or ``repsurf``) and replays of its newest kernels, each
     check's failure caught and reported."""
     out = {}
-    seg, limits = ((segmenter_parity(), SEG_LIMITS) if path == "partseg"
-                   else (semseg_parity(), SEMSEG_LIMITS))
+    seg, limits = {"partseg": (segmenter_parity, SEG_LIMITS),
+                   "semseg": (semseg_parity, SEMSEG_LIMITS),
+                   "repsurf": (repsurf_parity, REPSURF_LIMITS)}[path]
+    seg = seg()
     out["served"] = {k: seg[k] for k in ("median_abs", "p99_abs", "max_abs", "argmax_agreement")}
-    out["served_within_limits"] = bool(
-        seg["median_abs"] <= limits["median_abs"]
-        and seg["argmax_agreement"] >= limits["argmax_agreement"])
+    out["served_within_limits"] = all(
+        seg[k] <= v if k.endswith("_abs") else seg[k] >= v for k, v in limits.items())
     parity = train_parity(path)
     out["train"] = {"loss_diff": parity["loss_diff"], "grad_units": parity["grad_units"][:3],
                     "stat": parity["stat"]}
-    if path == "partseg":
+    if path == "repsurf":
+        checks = [(f"ball query replay {i}", lambda inp=inp: check_call("ball_query_kernel", inp))
+                  for i, inp in enumerate(seg["ball_query"])]
+    elif path == "partseg":
         gen = torch.Generator().manual_seed(SEED)
         inp = {"features": torch.randn((4, 1024, 64), generator=gen).cuda(),
                "knn_idx": torch.randint(0, 2048, (4, 1024, 8), generator=gen,
@@ -1043,20 +1225,26 @@ def parity_readings(path: str) -> dict:
     return out
 
 
-def planted_faults() -> None:
-    """``--planted-faults``: for each entry of ``PLANTED_FAULTS``, a copy of
-    the port in a temporary directory with that one line changed runs
-    ``chip_smoke.py --parity`` for the fault's path (the copy without a
-    fault for every path); prints each copy's readings. The limits of
-    ``SEG_LIMITS``, ``SEMSEG_LIMITS`` and ``grad_limit`` lie between a
-    correct copy's readings and the faulty ones'."""
+def planted_faults(only: str = "all") -> None:
+    """``--planted-faults [PATH]``: for each entry of ``PLANTED_FAULTS`` (of
+    path ``only``, or all), a copy of the port in a temporary directory with
+    that one line changed runs ``chip_smoke.py --parity`` for the fault's
+    path (the copy without a fault for each such path); prints each copy's
+    readings. The limits of ``SEG_LIMITS``, ``SEMSEG_LIMITS``,
+    ``REPSURF_LIMITS`` and ``grad_limit`` lie between a correct copy's
+    readings and the faulty ones'."""
+    parity_paths = ["partseg", "semseg", "repsurf"]
+    if only != "all":
+        parity_paths = [only]
     with tempfile.TemporaryDirectory() as tmp:
         for name, fault in PLANTED_FAULTS.items():
+            if fault is not None and fault[0] not in parity_paths:
+                continue
             root = Path(tmp) / re.sub(r"\W+", "_", name)
             shutil.copytree(REPO / "mpa_tpu_torch", root / "mpa_tpu_torch",
                             ignore=shutil.ignore_patterns("_build", "__pycache__"))
             shutil.copy(REPO / "chip_smoke.py", root / "chip_smoke.py")
-            paths = ["partseg", "semseg"]
+            paths = parity_paths
             if fault is not None:
                 path, file, old, new = fault
                 paths = [path]
@@ -1074,10 +1262,13 @@ def planted_faults() -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parity", nargs="?", const="partseg", choices=["partseg", "semseg"],
+    ap.add_argument("--parity", nargs="?", const="partseg",
+                    choices=["partseg", "semseg", "repsurf"],
                     help="only that path's card-against-CPU readings, as JSON")
-    ap.add_argument("--planted-faults", action="store_true",
-                    help="the --parity readings of copies with one fault planted in each")
+    ap.add_argument("--planted-faults", nargs="?", const="all",
+                    choices=["all", "partseg", "semseg", "repsurf"],
+                    help="the --parity readings of copies with one fault planted in each "
+                         "(of that path's faults only, if given)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -1093,7 +1284,7 @@ def main() -> int:
 
     if args.planted_faults:
         log(f"[planted] {card_line()}")
-        planted_faults()
+        planted_faults(args.planted_faults)
         return 0
     if args.parity:
         print(json.dumps(parity_readings(args.parity)), flush=True)
@@ -1131,6 +1322,15 @@ def main() -> int:
     trained["semseg"] = train_phase("semseg", "2f semseg trained")
     rows += replay("semseg", served["semseg"], trained["semseg"])
     del served["semseg"]["recorded"], trained["semseg"]["recorded"]
+    torch.cuda.empty_cache()
+
+    # -- 2g, 2h, 3: repsurf_ssg_2x served and trained, replayed; FPS at 16384 ---
+    served["repsurf"] = serve_phase("repsurf", "2g repsurf served")
+    trained["repsurf"] = train_phase("repsurf", "2h repsurf trained")
+    rows += replay("repsurf", served["repsurf"], trained["repsurf"])
+    del served["repsurf"]["recorded"], trained["repsurf"]["recorded"]
+    torch.cuda.empty_cache()
+    rows += fps_16384_phase()
 
     counts = {f"{path}_serve": served[path]["launches"] for path in PATHS}
     counts.update({f"{path}_train": trained[path]["launches"] for path in PATHS})
@@ -1138,8 +1338,9 @@ def main() -> int:
     log("[4 kernels] times are per request for the forward kernels and per train step for "
         "the backward kernels: the sum over its launches of each; top level: the kernel's "
         "path, markov_semseg window_all at B=2 x 16384 points for the windowed kernels, "
-        "markov_partseg at B=32 x 2048 points for the others; by_path.cls: markov_cls at "
-        "B=64 x 1024 points")
+        "repsurf_ssg_2x at B=64 x 1024 points for the ball query, markov_partseg at "
+        "B=32 x 2048 points for the others; by_path.cls and by_path.repsurf: markov_cls and "
+        "repsurf_ssg_2x at B=64 x 1024 points")
     for path, spec in PATHS.items():
         lat, step = served[path]["latency_ms"], trained[path]["step_ms"]
         log(f"[4 {path}] request ms {lat}, median {statistics.median(lat):.3f} ms, "

@@ -66,6 +66,14 @@ PRESETS = {
         decay_step=20, decay_gamma=0.7,
         epochs=300, seed=2800,
     ),
+    # RepSurf-SSG-2x (the umbrella-surface baseline at doubled widths) on
+    # ScanObjectNN, 1024-point clouds, 15 classes: the cls recipe, 250 epochs.
+    "scanobjectnn_2x": TrainConfig(
+        model="repsurf_ssg_2x", num_classes=15, num_points=1024, batch_size=64,
+        optimizer="adam-l2", learning_rate=1e-3, weight_decay=1e-4,
+        decay_step=20, decay_gamma=0.7,
+        epochs=250, seed=2800,
+    ),
     # ShapeNetPart part segmentation (published 86.76% ins-mIoU), 2048-point
     # clouds, 16 categories / 50 parts: batch 32, SGD 0.1 / momentum 0.9 /
     # wd 1e-4, cosine to 1e-3 over 300 epochs, seed 2800. The preset's

@@ -9,7 +9,8 @@ The backward kernels (``scatter_add_rows_kernel``,
 launched from the ``backward`` of their ops' ``torch.autograd.Function`` and
 are counted and recorded there; the scatter-means' backward launches
 ``gather_rows_kernel``. The ``windowed_*`` kernels serve the Morton-window
-modes (``ops/window.py``).
+modes (``ops/window.py``); ``ball_query_kernel`` the set abstraction of
+``repsurf_ssg_2x`` (``ops/ball_query.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ KERNELS = (
     "windowed_attention_fwd_kernel",
     "windowed_attention_bwd_kernel",
     "windowed_scatter_mean_kernel",
+    "ball_query_kernel",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

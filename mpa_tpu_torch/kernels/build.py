@@ -125,6 +125,7 @@ _SIGNATURES = {
     "mpa_windowed_attention_fwd": [_VP, _VP, _VP, _VP] + [_I] * 9 + [_VP],
     "mpa_windowed_attention_bwd": [_VP] * 6 + [_I] * 9 + [_VP],
     "mpa_windowed_scatter_mean": [_VP, _VP, _VP, _VP] + [_I] * 8 + [_VP],
+    "mpa_ball_query": [_VP, _VP, _VP] + [_I] * 5 + [ctypes.c_float, _VP],
 }
 
 

@@ -28,8 +28,8 @@ __device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
 }
 
 template <int ITEMS>
-__global__ void fps_kernel(const float* __restrict__ points, int* __restrict__ out,
-                           int N, int C, int npoint, int start) {
+__device__ __forceinline__ void fps_body(const float* __restrict__ points, int* __restrict__ out,
+                                         int N, int C, int npoint, int start) {
   extern __shared__ float p_s[];  // [N][C]
   __shared__ float red_v[32];
   __shared__ int red_i[32];
@@ -100,21 +100,39 @@ __global__ void fps_kernel(const float* __restrict__ points, int* __restrict__ o
 }
 
 template <int ITEMS>
+__global__ void fps_kernel(const float* __restrict__ points, int* __restrict__ out, int N, int C,
+                           int npoint, int start) {
+  fps_body<ITEMS>(points, out, N, C, npoint, start);
+}
+
+// 16 points a thread asks for more than the 64 registers a thread that 1024
+// threads may have; the bound makes ptxas fit them. The narrower forms fit
+// without it and keep their own allocation.
+__global__ void __launch_bounds__(1024) fps_kernel_16(const float* __restrict__ points,
+                                                      int* __restrict__ out, int N, int C,
+                                                      int npoint, int start) {
+  fps_body<16>(points, out, N, C, npoint, start);
+}
+
+using FpsKernel = void (*)(const float*, int*, int, int, int, int);
+
+template <int ITEMS>
 cudaError_t launch(const float* points, int* out, int B, int N, int C, int npoint,
-                   int start, cudaStream_t stream) {
+                   int start, cudaStream_t stream, FpsKernel kernel = fps_kernel<ITEMS>) {
   int threads = mpa::ceil_div(N, ITEMS);
   threads = mpa::ceil_div(threads, 32) * 32;
   const size_t smem = sizeof(float) * static_cast<size_t>(N) * C;
-  cudaError_t err = mpa::allow_smem(fps_kernel<ITEMS>, smem);
+  cudaError_t err = mpa::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  fps_kernel<ITEMS><<<B, threads, smem, stream>>>(points, out, N, C, npoint, start);
+  kernel<<<B, threads, smem, stream>>>(points, out, N, C, npoint, start);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // points [B,N,C] f32 contiguous -> out [B,npoint] int32. Requires
-// N <= 8192, N*C*4 bytes within shared memory, 0 <= start < N and
+// N <= 16384 (1024 threads of 16 points), N*C*4 bytes within shared memory
+// (a 3-channel 16384-point cloud takes 192 KB), 0 <= start < N and
 // npoint <= N (checked by the Python wrapper).
 MPA_EXPORT int mpa_fps(const void* points, void* out, int B, int N, int C, int npoint,
                        int start, void* stream) {
@@ -124,5 +142,6 @@ MPA_EXPORT int mpa_fps(const void* points, void* out, int B, int N, int C, int n
   if (N <= 1024) return launch<1>(pp, op, B, N, C, npoint, start, st);
   if (N <= 2048) return launch<2>(pp, op, B, N, C, npoint, start, st);
   if (N <= 4096) return launch<4>(pp, op, B, N, C, npoint, start, st);
-  return launch<8>(pp, op, B, N, C, npoint, start, st);
+  if (N <= 8192) return launch<8>(pp, op, B, N, C, npoint, start, st);
+  return launch<16>(pp, op, B, N, C, npoint, start, st, fps_kernel_16);
 }

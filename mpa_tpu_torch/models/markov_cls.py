@@ -7,6 +7,13 @@ Dropout acts in train mode only and draws its masks from the
 ``torch.Generator`` the caller passes (flax's ``nn.Dropout``: keep with
 probability ``1 - dropout``, scale kept values by ``1 / (1 - dropout)``);
 torch cannot reproduce JAX's random bits, so parity runs use ``dropout=0``.
+
+``use_umbrella`` builds the umbrella surface constructor as
+``surface_constructor``, as ``mpa_tpu`` does for parity with the reference
+checkpoint: its output is unused, so it changes nothing but its BatchNorm
+statistics, and it runs only in train mode (in eval mode it has no effect;
+XLA drops it there too). Its normal flips come from ``flips`` or, before
+the dropout masks, from the generator.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from torch import nn
 from mpa_tpu_torch.models.registry import register_model
 from mpa_tpu_torch.nn.keephigh import KeepHighResolutionEncoder
 from mpa_tpu_torch.nn.linear import BatchNorm, seeded_dropout
+from mpa_tpu_torch.nn.umbrella_constructor import UmbrellaSurfaceConstructor
 
 
 class MarkovClassifier(nn.Module):
@@ -36,13 +44,12 @@ class MarkovClassifier(nn.Module):
         compute_dtype: Any = None,
     ):
         super().__init__()
-        if use_umbrella:
-            raise NotImplementedError("MarkovClassifier use_umbrella is not ported yet")
         if compute_dtype is not None:
             raise NotImplementedError("MarkovClassifier compute_dtype (mixed precision) is not ported yet")
         if not 0.0 <= dropout < 1.0:
             raise ValueError(f"dropout={dropout} must be in [0, 1)")
         self.dropout = dropout
+        self.surface_constructor = UmbrellaSurfaceConstructor() if use_umbrella else None
         self.keep_high = KeepHighResolutionEncoder(
             npoints=npoints, channels=channels, residuals=residuals,
             num_neighbors=num_neighbors, out_features=encoder_features,
@@ -54,14 +61,20 @@ class MarkovClassifier(nn.Module):
         self.fc3 = nn.Linear(256, num_classes)
 
     def forward(
-        self, points: torch.Tensor, *, generator: Optional[torch.Generator] = None
+        self, points: torch.Tensor, *, generator: Optional[torch.Generator] = None,
+        flips: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """points: ``[B, N, 3]`` xyz -> ``[B, num_classes]`` log-probs.
 
         ``generator`` (on the points' device) draws the dropout masks; train
-        mode with ``dropout > 0`` requires it.
+        mode with ``dropout > 0`` requires it. With ``use_umbrella`` in train
+        mode it draws the umbrella's normal flips first, unless ``flips``
+        (``[B]`` signs) gives them.
         """
-        x = self.keep_high(points[..., :3])
+        xyz = points[..., :3]
+        if self.surface_constructor is not None and self.training:
+            self.surface_constructor(xyz, generator=generator, flips=flips)
+        x = self.keep_high(xyz)
         for fc, bn in ((self.fc1, self.bn1), (self.fc2, self.bn2)):
             x = F.leaky_relu(bn(fc(x)), negative_slope=0.2)
             x = seeded_dropout(x, self.dropout, self.training, generator)

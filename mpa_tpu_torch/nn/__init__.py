@@ -1,5 +1,7 @@
-"""Markov transition blocks, channel-last; train mode follows the module's
-``training`` flag (``BatchNorm`` is the only part that reads it)."""
+"""Markov transition blocks and the RepSurf blocks (umbrella surface
+constructor, set abstraction), channel-last; train mode follows the module's
+``training`` flag (``BatchNorm`` reads it, and the umbrella constructor's
+random normal inversion)."""
 
 from mpa_tpu_torch.nn.linear import BatchNorm, LinearUnit
 from mpa_tpu_torch.nn.local_trans import LocalTrans
@@ -7,6 +9,8 @@ from mpa_tpu_torch.nn.local_merge import LocalMerge
 from mpa_tpu_torch.nn.keephigh import KeepHighResolutionEncoder
 from mpa_tpu_torch.nn.fuse import Fuse, compose_fps_chain
 from mpa_tpu_torch.nn.keephigh_partseg import KeepHighResolutionPartSeg
+from mpa_tpu_torch.nn.umbrella_constructor import UmbrellaSurfaceConstructor
+from mpa_tpu_torch.nn.surface_abstraction import SurfaceAbstractionCD
 
 __all__ = [
     "BatchNorm",
@@ -17,4 +21,6 @@ __all__ = [
     "Fuse",
     "compose_fps_chain",
     "KeepHighResolutionPartSeg",
+    "UmbrellaSurfaceConstructor",
+    "SurfaceAbstractionCD",
 ]

@@ -12,7 +12,8 @@ from mpa_tpu_torch.ops.fps import (
     farthest_point_sample,
     pick_fps_bands,
 )
-from mpa_tpu_torch.ops.gather import index_points
+from mpa_tpu_torch.ops.gather import index_points, resort_points
+from mpa_tpu_torch.ops.ball_query import ball_query
 from mpa_tpu_torch.ops.attention import transition_attention
 from mpa_tpu_torch.ops.scatter import scatter_mean_upsample
 from mpa_tpu_torch.ops.morton import morton_code, morton_order
@@ -29,6 +30,8 @@ __all__ = [
     "knn",
     "farthest_point_sample",
     "index_points",
+    "resort_points",
+    "ball_query",
     "transition_attention",
     "scatter_mean_upsample",
     "banded_farthest_point_sample",

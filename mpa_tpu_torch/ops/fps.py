@@ -22,7 +22,7 @@ from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
 from mpa_tpu_torch.utils.device import on_cuda
 
-MAX_N = 8192
+MAX_N = 16384  # 1024 threads of 16 points each
 SMEM_BYTES = 227 * 1024 - 512  # shared memory a Hopper block may use, less the kernel's own
 
 

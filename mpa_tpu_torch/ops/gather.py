@@ -1,6 +1,8 @@
 """Batched row gather and its gradient, the row scatter-add.
 
-Counterpart of ``mpa_tpu/ops/gather.py::index_points`` and of the custom VJP
+Counterpart of ``mpa_tpu/ops/gather.py::index_points`` (and of its
+``resort_points``, a plain ``torch.gather`` here, as ``take_along_axis``
+outside any Pallas kernel there) and of the custom VJP
 of ``mpa_tpu/ops/pallas/gather_pallas.py::gather_neighbors``. On a CUDA
 float32 tensor, :func:`index_points` is a ``torch.autograd.Function`` whose
 forward launches ``gather_rows_kernel`` (``kernels/csrc/gather.cu``) and whose
@@ -144,3 +146,10 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         out = _GatherRows.apply(points.float().contiguous(), flat)
         return out.reshape(tuple(idx.shape) + (C,)).to(points.dtype)
     return gather_plain(points, idx)
+
+
+def resort_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Reorder the group axis of ``[B, N, G, C]`` by a per-(B, N)
+    permutation ``idx`` ``[B, N, G]`` (the umbrella's azimuth sort)."""
+    index = idx.long()[..., None].expand(*idx.shape, points.shape[-1])
+    return torch.gather(points, 2, index)

@@ -5,7 +5,8 @@ mechanical. Flax path ``params/a/b/kernel`` (a Dense ``[in, out]``) becomes
 ``a.b.weight`` ``[out, in]``; ``params/a/bias`` becomes ``a.bias``; a norm's
 ``params/a/scale`` becomes ``a.weight``; ``batch_stats/a/mean`` and ``var``
 become ``a.running_mean`` and ``a.running_var`` (with ``a.num_batches_tracked``
-set to 0, a buffer flax has no counterpart for).
+set to 0, a buffer flax has no counterpart for). Values become float32, but
+float64 leaves (``mpa_tpu`` run with ``jax_enable_x64``) stay float64.
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ def _torch_entries(key: str, value: np.ndarray) -> Dict[str, torch.Tensor]:
     collection = parts[hits[0]]
     path, leaf = parts[hits[0] + 1 : -1], parts[-1]
     mod = ".".join(path)
-    t = torch.from_numpy(np.array(value, dtype=np.float32))
+    value = np.asarray(value)
+    t = torch.from_numpy(np.array(value, dtype=np.float64 if value.dtype == np.float64
+                                  else np.float32))
     if collection == "params":
         if leaf == "kernel":
             if t.dim() != 2:

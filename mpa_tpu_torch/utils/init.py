@@ -2,8 +2,8 @@
 
 ``mpa_tpu``'s Dense layers start from flax's ``lecun_normal`` (a normal of
 variance ``1/fan_in`` truncated at two standard deviations, rescaled to keep
-that variance) with zero bias; BatchNorm starts at scale 1, bias 0, mean 0,
-variance 1. Torch cannot reproduce JAX's random streams, so the same seed
+that variance) with zero bias, where they have one; BatchNorm starts at
+scale 1, bias 0, mean 0, variance 1. Torch cannot reproduce JAX's random streams, so the same seed
 gives other numbers than in ``mpa_tpu``; tests that compare the two carry
 the weights across instead.
 """
@@ -30,7 +30,8 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
             w = torch.empty(m.weight.shape, dtype=torch.float32)
             nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
             m.weight.copy_(w)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
     return module

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Where a serving request's or a train step's time goes, on the card.
 
-    python3 profile_port.py [--model cls|partseg|semseg] [--batch B] [--requests 5] [--trace t.json]
-    python3 profile_port.py [--model cls|partseg|semseg] --train [--batch B] [--requests 5]
+    python3 profile_port.py [--model cls|partseg|semseg|repsurf] [--batch B] [--requests 5] [--trace t.json]
+    python3 profile_port.py [--model cls|partseg|semseg|repsurf] --train [--batch B] [--requests 5]
 
 Loads the model's preset of the PyTorch port on ``cuda`` (``scanobjectnn_cls``
-at 1024 points, batch 64; ``shapenetpart`` at 2048 points, batch 32; or
-``s3dis_semseg`` in the ``window_all`` mode at 16384 points, batch 2; random
+at 1024 points, batch 64; ``shapenetpart`` at 2048 points, batch 32;
+``s3dis_semseg`` in the ``window_all`` mode at 16384 points, batch 2; or
+``scanobjectnn_2x``, ``repsurf_ssg_2x`` at 1024 points, batch 64; random
 weights, seed 0), answers two warm-up requests, then traces ``--requests``
 requests of ``--batch`` clouds with ``torch.profiler`` and prints: the host
 wall time per request, the device's busy share of that wall time (the union
 of kernel intervals), and device time per request grouped by kind (the port's
-kernels, matrix products, everything else) and by kernel name. With
+kernels, matrix products, everything else) and by kernel name, and the
+peak of allocated device memory. With
 ``--train`` the unit is the preset's train step (its optimizer, dropout 0.5,
 train-mode BatchNorm) on the training CLI's synthetic clouds instead of a
 request. Needs a CUDA card; exits non-zero without one.
@@ -37,8 +39,9 @@ PORT_KERNELS = ("windowed_knn_kernel", "windowed_attention_fwd_kernel",
                 "windowed_attention_bwd_kernel", "windowed_scatter_mean_kernel",
                 "knn_kernel", "fps_kernel", "gather_rows_kernel",
                 "transition_attention_fwd_kernel", "scatter_add_rows_kernel",
-                "transition_attention_bwd_kernel", "scatter_mean_kernel")
-PRESETS = {"cls": "scanobjectnn_cls", "partseg": "shapenetpart", "semseg": "s3dis_semseg"}
+                "transition_attention_bwd_kernel", "scatter_mean_kernel", "ball_query_kernel")
+PRESETS = {"cls": "scanobjectnn_cls", "partseg": "shapenetpart", "semseg": "s3dis_semseg",
+           "repsurf": "scanobjectnn_2x"}
 # Preset fields each model is profiled with, beyond the preset's own.
 OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="window_all")}
 
@@ -55,9 +58,10 @@ def kind(name: str) -> str:
 
 def make_requests(model: str, batch: int, points: int):
     """``run(i)`` answers the i-th request of ``batch`` clouds: random ones
-    for the classifier, ``realistic_partseg`` ones with their categories for
-    the segmenter."""
-    from mpa_tpu_torch.data import realistic_partseg, synthetic_semseg
+    for the classifier, ``surface_clouds`` for repsurf (its balls hold
+    neighbours on the surface), ``realistic_partseg`` ones with their categories for the
+    segmenter, ``synthetic_semseg`` blocks for semseg."""
+    from mpa_tpu_torch.data import realistic_partseg, surface_clouds, synthetic_semseg
     from mpa_tpu_torch.serve import load_classifier, load_segmenter, load_semantic_segmenter
 
     rng = np.random.default_rng(0)
@@ -69,6 +73,11 @@ def make_requests(model: str, batch: int, points: int):
         def make(i):
             lo = (i * batch) % (len(blocks) - batch + 1)
             return (torch.from_numpy(blocks[lo:lo + batch]).cuda(),)
+    elif model == "repsurf":
+        serve = load_classifier(PRESETS[model], seed=0)
+
+        def make(i):
+            return (torch.from_numpy(surface_clouds(batch, points, seed=i)[0]).cuda(),)
     elif model == "partseg":
         serve = load_segmenter(PRESETS[model], seed=0)
 
@@ -92,15 +101,20 @@ def make_requests(model: str, batch: int, points: int):
 
 def make_train_steps(model: str, batch: int):
     """``run(i)`` takes the preset's train step on the i-th batch of the
-    training CLI's synthetic clouds."""
+    training CLI's synthetic clouds (for repsurf, ``surface_clouds`` as its
+    requests)."""
     from mpa_tpu_torch.cli import train as cli_train
     from mpa_tpu_torch.configs import PRESETS as CONFIGS, model_kwargs
+    from mpa_tpu_torch.data import surface_clouds
     from mpa_tpu_torch.models import get_model
     from mpa_tpu_torch.train import TRAIN_STEPS, create_train_state
     from mpa_tpu_torch.utils.init import init_like_flax
 
     cfg = CONFIGS[PRESETS[model]].with_overrides(seed=0, **OVERRIDES.get(model, {}))
-    arrays, _ = cli_train.load_dataset(cfg, n_eval=1)
+    if model == "repsurf":
+        arrays = surface_clouds(cli_train.DATASET_SIZES["cls"][0], cfg.num_points, cfg.num_classes)
+    else:
+        arrays, _ = cli_train.load_dataset(cfg, n_eval=1)
     net = init_like_flax(get_model(cfg.model, **model_kwargs(cfg)),
                          torch.Generator().manual_seed(0))
     cuda = torch.device("cuda")
@@ -137,6 +151,7 @@ def main() -> int:
         run(i)
     torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -176,7 +191,8 @@ def main() -> int:
     print(f"card: {card}")
     unit = "train step" if args.train else "request"
     print(f"{cfg.model}: batch {batch} x {points} points, {n} traced {unit}s")
-    print(f"wall per {unit} (profiler on): {wall_ms:.3f} ms")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"wall per {unit} (profiler on): {wall_ms:.3f} ms; peak allocated {peak_gb:.2f} GB")
     print(f"device busy per {unit}: {busy / 1e3 / n:.3f} ms "
           f"({100 * busy / 1e3 / n / wall_ms:.1f}% of wall); "
           f"kernels per {unit}: {len(kernels) / n:.1f}")
@@ -186,7 +202,8 @@ def main() -> int:
     for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {v:8.3f} ms  x{count[name] / n:5.1f}  {name[:110]}")
     print(json.dumps({"model": cfg.model, "unit": unit, "wall_ms": wall_ms, "busy_ms": busy / 1e3 / n,
-                      "by_kind_ms": dict(by_kind), "kernels_per_unit": len(kernels) / n}))
+                      "by_kind_ms": dict(by_kind), "kernels_per_unit": len(kernels) / n,
+                      "peak_allocated_gb": peak_gb}))
     return 0
 
 

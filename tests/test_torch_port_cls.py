@@ -270,7 +270,9 @@ def test_port_imports_no_jax():
                    "ops/scatter.py", "nn/fuse.py", "nn/keephigh_partseg.py",
                    "models/markov_partseg.py", "serve/__init__.py", "kernels/build.py",
                    "ops/morton.py", "ops/window.py", "nn/window_mode.py",
-                   "models/markov_semseg.py", "data/s3dis.py"):
+                   "models/markov_semseg.py", "data/s3dis.py", "geometry/umbrella.py",
+                   "ops/ball_query.py", "nn/surface_abstraction.py",
+                   "nn/umbrella_constructor.py", "models/repsurf_ssg_2x.py"):
         assert f"mpa_tpu_torch/{module}" in walked
     bad = {
         str(p.relative_to(REPO)): root

@@ -5,7 +5,10 @@ the plain versions and torch autograd; one train step on the card against
 the CPU; the scatter-mean kernel and its backward; the part segmenter and its
 train step against the CPU; the four Morton-window kernels at the
 ``markov_semseg`` window shapes and at ragged ones, and the semantic
-segmenter and its train step against the CPU. Every test here needs a CUDA
+segmenter and its train step against the CPU; the ball query kernel at the
+``repsurf_ssg_2x`` shapes and at ragged ones, the RepSurf classifier and its
+train step against the CPU, and ``fps_kernel`` over 16384 points, through the
+semantic segmenter's ``window`` mode too. Every test here needs a CUDA
 card (the kernels have no CPU mode) and skips, through the ``dev`` fixture,
 without one.
 
@@ -23,7 +26,9 @@ it is held bit for bit against the plain version run on the CPU, and within
 atomic. The windowed kNN and the windowed attention forward do the plain
 versions' arithmetic in the same order and are held bit for bit; the
 windowed attention backward adds with atomics (shared, then global) and is
-held as the exact one; the windowed scatter-mean as the exact one.
+held as the exact one; the windowed scatter-mean as the exact one. The ball
+query's sentinel stage does the plain version's distance arithmetic and is
+held bit for bit.
 
 Run on a machine with an H100:
     python -m pytest tests/test_torch_port_cuda.py -q
@@ -42,11 +47,18 @@ from mpa_tpu_torch.ops.attention import (
     attention_cuda,
     attention_plain,
 )
+from mpa_tpu_torch.ops.ball_query import (
+    ball_query,
+    ball_query_cuda,
+    ball_query_plain,
+    radius_squared,
+)
 from mpa_tpu_torch.ops.fps import fps_cuda, fps_plain
 from mpa_tpu_torch.ops.gather import gather_cuda, gather_plain, scatter_add_cuda, scatter_add_plain
 from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
 from mpa_tpu_torch.ops.scatter import scatter_mean_cuda, scatter_mean_plain, scatter_mean_upsample
 from mpa_tpu_torch.ops.morton import morton_sort
+from mpa_tpu_torch.ops.pairwise import square_distance
 from mpa_tpu_torch.ops.window import (
     make_window_spec,
     windowed_attention_bwd_cuda,
@@ -96,7 +108,8 @@ def test_knn_kernel_matches_plain(dev, k, N, S, C, dup, self_query):
 
 
 @pytest.mark.parametrize("N,npoint,C,dup", [(1024, 512, 3, False), (2048, 1024, 3, True),
-                                              (100, 37, 3, False), (512, 64, 6, True)])
+                                              (100, 37, 3, False), (512, 64, 6, True),
+                                              (4096, 2048, 3, False)])  # 48 KB of cloud
 def test_fps_kernel_matches_plain(dev, N, npoint, C, dup):
     pts = _cloud(2, (3, N, C), dev, dup)
     got = fps_cuda(pts, npoint)
@@ -274,7 +287,7 @@ def test_classifier_on_cuda_matches_cpu_and_counts_launches(dev):
                                 "scatter_mean_kernel": 0, "windowed_knn_kernel": 0,
                                 "windowed_attention_fwd_kernel": 0,
                                 "windowed_attention_bwd_kernel": 0,
-                                "windowed_scatter_mean_kernel": 0}
+                                "windowed_scatter_mean_kernel": 0, "ball_query_kernel": 0}
     torch.testing.assert_close(got.cpu(), cpu(x), rtol=0, atol=1e-3)
 
 
@@ -548,5 +561,129 @@ def test_semseg_train_step_on_cuda_matches_cpu_and_counts_launches(dev):
     assert parity["loss_diff"] <= 1e-4, parity["loss_diff"]
     name, units = parity["grad_units"][0]
     assert units <= chip_smoke.PATHS["semseg"]["grad_limit"], f"grad {name}: {units:.3f} units"
+    name, err = parity["stat"]
+    assert err < 1e-4, f"{name}: relative error {err:.3e}"
+
+
+# -- FPS over 16384 points --------------------------------------------------------
+
+
+def test_fps_kernel_at_16384_points(dev):
+    """The 16-points-a-thread instantiation: a 3-channel 16384-point cloud
+    (192 KB of shared memory), with repeated points."""
+    pts = _cloud(6, (2, 16384, 3), dev, dup=True)
+    got = fps_cuda(pts, 8192)
+    want = fps_plain(pts, 8192)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_window_mode_segmenter_at_16384_points(dev):
+    """``markov_semseg`` in the ``window`` mode at 16384 points runs exact FPS
+    over all of them on the card, once per request."""
+    from mpa_tpu_torch.data import synthetic_semseg
+    from mpa_tpu_torch.serve import load_semantic_segmenter
+
+    blocks, _ = synthetic_semseg(1, 16384, seed=0)
+    kernels.reset_launch_counts()
+    kernels.recorded = []
+    try:
+        got = load_semantic_segmenter(num_points=16384, neighbor_mode="window")(blocks[:1])
+        torch.cuda.synchronize()
+        big = [inp for name, inp in kernels.recorded
+               if name == "fps_kernel" and inp["points"].shape[1] == 16384]
+    finally:
+        kernels.recorded = None
+    assert tuple(got.shape) == (1, 16384, 13) and torch.isfinite(got).all()
+    assert len(big) == 1
+
+
+# -- the ball query kernel ----------------------------------------------------------
+
+
+def _ball_case(name, dev):
+    """``(radius, nsample, xyz [B,N,C], new_xyz [B,S,C])`` on ``dev``."""
+    B, N, S, C, ns, radius, scale = {
+        "sa1": (4, 1024, 512, 3, 24, 0.1, 0.3),  # the three repsurf stages, B cut
+        "sa2": (4, 512, 128, 3, 24, 0.2, 0.3),
+        "sa3": (4, 128, 32, 3, 24, 0.4, 0.3),
+        "ragged": (3, 1000, 77, 3, 24, 0.5, 1.0),  # N not a multiple of 32
+        "sparse": (2, 257, 40, 3, 4, 0.2, 1.0),  # fewer hits than nsample
+        "all_in": (2, 64, 16, 3, 64, 30.0, 1.0),  # everything in radius, nsample = N
+        "tiles": (2, 5000, 100, 3, 24, 0.3, 1.0),  # three staged tiles of base rows
+        "c6": (2, 300, 50, 6, 16, 0.8, 1.0),  # even C: padded shared-memory rows
+        "c40": (1, 200, 33, 40, 8, 6.0, 1.0),  # wide C: one 32-row tile at a time
+    }[name]
+    r = np.random.default_rng(len(name) + N)
+    xyz = (scale * r.standard_normal((B, N, C))).astype(np.float32)
+    if name == "ragged":
+        xyz[:, 1::3] = xyz[:, 0::3][:, : xyz[:, 1::3].shape[1]]  # repeated points
+    new_xyz = xyz[:, r.permutation(N)[:S]] if name.startswith("sa") else xyz[:, :S]
+    return radius, ns, torch.from_numpy(xyz).to(dev), torch.from_numpy(new_xyz).contiguous().to(dev)
+
+
+BALL_CASES = ["sa1", "sa2", "sa3", "ragged", "sparse", "all_in", "tiles", "c6", "c40"]
+
+
+@pytest.mark.parametrize("case", BALL_CASES)
+def test_ball_query_kernel_matches_plain(dev, case):
+    radius, ns, xyz, new_xyz = _ball_case(case, dev)
+    kernels.reset_launch_counts()
+    got = ball_query_cuda(radius, ns, xyz, new_xyz)
+    want = ball_query_plain(radius, ns, xyz, new_xyz)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ball_query_kernel"] == 1
+    assert torch.equal(got, want)
+    hits = (want < xyz.shape[1]).sum(-1)
+    if case == "sparse":
+        assert (hits < ns).any()
+    if case == "all_in":
+        assert (hits == ns).all()
+    # The backfilled groups on the card equal the CPU's.
+    cpu = ball_query(radius, ns, xyz.cpu(), new_xyz.cpu())
+    assert torch.equal(ball_query(radius, ns, xyz, new_xyz).cpu(), cpu)
+
+
+def test_ball_query_kernel_identical_points_and_the_boundary(dev):
+    """All points equal (every one in radius, distance 0), and a radius
+    whose square in float32 equals one point's distance exactly."""
+    xyz = torch.ones((2, 256, 3), device=dev)
+    assert torch.equal(ball_query_cuda(0.5, 16, xyz, xyz[:, :64].contiguous()),
+                       ball_query_plain(0.5, 16, xyz, xyz[:, :64].contiguous()))
+    _, ns, xyz, new_xyz = _ball_case("sa2", dev)
+    d = square_distance(new_xyz, xyz)
+    radius = float(np.sqrt(np.float64(d[0, 0, 7].item())))
+    assert radius_squared(radius) == d[0, 0, 7].item()
+    got = ball_query_cuda(radius, ns, xyz, new_xyz)
+    assert torch.equal(got, ball_query_plain(radius, ns, xyz, new_xyz))
+    assert (got[0, 0] == 7).any()  # on the boundary: in the ball
+
+
+def test_repsurf_classifier_on_cuda_matches_cpu_and_counts_launches(dev):
+    """One request of ``scanobjectnn_2x`` at full width (B = 4 x 1024
+    ``surface_clouds``): launch counts, and the card against the CPU plain
+    ops from the same weights within 1e-3."""
+    from mpa_tpu_torch.data import surface_clouds
+
+    x, _ = surface_clouds(4, 1024, seed=5)
+    gpu = load_classifier("scanobjectnn_2x", seed=0)
+    cpu = load_classifier("scanobjectnn_2x", device="cpu", seed=0)
+    kernels.reset_launch_counts()
+    got = gpu(x)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == chip_smoke.REPSURF_FORWARD
+    torch.testing.assert_close(got.cpu(), cpu(x), rtol=0, atol=1e-3)
+
+
+def test_repsurf_train_step_on_cuda_matches_cpu_and_counts_launches(dev):
+    """One adam-l2 step of ``scanobjectnn_2x`` (B = 16 x 1024, dropout 0,
+    the same umbrella flips) on the card and on the CPU from the same
+    weights, through ``chip_smoke.train_parity``, held to ``chip_smoke.py``'s
+    limits."""
+    parity = chip_smoke.train_parity("repsurf")
+    assert parity["launches"] == chip_smoke.PATHS["repsurf"]["per_train_step"]
+    assert parity["loss_diff"] <= 1e-4, parity["loss_diff"]
+    name, units = parity["grad_units"][0]
+    assert units <= chip_smoke.PATHS["repsurf"]["grad_limit"], f"grad {name}: {units:.3f} units"
     name, err = parity["stat"]
     assert err < 1e-4, f"{name}: relative error {err:.3e}"
