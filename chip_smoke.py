@@ -65,11 +65,12 @@ backward):
    (the parity step at B = 16 with the same flips on both sides) and a
    three-step ``cli.train --preset scanobjectnn_2x``; then one request of
    ``markov_semseg`` in the ``window`` mode at 16384 points (B = 2), whose
-   exact FPS over 16384 points is replayed in phase 3;
+   exact FPS over 16384 points and exact feature kNNs are replayed in
+   phase 3;
 3. every kernel launch of one more request of each model, and every
    backward launch of one more train step of each, is replayed on its own
-   inputs, kernel against its plain PyTorch version (FPS, gather and kNN
-   indices exactly equal; attention and kNN distances within 1e-5 relative;
+   inputs, kernel against its plain PyTorch version (FPS, gather, and kNN
+   indices and distances exactly equal; attention within 1e-5 relative;
    the scatter-add within 1e-5 and the attention backward within 1e-4
    relative, with an absolute floor at 1e-5 of the largest entry, for their
    atomic adds; the scatter-mean's count exactly equal, its mean bit-equal
@@ -489,8 +490,10 @@ def check_call(name: str, inp: dict) -> dict:
         if not torch.equal(gi, wi):
             raise AssertionError(f"knn_kernel indices differ from the plain version "
                                  f"at {int((gi != wi).sum())} places")
-        torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-6)
-        err = (gd - wd).abs().max().item()
+        if not torch.equal(gd, wd):
+            raise AssertionError(f"knn_kernel distances differ from the plain version at "
+                                 f"{int((gd != wd).sum())} places")
+        err = 0.0
         shape = f"base {tuple(base.shape)} query {tuple(query.shape)} k={k}"
     elif name == "windowed_knn_kernel":
         k, base, query = inp["k"], inp["base"], inp["query"]
@@ -980,8 +983,10 @@ def replay_call(path: str, name: str, inp: dict) -> dict:
 def fps_16384_phase() -> list:
     """One request of ``markov_semseg`` in the ``window`` mode at 16384
     points, B = 2 ``synthetic_semseg`` blocks, on the card: its exact FPS
-    runs ``fps_kernel`` over 16384 points. The log-probs must be finite and
-    every such launch is replayed against ``fps_plain``."""
+    runs ``fps_kernel`` over 16384 points, and its feature searches stay
+    exact (``knn_kernel``). The log-probs must be finite, and every such FPS
+    launch and every ``knn_kernel`` launch is replayed against its plain
+    version."""
     from mpa_tpu_torch import kernels
     from mpa_tpu_torch.data import synthetic_semseg
     from mpa_tpu_torch.serve import load_semantic_segmenter
@@ -999,7 +1004,11 @@ def fps_16384_phase() -> list:
             if name == "fps_kernel" and inp["points"].shape[1] == 16384]
     if not rows:
         raise AssertionError("no fps_kernel launch over 16384 points in the window mode")
-    return rows
+    knn_rows = [replay_call("semseg_window_16384", name, inp) for name, inp in recorded
+                if name == "knn_kernel"]
+    if not knn_rows:
+        raise AssertionError("no knn_kernel launch in the window mode's request")
+    return rows + knn_rows
 
 
 def replay(path: str, served: dict, trained: dict) -> list:
@@ -1032,9 +1041,10 @@ def summarise(name: str, rows: list, counts: dict) -> dict:
     path (markov_semseg window_all for the windowed kernels, repsurf_ssg_2x
     for the ball query, markov_partseg for the others), and ``by_path`` has
     each model's; ``other_replays`` the replays of launches outside the
-    timed paths (FPS over 16384 points). ``launches`` is the count in the
-    timed run of that path the times are per (3 requests or 5 steps);
-    ``launches_by_path`` has all eight timed runs."""
+    timed paths (FPS and the exact kNNs of the 16384-point window request).
+    ``launches`` is the count in the timed run of that path the times are
+    per (3 requests or 5 steps); ``launches_by_path`` has all eight timed
+    runs."""
     backward = name in BACKWARD
     main = ("semseg" if name.startswith("windowed_")
             else "repsurf" if name == "ball_query_kernel" else "partseg")

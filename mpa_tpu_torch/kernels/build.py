@@ -114,7 +114,7 @@ def build(force: bool = False) -> Path:
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "mpa_knn": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    "mpa_knn": [_VP] * 5 + [_I] * 5 + [_VP],
     "mpa_fps": [_VP, _VP, _I, _I, _I, _I, _I, _VP],
     "mpa_gather_rows": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "mpa_transition_attention_fwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],

@@ -23,21 +23,26 @@
 //
 // What bounds it on the H100: bytes, by count. Each (query, neighbour) reads
 // one packed row and adds one row of gradients; the arithmetic is a few
-// operations per gathered float. Measured on an H100 it runs at several
-// times that bound and about three times the forward kernel on the same
-// shapes, its time scaling with B*S*K*C; whether its one atomic add per
-// (query, neighbour, channel), made even where dE is only -corr, or its
-// repeated row reads set that is not yet measured apart.
-// Design: as the forward kernel, one block per (batch, tile
-// of queries), the queries' K indices staged in shared memory, threads
-// across the output channels so every row read and every atomic add of a
-// warp touches neighbouring addresses. A thread recomputes denom, attn, the
-// maximum and its tie set (a 64-bit mask, K <= 64) in registers, re-reading
-// the K packed rows (L1/L2 hold them) instead of keeping a [B,S,K,W] edge
-// tensor, writes dshift directly and adds the dE/dV rows into the zeroed
-// f32 dpacked with atomicAdd. Adds from different queries land in no fixed
-// order, so dpacked can differ from a sequential sum in the last bits. The
-// TPU's one-hot matmul scatter and its bf16 gradient rounding
+// operations per gathered float.
+//
+// Design: one pass over the gathered rows. One thread per (query, channel),
+// templated on K (8, 16, 32, 64): it loads its K (E, V) pairs once into
+// registers and computes attn, the maximum and its tie set (a K-bit mask)
+// once, in the forward kernel's operations and order, then t, corr and the
+// tie terms, and adds each neighbour's dE (and a tie's dV) into the zeroed
+// f32 dpacked with atomicAdd. Several queries share a block (at most 128
+// threads across the channels). Adds from different queries land in no
+// fixed order, so dpacked can differ from a sequential sum in the last bits.
+// The design before this one read the rows three times (the denominator,
+// the maximum, the outputs). Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (profile_port.py --kernels against copies with one part cut, the sum
+// over a train step's launches; PERF.md has the readings): that design's
+// atomics cost 2-3% of its time and its re-reads about a third; a reverse
+// index of idx that replaced the node atomics by a gather per node was
+// slower than both. This one takes about three quarters of that design's
+// time on markov_partseg and markov_cls; of it the atomics are a sixth and
+// the zeroing a sixteenth, the one pass over the gathered rows the rest.
+// The TPU's one-hot matmul scatter and its bf16 gradient rounding
 // (GRAD_SCATTER_PRECISION) are not carried over: every add is f32.
 #include "common.cuh"
 
@@ -45,6 +50,7 @@ namespace {
 
 constexpr float kEps = 1e-20f;  // attention_pallas.py _EPS: the denominator floor
 
+template <int KMAX>
 __global__ void transition_attention_bwd_kernel(
     const float* __restrict__ packed, const int* __restrict__ idx,
     const float* __restrict__ shifts, const float* __restrict__ gctx,
@@ -71,27 +77,34 @@ __global__ void transition_attention_bwd_kernel(
     const int r = oc / C;
     const int e_off = 2 * r * C + (oc - r * C);
     const int v_off = e_off + C;
-    // The forward's denominator, summed in the same order.
-    float denom = pb[static_cast<size_t>(my_idx[0]) * W + e_off];
-    for (int k = 1; k < K; ++k)
-      denom = __fadd_rn(denom, pb[static_cast<size_t>(my_idx[k]) * W + e_off]);
-    const float den = fmaxf(denom, kEps);
     const float shift = shifts != nullptr ? shifts[orow + oc] : 0.f;
+    float e[KMAX], v[KMAX];
+    float denom = 0.f;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < K) {
+        const float* row = pb + static_cast<size_t>(my_idx[k]) * W;
+        e[k] = row[e_off];
+        v[k] = row[v_off];
+        if (shifts != nullptr) v[k] = __fadd_rn(v[k], shift);
+        denom = k == 0 ? e[k] : __fadd_rn(denom, e[k]);  // the forward's order
+      }
+    }
+    const float den = fmaxf(denom, kEps);
 
     // The maximum of w over K and the set of neighbours that reach it.
     float m = -INFINITY;
     unsigned long long ties = 0ull;
-    for (int k = 0; k < K; ++k) {
-      const float* row = pb + static_cast<size_t>(my_idx[k]) * W;
-      float v = row[v_off];
-      if (shifts != nullptr) v = __fadd_rn(v, shift);
-      const float attn = __fsub_rn(__fdiv_rn(row[e_off], den), 1.f);
-      const float w = __fmul_rn(attn, v);
-      if (w > m) {
-        m = w;
-        ties = 1ull << k;
-      } else if (w == m) {
-        ties |= 1ull << k;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < K) {
+        const float w = __fmul_rn(__fsub_rn(__fdiv_rn(e[k], den), 1.f), v[k]);
+        if (w > m) {
+          m = w;
+          ties = 1ull << k;
+        } else if (w == m) {
+          ties |= 1ull << k;
+        }
       }
     }
     const float cnt = static_cast<float>(__popcll(ties));
@@ -99,33 +112,46 @@ __global__ void transition_attention_bwd_kernel(
 
     // t = sum_k dattn_k * E_k and dshift = sum_k dV_k; both vanish off the ties.
     float t = 0.f, ds = 0.f;
-    for (int k = 0; k < K; ++k) {
-      if (!((ties >> k) & 1ull)) continue;
-      const float* row = pb + static_cast<size_t>(my_idx[k]) * W;
-      float v = row[v_off];
-      if (shifts != nullptr) v = __fadd_rn(v, shift);
-      const float e = row[e_off];
-      const float attn = __fsub_rn(__fdiv_rn(e, den), 1.f);
-      t = __fadd_rn(t, __fmul_rn(__fmul_rn(dw, v), e));
-      ds = __fadd_rn(ds, __fmul_rn(dw, attn));
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < K && ((ties >> k) & 1ull)) {
+        const float attn = __fsub_rn(__fdiv_rn(e[k], den), 1.f);
+        t = __fadd_rn(t, __fmul_rn(__fmul_rn(dw, v[k]), e[k]));
+        ds = __fadd_rn(ds, __fmul_rn(dw, attn));
+      }
     }
     const float corr = denom >= kEps ? __fdiv_rn(t, __fmul_rn(den, den)) : 0.f;
 
-    for (int k = 0; k < K; ++k) {
-      const size_t n = static_cast<size_t>(my_idx[k]) * W;
-      if ((ties >> k) & 1ull) {
-        const float* row = pb + n;
-        float v = row[v_off];
-        if (shifts != nullptr) v = __fadd_rn(v, shift);
-        const float attn = __fsub_rn(__fdiv_rn(row[e_off], den), 1.f);
-        atomicAdd(db + n + e_off, __fsub_rn(__fdiv_rn(__fmul_rn(dw, v), den), corr));
-        atomicAdd(db + n + v_off, __fmul_rn(dw, attn));
-      } else {
-        atomicAdd(db + n + e_off, -corr);  // dattn_k = 0: dE_k = 0 / den - corr
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < K) {
+        const size_t n = static_cast<size_t>(my_idx[k]) * W;
+        if ((ties >> k) & 1ull) {
+          const float attn = __fsub_rn(__fdiv_rn(e[k], den), 1.f);
+          atomicAdd(db + n + e_off, __fsub_rn(__fdiv_rn(__fmul_rn(dw, v[k]), den), corr));
+          atomicAdd(db + n + v_off, __fmul_rn(dw, attn));
+        } else {
+          atomicAdd(db + n + e_off, -corr);  // dattn_k = 0: dE_k = 0 / den - corr
+        }
       }
     }
     if (dshift != nullptr) dshift[orow + oc] = ds;
   }
+}
+
+template <int KMAX>
+cudaError_t launch(const float* packed, const int* idx, const float* shifts, const float* gctx,
+                   float* dpacked, float* dshift, int B, int N, int S, int K, int nB, int C,
+                   cudaStream_t st) {
+  // Threads across the output channels, at most 128, so that a block holds
+  // two or more queries; the rest of 256 across queries.
+  int tx = mpa::ceil_div(nB * C, 32) * 32;
+  if (tx > 128) tx = 128;
+  const dim3 block(tx, 256 / tx);
+  const size_t smem = sizeof(int) * static_cast<size_t>(block.y) * K;
+  transition_attention_bwd_kernel<KMAX><<<dim3(mpa::ceil_div(S, block.y), B), block, smem, st>>>(
+      packed, idx, shifts, gctx, dpacked, dshift, N, S, K, nB, C);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -145,15 +171,14 @@ MPA_EXPORT int mpa_transition_attention_bwd(const void* packed, const void* idx,
       dpacked, 0, sizeof(float) * static_cast<size_t>(B) * N * 2 * Wo, st);
   if (err != cudaSuccess) return err;
   if (B == 0 || S == 0 || Wo == 0) return cudaGetLastError();
-  int tx = mpa::ceil_div(Wo, 32) * 32;
-  if (tx > 256) tx = 256;
-  const int ty = 256 / tx;
-  dim3 block(tx, ty);
-  dim3 grid(mpa::ceil_div(S, ty), B);
-  const size_t smem = sizeof(int) * static_cast<size_t>(ty) * K;
-  transition_attention_bwd_kernel<<<grid, block, smem, st>>>(
-      static_cast<const float*>(packed), static_cast<const int*>(idx),
-      static_cast<const float*>(shifts), static_cast<const float*>(gctx),
-      static_cast<float*>(dpacked), static_cast<float*>(dshift), N, S, K, n_branches, C);
-  return cudaGetLastError();
+  auto pk = static_cast<const float*>(packed);
+  auto ip = static_cast<const int*>(idx);
+  auto sh = static_cast<const float*>(shifts);
+  auto g = static_cast<const float*>(gctx);
+  auto dp = static_cast<float*>(dpacked);
+  auto ds = static_cast<float*>(dshift);
+  if (K <= 8) return launch<8>(pk, ip, sh, g, dp, ds, B, N, S, K, n_branches, C, st);
+  if (K <= 16) return launch<16>(pk, ip, sh, g, dp, ds, B, N, S, K, n_branches, C, st);
+  if (K <= 32) return launch<32>(pk, ip, sh, g, dp, ds, B, N, S, K, n_branches, C, st);
+  return launch<64>(pk, ip, sh, g, dp, ds, B, N, S, K, n_branches, C, st);
 }

@@ -1,5 +1,6 @@
-// Register-resident k-smallest selection shared by knn_kernel (knn.cu) and
-// windowed_knn_kernel (window_knn.cu).
+// Register-resident k-smallest selection of windowed_knn_kernel
+// (window_knn.cu): per-lane sorted lists, merged by the warp at the end.
+// knn_kernel (knn.cu) selects with knn_topk.cuh instead.
 #pragma once
 
 #include "common.cuh"

@@ -62,16 +62,19 @@ def knn_cuda(
     for name, t in (("base", base), ("query", query)):
         if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"knn_kernel: {name} must be a contiguous float32 CUDA tensor")
+        if t.data_ptr() % 16:  # the kernel reads rows as float4s
+            raise ValueError(f"knn_kernel: {name} must start on a 16-byte boundary")
     if base.device != query.device:
         raise ValueError("knn_kernel: base and query on different devices")
     dist = torch.empty((B, S, k), dtype=torch.float32, device=base.device)
     idx = torch.empty((B, S, k), dtype=torch.int32, device=base.device)
+    norms = torch.empty((B, N), dtype=torch.float32, device=base.device)  # scratch: |b|^2
     lib = build.load()
     with torch.cuda.device(base.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(
-            lib.mpa_knn(base.data_ptr(), query.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-                        B, N, S, C, k, stream),
+            lib.mpa_knn(base.data_ptr(), query.data_ptr(), norms.data_ptr(), dist.data_ptr(),
+                        idx.data_ptr(), B, N, S, C, k, stream),
             "knn_kernel",
         )
     kernels.launched("knn_kernel", {"k": k, "base": base, "query": query})
@@ -95,6 +98,13 @@ def knn_distance_grads(base, query, idx, g_dist, need_base: bool, need_query: bo
     if need_query:
         d_query = d_query_rows.sum(dim=2)
     return d_base, d_query
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous float32 tensor starting on a 16-byte boundary,
+    copied only where it is not one already."""
+    t = t.float().contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 class _KnnCuda(torch.autograd.Function):
@@ -131,6 +141,6 @@ def knn(
       ``(sqr_dists [B, S, k] float32, idx [B, S, k] int32)``, ascending.
     """
     if on_cuda(base, "base"):
-        return _KnnCuda.apply(k, base.float().contiguous(), query.float().contiguous())
+        return _KnnCuda.apply(k, _aligned(base), _aligned(query))
     _check(k, base, query)
     return knn_plain(k, base, query)

@@ -17,6 +17,21 @@ peak of allocated device memory. With
 ``--train`` the unit is the preset's train step (its optimizer, dropout 0.5,
 train-mode BatchNorm) on the training CLI's synthetic clouds instead of a
 request. Needs a CUDA card; exits non-zero without one.
+
+    python3 profile_port.py --kernels [--against DIR]
+
+Times ``knn_kernel``, ``windowed_knn_kernel`` and
+``transition_attention_bwd_kernel`` launch by launch on the inputs the main
+paths give them: one served request of cls, part-seg, repsurf and semseg
+``window_all`` and one train step of cls and part-seg are recorded, saved,
+and every recorded launch is timed (``chip_smoke.time_graph``) in a
+subprocess that imports ``mpa_tpu_torch`` from a given root. ``--against
+DIR`` names a checkout of another commit (for example one unpacked with
+``git archive`` into ``_checkout/``); it is timed in turns with this tree
+(other, this, this, other), all in one run on one card; a copy of a tree
+with one part of a kernel cut out, given as DIR, splits that kernel's time
+among its parts. Prints a per-launch table and the sums per path, and writes
+them to ``chiprun_out/kernel_times.json``.
 """
 
 from __future__ import annotations
@@ -44,6 +59,9 @@ PRESETS = {"cls": "scanobjectnn_cls", "partseg": "shapenetpart", "semseg": "s3di
            "repsurf": "scanobjectnn_2x"}
 # Preset fields each model is profiled with, beyond the preset's own.
 OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="window_all")}
+
+
+TIMED = ("knn_kernel", "windowed_knn_kernel", "transition_attention_bwd_kernel")
 
 
 def kind(name: str) -> str:
@@ -129,6 +147,118 @@ def make_train_steps(model: str, batch: int):
     return run
 
 
+def record_kernel_inputs(path: Path) -> None:
+    """Record the ``TIMED`` launches of one served request of each model and
+    one train step of cls and part-seg, and save them to ``path`` as
+    ``[(path, name, inputs)]`` (a window spec as its fields)."""
+    from mpa_tpu_torch import kernels
+
+    runs = [("cls", False), ("cls", True), ("partseg", False), ("partseg", True),
+            ("repsurf", False), ("semseg", False)]
+    out = []
+    for model, train in runs:
+        cfg = load_cfg(model)
+        run = (make_train_steps(model, cfg.batch_size) if train
+               else make_requests(model, cfg.batch_size, cfg.num_points))
+        run(0)
+        torch.cuda.synchronize()
+        kernels.recorded = []
+        run(1)
+        torch.cuda.synchronize()
+        recorded, kernels.recorded = kernels.recorded, None
+        for name, inp in recorded:
+            if name not in TIMED:
+                continue
+            inp = {k: v.detach().clone() if torch.is_tensor(v) else v for k, v in inp.items()}
+            if "spec" in inp:
+                sp = inp["spec"]
+                inp["spec"] = (sp.S, sp.N, sp.sq, sp.bn, sp.n_chunks)
+            out.append((model + ("_train" if train else ""), name, inp))
+        del run
+        torch.cuda.empty_cache()
+    torch.save(out, path)
+
+
+def time_saved(path: Path) -> list:
+    """Each saved launch timed with the ``mpa_tpu_torch`` first on
+    ``sys.path``: median device ms of a CUDA graph of 20 calls."""
+    import chip_smoke
+    from mpa_tpu_torch.ops.attention import attention_bwd_cuda
+    from mpa_tpu_torch.ops.knn import knn_cuda
+    from mpa_tpu_torch.ops.window import WindowSpec, windowed_knn_cuda
+
+    times = []
+    for _, name, inp in torch.load(path, weights_only=False):
+        inp = {k: v.cuda() if torch.is_tensor(v) else v for k, v in inp.items()}
+        if name == "knn_kernel":
+            fn = lambda: knn_cuda(inp["k"], inp["base"], inp["query"])  # noqa: E731
+        elif name == "windowed_knn_kernel":
+            spec = WindowSpec(*inp["spec"])
+            fn = lambda: windowed_knn_cuda(inp["k"], inp["base"], inp["query"], spec)  # noqa: E731
+        else:
+            fn = lambda: attention_bwd_cuda(inp["packed"], inp["idx"], inp["shifts"],  # noqa: E731
+                                            inp["gctx"], inp["n_branches"], inp["c"])
+        times.append(chip_smoke.time_graph(fn))
+    return times
+
+
+def kernels_main(against) -> int:
+    """``--kernels``: record, then time each root in its own process."""
+    import tempfile
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = Path(tmp) / "inputs.pt"
+        record_kernel_inputs(saved)
+        meta = [(p, n, {k: tuple(v.shape) for k, v in inp.items() if torch.is_tensor(v)})
+                for p, n, inp in torch.load(saved, weights_only=False)]
+        torch.cuda.empty_cache()
+        roots = [("this", REPO)]
+        if against is not None:
+            other = Path(against).resolve()
+            roots = [("other", other), ("this", REPO), ("this", REPO), ("other", other)]
+        results = []
+        for label, root in roots:
+            proc = subprocess.run([sys.executable, str(REPO / "profile_port.py"), "--time-saved",
+                                   str(saved), "--root", str(root)],
+                                  capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                print(f"{label} ({root}) failed:\n{proc.stderr[-3000:]}", flush=True)
+                return 1
+            results.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
+            print(f"timed {label} ({root})", flush=True)
+    print("per launch ms: " + " | ".join(label for label, _ in results))
+    for i, (path, name, shapes) in enumerate(meta):
+        cols = " ".join(f"{t[i]:.4f}" for _, t in results)
+        print(f"  {path:14s} {name:32s} {cols}  {shapes}")
+    sums = {}
+    for i, (path, name, _) in enumerate(meta):
+        for j, (label, t) in enumerate(results):
+            key = f"{path} {name}"
+            sums.setdefault(key, {}).setdefault(f"{j}:{label}", 0.0)
+            sums[key][f"{j}:{label}"] += t[i]
+    print("sums per path (ms):")
+    for key, cols in sums.items():
+        print(f"  {key:48s} " + " ".join(f"{c}={v:.4f}" for c, v in cols.items()))
+    out = REPO / "chiprun_out" / "kernel_times.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"card": card, "roots": [label for label, _ in results],
+                               "launches": [{"path": p, "name": n, "shapes": s,
+                                             "ms": [t[i] for _, t in results]}
+                                            for i, (p, n, s) in enumerate(meta)],
+                               "sums": sums}, indent=1))
+    print(json.dumps({"card": card, "sums": sums}))
+    return 0
+
+
+def load_cfg(model: str):
+    from mpa_tpu_torch.configs import PRESETS as CONFIGS
+
+    return CONFIGS[PRESETS[model]].with_overrides(**OVERRIDES.get(model, {}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="cls", choices=sorted(PRESETS))
@@ -136,14 +266,23 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     ap.add_argument("--train", action="store_true", help="profile train steps, not requests")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time the kNN and attention-backward launches of the main paths")
+    ap.add_argument("--against", default=None, help="with --kernels: another checkout's root")
+    ap.add_argument("--time-saved", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--root", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: needs a CUDA card", file=sys.stderr)
         return 2
+    if args.time_saved:
+        sys.path[:0] = [args.root, str(REPO)]
+        print(json.dumps(time_saved(Path(args.time_saved))))
+        return 0
     sys.path.insert(0, str(REPO))
-    from mpa_tpu_torch.configs import PRESETS as CONFIGS
-
-    cfg = CONFIGS[PRESETS[args.model]].with_overrides(**OVERRIDES.get(args.model, {}))
+    if args.kernels:
+        return kernels_main(args.against)
+    cfg = load_cfg(args.model)
     batch, points = args.batch or cfg.batch_size, cfg.num_points
     run = (make_train_steps(args.model, batch) if args.train
            else make_requests(args.model, batch, points))

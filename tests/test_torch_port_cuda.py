@@ -16,7 +16,11 @@ Tolerances: the backward kernels add with ``atomicAdd``, in an order that
 changes from run to run, so their sums are held to a relative tolerance
 (1e-5 for the scatter-add, 1e-4 for the attention backward, whose node
 gradients also subtract near-equal terms) with an absolute floor at 1e-5 of
-the largest entry. The attention cases plant an eps-floored query, whose
+the largest entry. The kNN cases add identical points, distances that fall
+as the index rises, an integer grid, the umbrella's k = 9 and part-seg's
+largest launch, all held bit for bit; the attention-backward cases a hot
+node, unnamed nodes, a node named twice by one query, several neighbours
+tied for the maximum and part-seg's la0 shape. The attention cases plant an eps-floored query, whose
 neighbours' dE is about 1e20; those entries and the rest are compared apart,
 each with the floor of its own largest entry. The train step is held to
 ``chip_smoke.py``'s limits, on the same inputs. The scatter-mean kernel adds
@@ -86,25 +90,87 @@ def _cloud(seed, shape, dev, dup=False):
     return torch.from_numpy(x).to(dev)
 
 
-@pytest.mark.parametrize(
-    "k,N,S,C,dup,self_query",
-    [
-        (8, 1024, 1024, 3, True, True),
-        (8, 1024, 512, 64, False, False),
-        (8, 64, 32, 256, False, False),
-        (16, 300, 77, 5, True, False),
-        (64, 200, 40, 600, False, False),
-        (8, 100, 50, 1024, False, False),
-    ],
-)
-def test_knn_kernel_matches_plain(dev, k, N, S, C, dup, self_query):
-    base = _cloud(0, (2, N, C), dev, dup)
-    query = base if self_query else _cloud(1, (2, S, C), dev)
+def knn_cloud(kind, B, N, S, C, dup, self_query, seed=0):
+    """(base, query) numpy clouds for the kNN cases: ``normal`` points (every
+    fifth a duplicate with ``dup``); ``identical`` points, every distance 0;
+    ``falling``, base points on a line towards the queries, so each new
+    index is nearer and beats the threshold (the worst case for a shared
+    threshold); ``grid``, points on an integer grid, with many distances
+    exactly equal."""
+    rng = np.random.default_rng(seed)
+    if kind == "identical":
+        base = np.full((B, N, C), 0.5, np.float32)
+        query = np.full((B, S, C), 0.5, np.float32)
+    elif kind == "falling":
+        base = np.zeros((B, N, C), np.float32)
+        base[..., 0] = (N - np.arange(N, dtype=np.float32)) * np.float32(0.01)
+        query = (0.001 * rng.standard_normal((B, S, C))).astype(np.float32)
+    elif kind == "grid":
+        base = rng.integers(-3, 4, (B, N, C)).astype(np.float32)
+        query = rng.integers(-3, 4, (B, S, C)).astype(np.float32)
+    else:
+        base = rng.standard_normal((B, N, C)).astype(np.float32)
+        if dup:
+            base[:, 5::5] = base[:, 4::5][:, : base[:, 5::5].shape[1]]
+        query = np.random.default_rng(seed + 1).standard_normal((B, S, C)).astype(np.float32)
+    return base, base if self_query else query
+
+
+# (k, N, S, C, dup, self_query, cloud, B)
+KNN_CASES = [
+    (8, 1024, 1024, 3, True, True, "normal", 2),
+    (8, 1024, 512, 64, False, False, "normal", 2),
+    (8, 64, 32, 256, False, False, "normal", 2),
+    (16, 300, 77, 5, True, False, "normal", 2),
+    (64, 200, 40, 600, False, False, "normal", 2),
+    (8, 100, 50, 1024, False, False, "normal", 2),
+    (8, 300, 70, 3, False, False, "identical", 2),
+    (8, 130, 130, 64, False, True, "identical", 2),
+    (8, 2048, 64, 3, False, False, "falling", 2),
+    (16, 1000, 100, 64, False, False, "falling", 2),
+    (16, 1024, 512, 3, False, False, "grid", 2),
+    (8, 700, 300, 8, False, True, "grid", 2),
+    (9, 1024, 1024, 3, False, True, "normal", 64),  # the umbrella's self-kNN
+    (64, 1000, 1, 600, False, False, "normal", 2),  # N ragged to every tile, S = 1
+    (8, 2048, 2048, 64, False, True, "normal", 32),  # part-seg's largest launch
+    # The streaming form's scalar loads (C not a multiple of 4): C = 3 over a
+    # cloud too large to stay resident, C = 9 (1 x 4 tiles, query staged) and
+    # C = 130 (query streamed, a ragged last chunk), N and S ragged.
+    (8, 8192, 1000, 3, True, False, "normal", 2),
+    (16, 7000, 500, 3, False, False, "grid", 2),
+    (16, 777, 333, 9, False, False, "normal", 2),
+    (8, 1001, 300, 130, False, False, "normal", 2),
+]
+
+
+@pytest.mark.parametrize("k,N,S,C,dup,self_query,cloud,B", KNN_CASES)
+def test_knn_kernel_matches_plain(dev, k, N, S, C, dup, self_query, cloud, B):
+    base, query = knn_cloud(cloud, B, N, S, C, dup, self_query)
+    base = torch.from_numpy(base).to(dev)
+    query = base if self_query else torch.from_numpy(query).to(dev)
     gd, gi = knn_cuda(k, base, query)
     wd, wi = knn_plain(k, base, query)
     torch.cuda.synchronize()
     assert torch.equal(gi, wi)
     assert torch.equal(gd, wd)
+    if cloud == "identical":
+        assert not gd.any()
+        assert torch.equal(gi, torch.arange(k, dtype=torch.int32, device=dev).expand_as(gi))
+
+
+@pytest.mark.parametrize("C", [3, 64])
+def test_knn_kernel_misaligned_view(dev, C):
+    # A contiguous view 4 bytes into its storage: the kernel's float4 loads
+    # need 16-byte rows, so knn_cuda refuses it and knn copies it first.
+    base, query = knn_cloud("normal", 2, 500, 100, C, False, False)
+    flat = torch.from_numpy(np.concatenate([[0.0], base.ravel()]).astype(np.float32)).to(dev)
+    view = flat[1:].view(base.shape)
+    query = torch.from_numpy(query).to(dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        knn_cuda(8, view, query)
+    gd, gi = knn(8, view, query)
+    wd, wi = knn_plain(8, view, query)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
 
 
 @pytest.mark.parametrize("N,npoint,C,dup", [(1024, 512, 3, False), (2048, 1024, 3, True),
@@ -185,39 +251,82 @@ def _close_dpacked(got, want, n_branches, c, rtol):
     _close(got[~floored], want[~floored], rtol)
 
 
-def _attention_inputs(dev, n_branches, with_shift, N, S, K, c, seed=1):
+def _attention_inputs(dev, n_branches, with_shift, N, S, K, c, seed=1, B=2):
     g = torch.Generator().manual_seed(seed)
-    packed = torch.randn((2, N, n_branches * 2 * c), generator=g)
+    packed = torch.randn((B, N, n_branches * 2 * c), generator=g)
     for r in range(n_branches):
         e = slice(2 * r * c, (2 * r + 1) * c)
         packed[..., e] = packed[..., e].exp()
         packed[:, -FLOORED:, e] = 0.0  # E = 0 on the last nodes
     packed[:, 1] = packed[:, 0]  # a duplicate node: equal w, a tie
-    idx = torch.randint(0, N - FLOORED, (2, S, K), generator=g, dtype=torch.int32)
+    idx = torch.randint(0, N - FLOORED, (B, S, K), generator=g, dtype=torch.int32)
     idx[:, 0, :2] = torch.tensor([0, 1], dtype=torch.int32)
     idx[:, 1] = N - FLOORED + torch.arange(K, dtype=torch.int32) % FLOORED  # eps-floored query
     idx[:, 2] = 5  # all K neighbours one node: a K-way tie
-    shifts = torch.randn((2, S, n_branches * c), generator=g) if with_shift else None
-    gctx = torch.randn((2, S, n_branches * c), generator=g)
+    shifts = torch.randn((B, S, n_branches * c), generator=g) if with_shift else None
+    gctx = torch.randn((B, S, n_branches * c), generator=g)
     return (packed.to(dev), idx.to(dev), None if shifts is None else shifts.to(dev),
             gctx.to(dev))
 
 
-@pytest.mark.parametrize("n_branches,with_shift,N,S,K,c", [
-    (1, True, 1024, 1024, 8, 64),
-    (1, False, 1024, 512, 8, 64),
-    (1, False, 64, 32, 8, 512),
-    (2, True, 300, 100, 16, 24),
-    (2, False, 50, 20, 5, 7),
-    (1, True, 200, 60, 64, 32),
-])
-def test_attention_bwd_kernel_matches_plain(dev, n_branches, with_shift, N, S, K, c):
-    packed, idx, shifts, gctx = _attention_inputs(dev, n_branches, with_shift, N, S, K, c)
+def attention_case(case, packed, idx):
+    """Plant a case's indices into ``_attention_inputs``' (torch, any
+    device): ``hot``, node 7 named by every query; ``unnamed``, no query
+    names the nodes from N // 2 up to the floored ones; ``twice``, node 9
+    named twice by every third query; ``ties``, several neighbours tied for
+    the maximum (node 0's duplicate, node 1, twice and three times). Returns
+    the unnamed nodes' mask, or None."""
+    N = packed.shape[1]
+    if case == "hot":
+        idx[:, 3:, 0] = 7
+    elif case == "unnamed":
+        floored_query = idx[:, 1].clone()
+        idx.remainder_(N // 2)
+        idx[:, 1] = floored_query
+        unnamed = torch.zeros(N, dtype=torch.bool)
+        unnamed[N // 2:N - FLOORED] = True
+        return unnamed
+    elif case == "twice":
+        idx[:, 3::3, 1] = 9
+        idx[:, 3::3, 2] = 9
+    elif case == "ties":
+        K = idx.shape[2]
+        idx[:, 3::2, :min(K, 5)] = torch.tensor([0, 1, 0, 1, 1], dtype=idx.dtype)[:min(K, 5)]
+    return None
+
+
+# (n_branches, with_shift, N, S, K, c, case, B)
+ATTENTION_BWD_CASES = [
+    (1, True, 1024, 1024, 8, 64, "plain", 2),
+    (1, False, 1024, 512, 8, 64, "plain", 2),
+    (1, False, 64, 32, 8, 512, "plain", 2),
+    (2, True, 300, 100, 16, 24, "plain", 2),
+    (2, False, 50, 20, 5, 7, "plain", 2),
+    (1, True, 200, 60, 64, 32, "plain", 2),
+    (2, True, 512, 512, 8, 32, "hot", 2),
+    (1, False, 300, 200, 16, 64, "hot", 2),
+    (2, True, 512, 256, 8, 32, "unnamed", 2),
+    (1, True, 100, 90, 33, 24, "unnamed", 2),
+    (2, True, 256, 256, 8, 32, "twice", 2),
+    (2, False, 256, 256, 8, 48, "ties", 2),
+    (1, True, 128, 100, 64, 16, "ties", 2),
+    (1, True, 2048, 2048, 8, 64, "plain", 32),  # part-seg's la0 shape
+]
+
+
+@pytest.mark.parametrize("n_branches,with_shift,N,S,K,c,case,B", ATTENTION_BWD_CASES)
+def test_attention_bwd_kernel_matches_plain(dev, n_branches, with_shift, N, S, K, c, case, B):
+    packed, idx, shifts, gctx = _attention_inputs("cpu", n_branches, with_shift, N, S, K, c, B=B)
+    unnamed = attention_case(case, packed, idx)
+    packed, idx, gctx = packed.to(dev), idx.to(dev), gctx.to(dev)
+    shifts = None if shifts is None else shifts.to(dev)
     got_p, got_s = attention_bwd_cuda(packed, idx, shifts, gctx, n_branches, c)
     want_p, want_s = attention_bwd_plain(packed, idx, shifts, gctx, n_branches, c)
     torch.cuda.synchronize()
     assert torch.isfinite(got_p).all()
     _close_dpacked(got_p, want_p, n_branches, c, rtol=1e-4)
+    if unnamed is not None:
+        assert not got_p[:, unnamed.to(dev)].any()
     if with_shift:
         _close(got_s, want_s, rtol=1e-5)
     else:

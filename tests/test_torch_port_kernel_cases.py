@@ -1,0 +1,126 @@
+"""The hard inputs of the kNN and attention-backward kernels, on the CPU:
+the port's plain versions against ``mpa_tpu`` on the same inputs.
+
+The card tests (``tests/test_torch_port_cuda.py``) hold each kernel equal to
+its plain version on these inputs at full size; here, at small sizes, the
+plain versions are held to ``mpa_tpu`` (JAX on the CPU, as its own tests run
+it), so the chain kernel = plain = ``mpa_tpu`` holds on them too:
+
+- ``knn_plain`` against ``mpa_tpu.ops.knn.knn``: identical points (every
+  distance 0), distances that fall as the index rises, an integer grid (many
+  exact ties), k = 9 at C = 3 (the umbrella), k = 64 at C = 600 with S = 1,
+  C = 9 and C = 130 (widths that are not a multiple of 4) with N and S ragged.
+  Indices exactly equal; distances within 1e-5 relative, with an absolute
+  floor of 1e-6 of |q|^2 + |b|^2 (JAX's CPU distances round in their own
+  order, and the expanded form cancels).
+- ``attention_bwd_plain`` against ``mpa_tpu``'s custom-VJP math and
+  ``jax.grad`` of ``transition_attention`` (as
+  ``tests/test_torch_port_train.py`` does): a hot node, unnamed nodes, a
+  node named twice by one query, several neighbours tied for the maximum,
+  an eps-floored denominator; rtol 1e-5.
+"""
+
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import test_torch_port_cls  # noqa: E402,F401  (pins torch to one thread)
+from test_torch_port_cuda import FLOORED, _attention_inputs, attention_case, knn_cloud  # noqa: E402
+
+from mpa_tpu.ops.knn import knn as jax_knn  # noqa: E402
+from mpa_tpu.ops.pallas.attention_pallas import _bwd_scatter_xla  # noqa: E402
+from mpa_tpu.ops.pallas.attention_pallas import transition_attention as jax_attention  # noqa: E402
+from mpa_tpu_torch.ops.attention import attention_bwd_plain  # noqa: E402
+from mpa_tpu_torch.ops.knn import knn_plain  # noqa: E402
+
+
+# (k, N, S, C, dup, self_query, cloud, B): the card cases at small sizes.
+KNN_CPU_CASES = [
+    (8, 100, 30, 3, False, False, "identical", 2),
+    (8, 40, 40, 16, False, True, "identical", 2),
+    (8, 256, 16, 3, False, False, "falling", 2),
+    (16, 200, 20, 16, False, False, "falling", 2),
+    (16, 256, 64, 3, False, False, "grid", 2),
+    (8, 120, 120, 8, False, True, "grid", 2),
+    (9, 256, 256, 3, False, True, "normal", 2),
+    (64, 200, 1, 600, False, False, "normal", 2),
+    (8, 256, 256, 64, True, True, "normal", 2),
+    (16, 777, 50, 9, False, False, "normal", 2),
+    (8, 301, 60, 130, False, False, "normal", 2),
+]
+
+
+@pytest.mark.parametrize("k,N,S,C,dup,self_query,cloud,B", KNN_CPU_CASES)
+def test_knn_plain_matches_mpa_tpu_on_kernel_cases(k, N, S, C, dup, self_query, cloud, B):
+    base, query = knn_cloud(cloud, B, N, S, C, dup, self_query)
+    wd, wi = jax_knn(k, jnp.asarray(base), jnp.asarray(query))
+    gd, gi = knn_plain(k, torch.from_numpy(base), torch.from_numpy(query))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    # The expanded form |q|^2 + |b|^2 - 2 q.b cancels: its rounding is an ulp
+    # or so of |q|^2 + |b|^2, the floor of the absolute tolerance.
+    norms = (base ** 2).sum(-1).max() + (query ** 2).sum(-1).max()
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5, atol=1e-6 * norms + 1e-6)
+    if cloud == "identical":
+        assert not gd.numpy().any()
+        np.testing.assert_array_equal(gi.numpy(), np.broadcast_to(np.arange(k), gi.shape))
+
+
+# (n_branches, with_shift, N, S, K, c, case): the card cases at small sizes;
+# every one also plants an eps-floored query, a duplicate node and a K-way tie.
+ATTENTION_CPU_CASES = [
+    (2, True, 64, 48, 8, 8, "hot"),
+    (1, False, 64, 40, 16, 12, "hot"),
+    (2, True, 80, 40, 8, 8, "unnamed"),
+    (1, True, 60, 30, 33, 6, "unnamed"),
+    (2, True, 64, 48, 8, 8, "twice"),
+    (2, False, 64, 48, 8, 12, "ties"),
+    (1, True, 40, 30, 64, 4, "ties"),
+    (1, True, 128, 128, 8, 16, "plain"),  # la0's form: one branch, shifts, K = 8
+]
+
+
+@pytest.mark.parametrize("n_branches,with_shift,N,S,K,c,case", ATTENTION_CPU_CASES)
+def test_attention_bwd_plain_matches_mpa_tpu_on_kernel_cases(n_branches, with_shift, N, S, K,
+                                                             c, case):
+    packed, idx, shifts, gctx = _attention_inputs("cpu", n_branches, with_shift, N, S, K, c)
+    unnamed = attention_case(case, packed, idx)
+    p, i, g = packed.numpy(), idx.numpy(), gctx.numpy()
+    sh = None if shifts is None else shifts.numpy()
+    B = p.shape[0]
+    G = np.take_along_axis(p, i.reshape(B, S * K)[..., None], 1).reshape(B, S, K, -1)
+    want_p, want_s = _bwd_scatter_xla(jnp.asarray(G), None if sh is None else jnp.asarray(sh),
+                                      jnp.asarray(g), jnp.asarray(i), N, n_branches, c)
+    want_p = np.asarray(want_p)
+
+    def jloss(pk, s):
+        return jnp.sum(jax_attention(pk, jnp.asarray(i), s, n_branches, c) * g)
+
+    if with_shift:
+        auto_p, auto_s = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(p), jnp.asarray(sh))
+    else:
+        auto_p = jax.grad(lambda pk: jloss(pk, None))(jnp.asarray(p))
+    auto_p = np.asarray(auto_p)
+    # jax.grad is NaN on the eps-floored nodes' E columns only (0 / eps**2).
+    finite = np.isfinite(auto_p)
+    floored = np.zeros_like(finite)
+    for r in range(n_branches):
+        floored[:, N - FLOORED:, 2 * r * c:(2 * r + 1) * c] = True
+    assert not (~finite & ~floored).any()
+
+    got_p, got_s = attention_bwd_plain(packed, idx, shifts, gctx, n_branches, c)
+    got_p = got_p.numpy()
+    np.testing.assert_allclose(got_p, want_p, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_p[finite], auto_p[finite], rtol=1e-5, atol=1e-6)
+    if unnamed is not None:
+        assert not got_p[:, unnamed.numpy()].any()
+    if with_shift:
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(auto_s), rtol=1e-5, atol=1e-6)
+    else:
+        assert got_s is None
