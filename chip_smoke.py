@@ -82,7 +82,9 @@ backward):
    the exact one; the ball query's sentinel stage bit-equal), with the
    kernel's, the plain version's and, where one PyTorch
    call computes the same function, that call's time, beside the bound the
-   card's memory rate and float32 rate put on the same work; the kNN
+   card's memory rate and float32 rate put on the same work, and for FPS the
+   chain floor (the same launch with its distance work cut: the time of
+   its npoint dependent rounds of reduction and barrier); the kNN
    distance gradient of one recorded feature-space kNN (windowed for semseg)
    is held against torch autograd of the plain kNN, and the scatter-means'
    backward at every recorded launch against autograd of the plain version;
@@ -468,7 +470,7 @@ def check_call(name: str, inp: dict) -> dict:
         attention_bwd_cuda, attention_bwd_plain, attention_cuda, attention_plain,
     )
     from mpa_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_plain
-    from mpa_tpu_torch.ops.fps import fps_cuda, fps_plain
+    from mpa_tpu_torch.ops.fps import fps_chain_cuda, fps_cuda, fps_form, fps_plain
     from mpa_tpu_torch.ops.gather import (
         gather_cuda, gather_plain, scatter_add_cuda, scatter_add_plain,
     )
@@ -479,7 +481,7 @@ def check_call(name: str, inp: dict) -> dict:
         windowed_knn_plain, windowed_scatter_mean_cuda,
     )
 
-    library, ref, spec = None, None, inp.get("spec")
+    library, ref, chain, spec = None, None, None, inp.get("spec")
     if spec is not None and name != "windowed_knn_kernel":
         check_in_window(inp["idx"] if "idx" in inp else inp["knn_idx"], spec, name)
     if name == "knn_kernel":
@@ -521,14 +523,18 @@ def check_call(name: str, inp: dict) -> dict:
                  f"(full {(hits == args[1]).float().mean().item():.3f}, centre alone "
                  f"{(hits == 1).float().mean().item():.3f})")
     elif name == "fps_kernel":
-        pts, npoint, start = inp["points"], inp["npoint"], inp["start_idx"]
+        pts, npoint, start = inp["points"], inp["npoint"], inp["start"]
         kern, plain = (lambda: fps_cuda(pts, npoint, start)), (lambda: fps_plain(pts, npoint, start))
         got, want = kern(), plain()
         if not torch.equal(got, want):
             raise AssertionError(f"fps_kernel differs from the plain version at "
                                  f"{int((got != want).sum())} places")
         err = 0.0
-        shape = f"points {tuple(pts.shape)} npoint={npoint}"
+        resident, cs, nw = fps_form(*pts.shape)
+        shape = (f"points {tuple(pts.shape)} npoint={npoint}, "
+                 f"{'resident' if resident else 'sliced'} form, cluster {cs}, {nw} warps")
+        # The chain floor: the same launch with the distance work cut.
+        chain = time_graph(lambda: fps_chain_cuda(pts, npoint, start))
     elif name == "gather_rows_kernel":
         pts, idx = inp["points"], inp["idx"]
         idx64 = idx.long()[..., None].expand(-1, -1, pts.shape[-1])
@@ -618,6 +624,7 @@ def check_call(name: str, inp: dict) -> dict:
         "plain_ms": time_events(plain),
         "library_ms": None if library is None else time_graph(library),
         "max_abs_ref": ref,  # the gradients' scale, beside max_abs_err
+        "chain_floor_ms": chain,
         "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
         "ops_ms": ops / PEAK_F32_OPS_PER_S * 1e3,
     }
@@ -974,9 +981,10 @@ def replay_call(path: str, name: str, inp: dict) -> dict:
     row = dict(check_call(name, inp), path=path)
     lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
     ref = "" if row["max_abs_ref"] is None else f" (of max |ref| {row['max_abs_ref']:.3e})"
+    chain = "" if row["chain_floor_ms"] is None else f", chain floor {row['chain_floor_ms']:.4f} ms"
     log(f"[3 {path}] {name} {row['shape']}: max_abs_err {row['max_abs_err']:.3e}{ref}, "
         f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {lib} ms, "
-        f"bound {row['bound_ms']:.4f} ms")
+        f"bound {row['bound_ms']:.4f} ms{chain}")
     return row
 
 
@@ -1064,6 +1072,8 @@ def summarise(name: str, rows: list, counts: dict) -> dict:
             "bound_ms": sum(r["bound_ms"] for r in mine),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None if None in libs else sum(libs),
+            **({"chain_floor_ms": sum(r["chain_floor_ms"] for r in mine)}
+               if name == "fps_kernel" else {}),
         }
 
     by_path = {path: sums([r for r in rows if r["name"] == name and r["path"] == path])
@@ -1120,10 +1130,10 @@ PLANTED_FAULTS = {
         "semseg", "mpa_tpu_torch/kernels/csrc/window_attention.cu",
         "auto local = [&](int k) { return my[k] - ch.win0; };",
         "auto local = [&](int k) { return my[k] - ch.win0 - bn; };"),
-    "windowed attention backward: no tie split": (
-        "semseg", "mpa_tpu_torch/kernels/csrc/window_attention_bwd.cu",
-        "const float dw = __fmul_rn(__fdiv_rn(1.f, cnt), gctx[o]);",
-        "const float dw = gctx[o];"),
+    "attention backward: no tie split": (
+        "semseg", "mpa_tpu_torch/kernels/csrc/attention_bwd.cuh",
+        "const float dw = __fmul_rn(__fdiv_rn(1.f, cnt), gctx[orow + oc]);",
+        "const float dw = gctx[orow + oc];"),
     "windowed scatter-mean: last chunk of the search skipped": (
         "semseg", "mpa_tpu_torch/kernels/csrc/window_scatter_mean.cu",
         "const int e_lo = lo * K, e_hi = hi * K;",

@@ -44,11 +44,10 @@
 // the zeroing a sixteenth, the one pass over the gathered rows the rest.
 // The TPU's one-hot matmul scatter and its bf16 gradient rounding
 // (GRAD_SCATTER_PRECISION) are not carried over: every add is f32.
+#include "attention_bwd.cuh"
 #include "common.cuh"
 
 namespace {
-
-constexpr float kEps = 1e-20f;  // attention_pallas.py _EPS: the denominator floor
 
 template <int KMAX>
 __global__ void transition_attention_bwd_kernel(
@@ -56,102 +55,8 @@ __global__ void transition_attention_bwd_kernel(
     const float* __restrict__ shifts, const float* __restrict__ gctx,
     float* __restrict__ dpacked, float* __restrict__ dshift,
     int N, int S, int K, int n_branches, int C) {
-  extern __shared__ int idx_s[];  // [blockDim.y][K]
-  const int b = blockIdx.y;
-  const int ty = threadIdx.y, tx = threadIdx.x;
-  const int s = blockIdx.x * blockDim.y + ty;
-  const int W = 2 * n_branches * C;
-  const int Wo = n_branches * C;
-  int* my_idx = idx_s + ty * K;
-  if (s < S) {
-    for (int k = tx; k < K; k += blockDim.x)
-      my_idx[k] = idx[(static_cast<size_t>(b) * S + s) * K + k];
-  }
-  __syncthreads();
-  if (s >= S) return;
-
-  const float* pb = packed + static_cast<size_t>(b) * N * W;
-  float* db = dpacked + static_cast<size_t>(b) * N * W;
-  const size_t orow = (static_cast<size_t>(b) * S + s) * Wo;
-  for (int oc = tx; oc < Wo; oc += blockDim.x) {
-    const int r = oc / C;
-    const int e_off = 2 * r * C + (oc - r * C);
-    const int v_off = e_off + C;
-    const float shift = shifts != nullptr ? shifts[orow + oc] : 0.f;
-    float e[KMAX], v[KMAX];
-    float denom = 0.f;
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (k < K) {
-        const float* row = pb + static_cast<size_t>(my_idx[k]) * W;
-        e[k] = row[e_off];
-        v[k] = row[v_off];
-        if (shifts != nullptr) v[k] = __fadd_rn(v[k], shift);
-        denom = k == 0 ? e[k] : __fadd_rn(denom, e[k]);  // the forward's order
-      }
-    }
-    const float den = fmaxf(denom, kEps);
-
-    // The maximum of w over K and the set of neighbours that reach it.
-    float m = -INFINITY;
-    unsigned long long ties = 0ull;
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (k < K) {
-        const float w = __fmul_rn(__fsub_rn(__fdiv_rn(e[k], den), 1.f), v[k]);
-        if (w > m) {
-          m = w;
-          ties = 1ull << k;
-        } else if (w == m) {
-          ties |= 1ull << k;
-        }
-      }
-    }
-    const float cnt = static_cast<float>(__popcll(ties));
-    const float dw = __fmul_rn(__fdiv_rn(1.f, cnt), gctx[orow + oc]);
-
-    // t = sum_k dattn_k * E_k and dshift = sum_k dV_k; both vanish off the ties.
-    float t = 0.f, ds = 0.f;
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (k < K && ((ties >> k) & 1ull)) {
-        const float attn = __fsub_rn(__fdiv_rn(e[k], den), 1.f);
-        t = __fadd_rn(t, __fmul_rn(__fmul_rn(dw, v[k]), e[k]));
-        ds = __fadd_rn(ds, __fmul_rn(dw, attn));
-      }
-    }
-    const float corr = denom >= kEps ? __fdiv_rn(t, __fmul_rn(den, den)) : 0.f;
-
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (k < K) {
-        const size_t n = static_cast<size_t>(my_idx[k]) * W;
-        if ((ties >> k) & 1ull) {
-          const float attn = __fsub_rn(__fdiv_rn(e[k], den), 1.f);
-          atomicAdd(db + n + e_off, __fsub_rn(__fdiv_rn(__fmul_rn(dw, v[k]), den), corr));
-          atomicAdd(db + n + v_off, __fmul_rn(dw, attn));
-        } else {
-          atomicAdd(db + n + e_off, -corr);  // dattn_k = 0: dE_k = 0 / den - corr
-        }
-      }
-    }
-    if (dshift != nullptr) dshift[orow + oc] = ds;
-  }
-}
-
-template <int KMAX>
-cudaError_t launch(const float* packed, const int* idx, const float* shifts, const float* gctx,
-                   float* dpacked, float* dshift, int B, int N, int S, int K, int nB, int C,
-                   cudaStream_t st) {
-  // Threads across the output channels, at most 128, so that a block holds
-  // two or more queries; the rest of 256 across queries.
-  int tx = mpa::ceil_div(nB * C, 32) * 32;
-  if (tx > 128) tx = 128;
-  const dim3 block(tx, 256 / tx);
-  const size_t smem = sizeof(int) * static_cast<size_t>(block.y) * K;
-  transition_attention_bwd_kernel<KMAX><<<dim3(mpa::ceil_div(S, block.y), B), block, smem, st>>>(
-      packed, idx, shifts, gctx, dpacked, dshift, N, S, K, nB, C);
-  return cudaGetLastError();
+  mpa::attention_bwd_body<KMAX>(packed, idx, shifts, gctx, dpacked, dshift, N, S, K, n_branches,
+                                C);
 }
 
 }  // namespace
@@ -162,23 +67,12 @@ cudaError_t launch(const float* packed, const int* idx, const float* shifts, con
 // the same stream, before the adds. Requires 1 <= K <= 64 (checked by the
 // Python wrapper).
 MPA_EXPORT int mpa_transition_attention_bwd(const void* packed, const void* idx,
-                                            const void* shifts, const void* gctx,
-                                            void* dpacked, void* dshift, int B, int N, int S,
-                                            int K, int n_branches, int C, void* stream) {
-  cudaStream_t st = mpa::as_stream(stream);
-  const int Wo = n_branches * C;
-  cudaError_t err = cudaMemsetAsync(
-      dpacked, 0, sizeof(float) * static_cast<size_t>(B) * N * 2 * Wo, st);
-  if (err != cudaSuccess) return err;
-  if (B == 0 || S == 0 || Wo == 0) return cudaGetLastError();
-  auto pk = static_cast<const float*>(packed);
-  auto ip = static_cast<const int*>(idx);
-  auto sh = static_cast<const float*>(shifts);
-  auto g = static_cast<const float*>(gctx);
-  auto dp = static_cast<float*>(dpacked);
-  auto ds = static_cast<float*>(dshift);
-  if (K <= 8) return launch<8>(pk, ip, sh, g, dp, ds, B, N, S, K, n_branches, C, st);
-  if (K <= 16) return launch<16>(pk, ip, sh, g, dp, ds, B, N, S, K, n_branches, C, st);
-  if (K <= 32) return launch<32>(pk, ip, sh, g, dp, ds, B, N, S, K, n_branches, C, st);
-  return launch<64>(pk, ip, sh, g, dp, ds, B, N, S, K, n_branches, C, st);
+                                            const void* shifts, const void* gctx, void* dpacked,
+                                            void* dshift, int B, int N, int S, int K, int n_branches,
+                                            int C, void* stream) {
+  static const mpa::AttentionBwdKernel kernels[4] = {
+      transition_attention_bwd_kernel<8>, transition_attention_bwd_kernel<16>,
+      transition_attention_bwd_kernel<32>, transition_attention_bwd_kernel<64>};
+  return mpa::launch_attention_bwd(kernels, packed, idx, shifts, gctx, dpacked, dshift, B, N, S, K,
+                                   n_branches, C, mpa::as_stream(stream));
 }

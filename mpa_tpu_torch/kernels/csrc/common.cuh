@@ -45,4 +45,23 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return err;
 }
 
+// Set a kernel's function attribute once on each device (cached as
+// allow_smem's opt-in is).
+template <typename Kernel>
+inline cudaError_t allow_attribute(Kernel kernel, cudaFuncAttribute attr, int value) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::map<std::pair<std::pair<const void*, int>, int>, int> set;
+  std::lock_guard<std::mutex> lock(mu);
+  auto key = std::make_pair(std::make_pair(reinterpret_cast<const void*>(kernel), device),
+                            static_cast<int>(attr));
+  auto it = set.find(key);
+  if (it != set.end() && it->second == value) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, attr, value);
+  if (err == cudaSuccess) set[key] = value;
+  return err;
+}
+
 }  // namespace mpa

@@ -106,7 +106,7 @@ MPA_EXPORT int mpa_windowed_attention_fwd(const void* packed, const void* idx, c
                                           void* out, int B, int N, int S, int K, int n_branches,
                                           int C, int sq, int bn, int n_chunks, void* stream) {
   if (B == 0 || S == 0 || C == 0) return cudaGetLastError();
-  const int ct = mpa::window_channel_tile(2 * bn, C, 2);
+  const int ct = mpa::window_channel_tile(2 * bn, C);
   const size_t smem = sizeof(float) * 2 * static_cast<size_t>(2 * bn) * ct +
                       sizeof(int) * static_cast<size_t>(sq) * K;
   cudaError_t err = mpa::allow_smem(windowed_attention_fwd_kernel, smem);

@@ -302,7 +302,7 @@ def windowed_attention_bwd_cuda(packed, idx, shifts, gctx, n_branches: int, c: i
                 packed.data_ptr(), idx.data_ptr(),
                 None if shifts is None else shifts.data_ptr(), gctx.data_ptr(),
                 dpacked.data_ptr(), None if dshift is None else dshift.data_ptr(),
-                B, N, S, K, n_branches, c, *_spec_args(spec), stream),
+                B, N, S, K, n_branches, c, stream),
             name,
         )
     kernels.launched(name, {"packed": packed, "idx": idx, "shifts": shifts, "gctx": gctx,

@@ -18,20 +18,24 @@ peak of allocated device memory. With
 train-mode BatchNorm) on the training CLI's synthetic clouds instead of a
 request. Needs a CUDA card; exits non-zero without one.
 
-    python3 profile_port.py --kernels [--against DIR]
+    python3 profile_port.py --kernels [--names a,b] [--inputs PATH] [--against DIR ...]
 
-Times ``knn_kernel``, ``windowed_knn_kernel`` and
-``transition_attention_bwd_kernel`` launch by launch on the inputs the main
-paths give them: one served request of cls, part-seg, repsurf and semseg
-``window_all`` and one train step of cls and part-seg are recorded, saved,
-and every recorded launch is timed (``chip_smoke.time_graph``) in a
-subprocess that imports ``mpa_tpu_torch`` from a given root. ``--against
-DIR`` names a checkout of another commit (for example one unpacked with
-``git archive`` into ``_checkout/``); it is timed in turns with this tree
-(other, this, this, other), all in one run on one card; a copy of a tree
-with one part of a kernel cut out, given as DIR, splits that kernel's time
-among its parts. Prints a per-launch table and the sums per path, and writes
-them to ``chiprun_out/kernel_times.json``.
+Times ``knn_kernel``, ``windowed_knn_kernel``, ``fps_kernel``,
+``transition_attention_bwd_kernel`` and ``windowed_attention_bwd_kernel``
+launch by launch on the inputs the main paths give them: one served request
+of cls, part-seg, repsurf and semseg ``window_all``, one train step of cls,
+part-seg and semseg ``window_all``, and the FPS over 16384 points and the
+exact kNNs of one semseg ``window`` request at 16384 points are recorded,
+saved, and every recorded launch is timed (``chip_smoke.time_graph``) in a
+subprocess that imports ``mpa_tpu_torch`` from a given root. ``--against``
+names checkouts of other commits (for example one unpacked with ``git
+archive`` into ``_checkout/``, or a copy of a tree with one part of a
+kernel cut out, which splits that kernel's time among its parts); each is
+timed twice, in turns with this tree (others, this, this, others in
+reverse), all in one run on one card. ``--names`` times only the kernels it
+lists; ``--inputs PATH`` keeps the recording there and reuses it when it
+exists, so that two runs share it. Prints a per-launch table and the sums
+per path, and writes them to ``chiprun_out/kernel_times.json`` (``--out``).
 """
 
 from __future__ import annotations
@@ -61,7 +65,8 @@ PRESETS = {"cls": "scanobjectnn_cls", "partseg": "shapenetpart", "semseg": "s3di
 OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="window_all")}
 
 
-TIMED = ("knn_kernel", "windowed_knn_kernel", "transition_attention_bwd_kernel")
+TIMED = ("knn_kernel", "windowed_knn_kernel", "fps_kernel", "transition_attention_bwd_kernel",
+         "windowed_attention_bwd_kernel")
 
 
 def kind(name: str) -> str:
@@ -148,18 +153,23 @@ def make_train_steps(model: str, batch: int):
 
 
 def record_kernel_inputs(path: Path) -> None:
-    """Record the ``TIMED`` launches of one served request of each model and
-    one train step of cls and part-seg, and save them to ``path`` as
-    ``[(path, name, inputs)]`` (a window spec as its fields)."""
+    """Record the ``TIMED`` launches of one served request of each model, one
+    train step of cls, part-seg and semseg, and the FPS over 16384 points
+    and the exact kNNs of one semseg ``window`` request at 16384 points, and
+    save them to ``path`` as ``[(path, name, inputs)]`` (a window spec as its
+    fields)."""
     from mpa_tpu_torch import kernels
 
     runs = [("cls", False), ("cls", True), ("partseg", False), ("partseg", True),
-            ("repsurf", False), ("semseg", False)]
+            ("repsurf", False), ("semseg", False), ("semseg", True), ("semseg_window", False)]
     out = []
     for model, train in runs:
-        cfg = load_cfg(model)
-        run = (make_train_steps(model, cfg.batch_size) if train
-               else make_requests(model, cfg.batch_size, cfg.num_points))
+        if model == "semseg_window":
+            run = make_window_request()
+        else:
+            cfg = load_cfg(model)
+            run = (make_train_steps(model, cfg.batch_size) if train
+                   else make_requests(model, cfg.batch_size, cfg.num_points))
         run(0)
         torch.cuda.synchronize()
         kernels.recorded = []
@@ -167,7 +177,12 @@ def record_kernel_inputs(path: Path) -> None:
         torch.cuda.synchronize()
         recorded, kernels.recorded = kernels.recorded, None
         for name, inp in recorded:
-            if name not in TIMED:
+            if name not in TIMED or (model == "semseg_window" and name not in (
+                    "fps_kernel", "knn_kernel")):
+                continue
+            if model == "semseg_window" and name == "fps_kernel" and inp["points"].shape[1] < 16384:
+                continue
+            if train and name in ("fps_kernel", "windowed_knn_kernel"):  # the request's shapes
                 continue
             inp = {k: v.detach().clone() if torch.is_tensor(v) else v for k, v in inp.items()}
             if "spec" in inp:
@@ -179,22 +194,59 @@ def record_kernel_inputs(path: Path) -> None:
     torch.save(out, path)
 
 
-def time_saved(path: Path) -> list:
-    """Each saved launch timed with the ``mpa_tpu_torch`` first on
-    ``sys.path``: median device ms of a CUDA graph of 20 calls."""
+def make_window_request():
+    """``run(i)`` answers one ``markov_semseg`` request in the ``window``
+    mode at 16384 points, B = 2 ``synthetic_semseg`` blocks: exact FPS over
+    16384 points and exact feature kNNs."""
+    from mpa_tpu_torch.data import synthetic_semseg
+    from mpa_tpu_torch.serve import load_semantic_segmenter
+
+    serve = load_semantic_segmenter(PRESETS["semseg"], seed=0, num_points=16384,
+                                    neighbor_mode="window")
+    blocks = synthetic_semseg(1, 16384, seed=0)[0]
+    return lambda i: serve(torch.from_numpy(blocks[2 * i:2 * i + 2]).cuda())
+
+
+def fps_start(inp: dict):
+    """A recorded FPS launch's start: an int where every cloud starts at the
+    same index (every checkout's ``fps_cuda`` takes one), else the ``[B]``
+    tensor."""
+    start = inp["start"] if "start" in inp else inp["start_idx"]
+    if torch.is_tensor(start) and bool((start == start[0]).all()):
+        return int(start[0])
+    return start
+
+
+def time_saved(path: Path, names) -> list:
+    """Each saved launch of a kernel in ``names`` timed with the
+    ``mpa_tpu_torch`` first on ``sys.path``: median device ms of a CUDA
+    graph of 20 calls (None for the others)."""
     import chip_smoke
     from mpa_tpu_torch.ops.attention import attention_bwd_cuda
+    from mpa_tpu_torch.ops.fps import fps_cuda
     from mpa_tpu_torch.ops.knn import knn_cuda
-    from mpa_tpu_torch.ops.window import WindowSpec, windowed_knn_cuda
+    from mpa_tpu_torch.ops.window import WindowSpec, windowed_attention_bwd_cuda, windowed_knn_cuda
 
     times = []
     for _, name, inp in torch.load(path, weights_only=False):
+        if name not in names:
+            times.append(None)
+            continue
         inp = {k: v.cuda() if torch.is_tensor(v) else v for k, v in inp.items()}
+        if "spec" in inp:
+            inp["spec"] = WindowSpec(*inp["spec"])
         if name == "knn_kernel":
             fn = lambda: knn_cuda(inp["k"], inp["base"], inp["query"])  # noqa: E731
         elif name == "windowed_knn_kernel":
-            spec = WindowSpec(*inp["spec"])
-            fn = lambda: windowed_knn_cuda(inp["k"], inp["base"], inp["query"], spec)  # noqa: E731
+            fn = lambda: windowed_knn_cuda(inp["k"], inp["base"], inp["query"],  # noqa: E731
+                                           inp["spec"])
+        elif name == "fps_kernel":
+            start = fps_start(inp)
+            fn = lambda: fps_cuda(inp["points"], inp["npoint"], start)  # noqa: E731
+        elif name == "windowed_attention_bwd_kernel":
+            fn = lambda: windowed_attention_bwd_cuda(  # noqa: E731
+                inp["packed"], inp["idx"], inp["shifts"], inp["gctx"], inp["n_branches"],
+                inp["c"], inp["spec"])
         else:
             fn = lambda: attention_bwd_cuda(inp["packed"], inp["idx"], inp["shifts"],  # noqa: E731
                                             inp["gctx"], inp["n_branches"], inp["c"])
@@ -202,33 +254,43 @@ def time_saved(path: Path) -> list:
     return times
 
 
-def kernels_main(against) -> int:
-    """``--kernels``: record, then time each root in its own process."""
+def run_root(args: list, root: Path, timeout: int = 1200):
+    """This script with ``args`` in a subprocess whose ``mpa_tpu_torch``
+    comes from ``root``: its last line of output as JSON, or None (with its
+    errors printed) if it failed."""
+    proc = subprocess.run([sys.executable, str(REPO / "profile_port.py"), *args,
+                           "--root", str(root)], capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        print(f"{root} failed:\n{proc.stderr[-3000:]}", flush=True)
+        return None
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def kernels_main(args) -> int:
+    """``--kernels``: record (or reuse a recording), then time each root in
+    its own process."""
     import tempfile
 
+    names = set(args.names.split(",")) if args.names else set(TIMED)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        saved = Path(tmp) / "inputs.pt"
-        record_kernel_inputs(saved)
+        saved = Path(args.inputs) if args.inputs else Path(tmp) / "inputs.pt"
+        if not saved.exists() and run_root(["--record-saved", str(saved)], REPO) is None:
+            return 1
         meta = [(p, n, {k: tuple(v.shape) for k, v in inp.items() if torch.is_tensor(v)})
-                for p, n, inp in torch.load(saved, weights_only=False)]
-        torch.cuda.empty_cache()
-        roots = [("this", REPO)]
-        if against is not None:
-            other = Path(against).resolve()
-            roots = [("other", other), ("this", REPO), ("this", REPO), ("other", other)]
+                for p, n, inp in torch.load(saved, weights_only=False) if n in names]
+        keep = [n in names for _, n, _ in torch.load(saved, weights_only=False)]
+        others = [Path(d).resolve() for d in args.against or []]
+        roots = ([(d.name, d) for d in others] + [("this", REPO), ("this", REPO)]
+                 + [(d.name, d) for d in reversed(others)])
         results = []
         for label, root in roots:
-            proc = subprocess.run([sys.executable, str(REPO / "profile_port.py"), "--time-saved",
-                                   str(saved), "--root", str(root)],
-                                  capture_output=True, text=True, timeout=900)
-            if proc.returncode != 0:
-                print(f"{label} ({root}) failed:\n{proc.stderr[-3000:]}", flush=True)
-                return 1
-            results.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
-            print(f"timed {label} ({root})", flush=True)
+            got = run_root(["--time-saved", str(saved), "--names", ",".join(sorted(names))], root)
+            if got is not None:
+                results.append((label, [t for t, k in zip(got, keep) if k]))
+            print(f"timed {label} ({root}){'' if got is not None else ': failed'}", flush=True)
     print("per launch ms: " + " | ".join(label for label, _ in results))
     for i, (path, name, shapes) in enumerate(meta):
         cols = " ".join(f"{t[i]:.4f}" for _, t in results)
@@ -242,7 +304,7 @@ def kernels_main(against) -> int:
     print("sums per path (ms):")
     for key, cols in sums.items():
         print(f"  {key:48s} " + " ".join(f"{c}={v:.4f}" for c, v in cols.items()))
-    out = REPO / "chiprun_out" / "kernel_times.json"
+    out = REPO / "chiprun_out" / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"card": card, "roots": [label for label, _ in results],
                                "launches": [{"path": p, "name": n, "shapes": s,
@@ -267,21 +329,32 @@ def main() -> int:
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     ap.add_argument("--train", action="store_true", help="profile train steps, not requests")
     ap.add_argument("--kernels", action="store_true",
-                    help="time the kNN and attention-backward launches of the main paths")
-    ap.add_argument("--against", default=None, help="with --kernels: another checkout's root")
+                    help="time the kNN, FPS and attention-backward launches of the main paths")
+    ap.add_argument("--against", nargs="*", default=None,
+                    help="with --kernels: other checkouts' roots")
+    ap.add_argument("--names", default=None, help="with --kernels: only these kernels (a,b)")
+    ap.add_argument("--inputs", default=None,
+                    help="with --kernels: keep the recording here, or reuse it")
+    ap.add_argument("--out", default="kernel_times.json",
+                    help="with --kernels: the file under chiprun_out/")
     ap.add_argument("--time-saved", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--record-saved", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--root", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: needs a CUDA card", file=sys.stderr)
         return 2
-    if args.time_saved:
+    if args.time_saved or args.record_saved:
         sys.path[:0] = [args.root, str(REPO)]
-        print(json.dumps(time_saved(Path(args.time_saved))))
+        if args.record_saved:
+            record_kernel_inputs(Path(args.record_saved))
+            print(json.dumps("recorded"))
+        else:
+            print(json.dumps(time_saved(Path(args.time_saved), set(args.names.split(",")))))
         return 0
     sys.path.insert(0, str(REPO))
     if args.kernels:
-        return kernels_main(args.against)
+        return kernels_main(args)
     cfg = load_cfg(args.model)
     batch, points = args.batch or cfg.batch_size, cfg.num_points
     run = (make_train_steps(args.model, batch) if args.train

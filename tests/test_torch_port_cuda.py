@@ -5,9 +5,15 @@ the plain versions and torch autograd; one train step on the card against
 the CPU; the scatter-mean kernel and its backward; the part segmenter and its
 train step against the CPU; the four Morton-window kernels at the
 ``markov_semseg`` window shapes and at ragged ones, and the semantic
-segmenter and its train step against the CPU; the ball query kernel at the
+segmenter and its train step against the CPU; the windowed attention
+backward at K = 8, 16 and 32 with and without shifts, on in-window
+indices, indices anywhere and forced ties; the ball query kernel at the
 ``repsurf_ssg_2x`` shapes and at ragged ones, the RepSurf classifier and its
-train step against the CPU, and ``fps_kernel`` over 16384 points, through the
+train step against the CPU, and ``fps_kernel`` in each form ``fps_form``
+picks (one block, each cluster size, the sliced form for any C), each
+reached by the shape that picks it, with per-cloud starts,
+repeated and all-coincident points and npoint = N, on
+``markov_partseg_fp``'s feature clouds and over 16384 points, through the
 semantic segmenter's ``window`` mode too. Every test here needs a CUDA
 card (the kernels have no CPU mode) and skips, through the ``dev`` fixture,
 without one.
@@ -57,7 +63,7 @@ from mpa_tpu_torch.ops.ball_query import (
     ball_query_plain,
     radius_squared,
 )
-from mpa_tpu_torch.ops.fps import fps_cuda, fps_plain
+from mpa_tpu_torch.ops.fps import fps_chain_cuda, fps_cuda, fps_form, fps_plain
 from mpa_tpu_torch.ops.gather import gather_cuda, gather_plain, scatter_add_cuda, scatter_add_plain
 from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
 from mpa_tpu_torch.ops.scatter import scatter_mean_cuda, scatter_mean_plain, scatter_mean_upsample
@@ -555,12 +561,13 @@ def test_windowed_knn_gradient_matches_autograd_of_plain(dev):
         _close(got, want, rtol=1e-5)
 
 
-def _window_attention_inputs(dev, n_branches, with_shift, S, N, c, seed, outside=False):
-    """packed, in-window idx from the windowed kNN, shifts and gctx, with a
-    duplicate node (ties) and, with ``outside``, indices anywhere in [0, N)."""
+def _window_attention_inputs(dev, n_branches, with_shift, S, N, c, seed, outside=False, K=8):
+    """packed, in-window idx from the windowed kNN (K neighbours), shifts and
+    gctx, with a duplicate node (ties) and, with ``outside``, indices
+    anywhere in [0, N)."""
     base, query = _morton_pair(seed, 2, S, N, 3, dev, dup=True)
     spec = make_window_spec(S, N)
-    _, idx = windowed_knn_plain(8, base, query, spec)
+    _, idx = windowed_knn_plain(K, base, query, spec)
     g = torch.Generator().manual_seed(seed)
     packed = torch.randn((2, N, n_branches * 2 * c), generator=g)
     for r in range(n_branches):
@@ -614,6 +621,35 @@ def test_windowed_attention_kernels_read_indices_outside_the_window(dev):
     want_p, want_s = attention_bwd_plain(packed, idx, shifts, gctx, 2, 16)
     _close(got_p, want_p, rtol=1e-4)
     _close(got_s, want_s, rtol=1e-5)
+
+
+@pytest.mark.parametrize("K", [8, 16, 32])
+@pytest.mark.parametrize("with_shift", [False, True])
+@pytest.mark.parametrize("case", ["in_window", "outside", "ties"])
+def test_windowed_attention_bwd_kernel_cases(dev, K, with_shift, case):
+    """The backward at K = 8, 16 and 32 (its register templates), with and
+    without shifts: in-window indices, indices anywhere in [0, N), and
+    packed rows repeated in pairs, so that many queries meet neighbours tied
+    for the maximum (the gradient split among the ties)."""
+    n_branches, S, N, c = 2, 1024, 2048, 16
+    spec, packed, idx, shifts, gctx = _window_attention_inputs(
+        dev, n_branches, with_shift, S, N, c, seed=K, outside=case == "outside", K=K)
+    if case == "ties":
+        packed[:, 1::2] = packed[:, 0::2]
+        rows = torch.gather(packed, 1, idx.long().reshape(2, S * K, 1).expand(-1, -1, packed.shape[2]))
+        e, v = rows.reshape(2, S, K, n_branches, 2, c).unbind(4)
+        if shifts is not None:
+            v = v + shifts.reshape(2, S, 1, n_branches, c)
+        w = (e / e.sum(2, keepdim=True) - 1) * v
+        assert int(((w == w.amax(2, keepdim=True)).sum(2) > 1).sum()) > 1000  # many ties
+    got_p, got_s = windowed_attention_bwd_cuda(packed, idx, shifts, gctx, n_branches, c, spec)
+    want_p, want_s = attention_bwd_plain(packed, idx, shifts, gctx, n_branches, c)
+    torch.cuda.synchronize()
+    _close(got_p, want_p, rtol=1e-4)
+    if with_shift:
+        _close(got_s, want_s, rtol=1e-5)
+    else:
+        assert got_s is None
 
 
 # (S, N, C): the semseg decoder and Fuse upsamples at 16384 points and ragged ones.
@@ -678,11 +714,86 @@ def test_semseg_train_step_on_cuda_matches_cpu_and_counts_launches(dev):
 
 
 def test_fps_kernel_at_16384_points(dev):
-    """The 16-points-a-thread instantiation: a 3-channel 16384-point cloud
-    (192 KB of shared memory), with repeated points."""
+    """A 3-channel 16384-point cloud over a cluster of 8 CTAs, each holding
+    the whole cloud (192 KB of shared memory), with repeated points."""
     pts = _cloud(6, (2, 16384, 3), dev, dup=True)
     got = fps_cuda(pts, 8192)
     want = fps_plain(pts, 8192)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+# One shape (N, C) for each form (resident, cluster size, warps) that
+# fps_form picks, at B = 3: resident (C = 3) on one block of 1, 15 and 16
+# warps and on clusters of 4 and 8 CTAs, sliced (C = 5) on 1, 2, 4, 8 and
+# 16 CTAs. N = 1000, 3000 and 5001 are multiples of no slice.
+FPS_FORM_SHAPES = [(100, 3), (1000, 3), (2048, 3), (3000, 3), (5001, 3),
+                   (256, 5), (500, 5), (1000, 5), (2000, 5), (3000, 5)]
+
+
+@pytest.mark.parametrize("N,C", FPS_FORM_SHAPES, ids=lambda v: str(v))
+@pytest.mark.parametrize("case", ["starts", "dup", "coincident", "npoint_n", "scalar"])
+def test_fps_kernel_forms_match_plain(dev, N, C, case):
+    """Each form through the shape that picks it, against the plain version,
+    bit for bit: per-cloud starts (a tensor on the card and one on the
+    host), repeated points, all-coincident points (every distance 0),
+    npoint = N (each point once) and one start for every cloud."""
+    B = 3
+    pts = _cloud(11, (B, N, C), dev, dup=case == "dup")
+    if case == "coincident":
+        pts = torch.zeros_like(pts)
+    start = torch.tensor([0, N * 5 // 9, N - 1], dtype=torch.int32)
+    start = N // 3 if case == "scalar" else start.to(dev) if case != "dup" else start
+    npoint = N if case == "npoint_n" else min(N, 250)
+    got = fps_cuda(pts, npoint, start)
+    want = fps_plain(pts, npoint, start)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"{int((got != want).sum())} picks differ"
+    chain = fps_chain_cuda(pts, npoint, start)  # the chain floor's launch runs
+    torch.cuda.synchronize()
+    assert chain.shape == (B, npoint)
+
+
+def test_fps_kernel_refuses_forms_fps_form_does_not_pick(dev):
+    """``mpa_fps`` takes only ``fps_form``'s forms: a resident cluster of 2
+    or 16, or a form with other warps, is refused, not launched."""
+    from mpa_tpu_torch.kernels import build
+
+    pts = _cloud(13, (2, 4096, 3), dev)
+    out = torch.empty((2, 16), dtype=torch.int32, device=dev)
+    lib = build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    for resident, cs, nw in [(1, 2, 4), (1, 16, 4), (1, 8, 2), (0, 4, 8), (0, 1, 4)]:
+        err = lib.mpa_fps(pts.data_ptr(), None, 0, out.data_ptr(), 2, 4096, 3, 16, cs, nw,
+                          resident, 0, stream)
+        assert err != 0, (resident, cs, nw)
+    assert lib.mpa_fps(pts.data_ptr(), None, 0, out.data_ptr(), 2, 4096, 3, 16,
+                       *fps_form(2, 4096, 3)[1:], 1, 0, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, fps_plain(pts, 16))
+
+
+@pytest.mark.parametrize("B,N,C,npoint", [(2, 2048, 64, 1024), (2, 1024, 64, 512),
+                                          (2, 512, 64, 256), (2, 256, 128, 128),
+                                          (2, 128, 256, 64), (32, 2048, 64, 128)])
+def test_fps_kernel_feature_clouds(dev, B, N, C, npoint):
+    """``markov_partseg_fp``'s feature FPS widths (la0: 512 KB a cloud, more
+    than one block's shared memory), per-cloud starts, in the form
+    ``fps_form`` picks."""
+    pts = _cloud(N + C, (B, N, C), dev)
+    start = torch.arange(B, dtype=torch.int32, device=dev) * 7 % N
+    assert not fps_form(B, N, C)[0]
+    got = fps_cuda(pts, npoint, start)
+    want = fps_plain(pts, npoint, start)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"{int((got != want).sum())} picks differ"
+
+
+def test_fps_kernel_at_16384_points_per_cloud_starts(dev):
+    pts = _cloud(12, (2, 16384, 3), dev, dup=True)
+    start = torch.tensor([5, 16000], dtype=torch.int32, device=dev)
+    got = fps_cuda(pts, 4096, start)
+    want = fps_plain(pts, 4096, start)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
