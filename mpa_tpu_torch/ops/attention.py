@@ -151,6 +151,18 @@ def check_cuda_args(name, packed, idx, shifts, n_branches, c, gctx) -> None:
         raise ValueError(f"{name}: tensors must lie on a CUDA device")
 
 
+def attention_fwd_form(packed: torch.Tensor, shifts: Optional[torch.Tensor], K: int,
+                       c: int) -> int:
+    """``transition_attention_fwd_kernel``'s channels a thread: 4 (float4
+    loads of E, V and the shift, a float4 store) where ``c % 4 == 0``, ``K <=
+    16`` (the K float4 pairs a thread keeps in registers) and ``packed`` and
+    ``shifts`` start on a 16-byte boundary (their rows and branch offsets
+    then do too); 1 for every other call. The kernel's entry refuses 4
+    where it does not hold."""
+    aligned = packed.data_ptr() % 16 == 0 and (shifts is None or shifts.data_ptr() % 16 == 0)
+    return 4 if c % 4 == 0 and K <= 16 and aligned else 1
+
+
 def attention_cuda(
     packed: torch.Tensor,
     idx: torch.Tensor,
@@ -158,11 +170,13 @@ def attention_cuda(
     n_branches: int,
     c: int,
 ) -> torch.Tensor:
-    """Launch ``transition_attention_fwd_kernel`` on CUDA tensors."""
+    """Launch ``transition_attention_fwd_kernel`` on CUDA tensors, with
+    :func:`attention_fwd_form`'s channels a thread."""
     check_cuda_args("transition_attention_fwd_kernel", packed, idx, shifts, n_branches, c,
                 gctx=None)
     B, N, _ = packed.shape
     S, K = idx.shape[1], idx.shape[2]
+    vec = attention_fwd_form(packed, shifts, K, c)
     out = torch.empty((B, S, n_branches * c), dtype=torch.float32, device=packed.device)
     lib = build.load()
     with torch.cuda.device(packed.device):
@@ -171,9 +185,9 @@ def attention_cuda(
             lib.mpa_transition_attention_fwd(
                 packed.data_ptr(), idx.data_ptr(),
                 None if shifts is None else shifts.data_ptr(), out.data_ptr(),
-                B, N, S, K, n_branches, c, stream,
+                B, N, S, K, n_branches, c, vec, stream,
             ),
-            "transition_attention_fwd_kernel",
+            f"transition_attention_fwd_kernel (K={K}, c={c}, {vec} channels a thread)",
         )
     kernels.launched(
         "transition_attention_fwd_kernel",

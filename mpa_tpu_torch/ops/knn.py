@@ -100,7 +100,7 @@ def knn_distance_grads(base, query, idx, g_dist, need_base: bool, need_query: bo
     return d_base, d_query
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
+def aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` as a contiguous float32 tensor starting on a 16-byte boundary,
     copied only where it is not one already."""
     t = t.float().contiguous()
@@ -141,6 +141,6 @@ def knn(
       ``(sqr_dists [B, S, k] float32, idx [B, S, k] int32)``, ascending.
     """
     if on_cuda(base, "base"):
-        return _KnnCuda.apply(k, _aligned(base), _aligned(query))
+        return _KnnCuda.apply(k, aligned(base), aligned(query))
     _check(k, base, query)
     return knn_plain(k, base, query)

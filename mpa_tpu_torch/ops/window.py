@@ -44,14 +44,23 @@ from mpa_tpu_torch.kernels import build
 from mpa_tpu_torch.ops.attention import attention_plain
 from mpa_tpu_torch.ops.attention import check_args as check_attention
 from mpa_tpu_torch.ops.attention import check_cuda_args as check_attention_cuda
-from mpa_tpu_torch.ops.knn import knn_distance_grads
+from mpa_tpu_torch.ops.knn import MAX_C, aligned, knn_distance_grads
 from mpa_tpu_torch.ops.pairwise import dot_in_channel_order
 from mpa_tpu_torch.ops.scatter import MAX_B, scatter_mean_bwd_cuda, scatter_mean_plain
 from mpa_tpu_torch.ops.scatter import check_args as check_scatter
 from mpa_tpu_torch.utils.device import on_cuda
 
-MAX_KNN_K = 32  # windowed_knn_kernel's lane-per-neighbour distance pass
-MAX_KNN_C = 1024
+# windowed_knn_kernel's limits: each thread's list of k in registers (32
+# pairs at most), knn_kernel's channels.
+MAX_KNN_K = 32
+MAX_KNN_C = MAX_C
+# windowed_knn_kernel's resident form (knn_search.cuh): C <= 8 and the
+# window, rounded up to 64 rows, with its norms in 96 KB.
+RESIDENT_C = 8
+RESIDENT_BYTES = 96 * 1024
+# Threads that fill the H100's 132 SMs (about 500 an SM) in the resident
+# form.
+FILL_THREADS = 1 << 16
 MAX_ATTENTION_WINDOW = 8192  # window.cuh kMaxWindow
 
 
@@ -171,10 +180,33 @@ def _check_knn(k: int, base: torch.Tensor, query: torch.Tensor, spec: WindowSpec
         raise ValueError(f"windowed kNN: k={k} must be in [1, window={spec.window}]")
 
 
+def windowed_knn_form(B: int, C: int, spec: WindowSpec) -> Tuple[bool, int]:
+    """``windowed_knn_kernel``'s form for ``B`` clouds of ``C`` channels under
+    ``spec``: ``(resident, par)``, fixed by the shape. ``mpa_windowed_knn``
+    refuses any other form.
+
+    Resident (C <= 8 and the window, rounded up to 64 rows, with its norms
+    within ``RESIDENT_BYTES``): ``par`` threads a query, the fewest (a power
+    of two, at most 32 and at most one for every 4 window rows) that give
+    ``FILL_THREADS`` threads. Streaming (every other shape): ``par`` = 4
+    queries a thread (64 a block) where 16 <= C <= 128 and that gives 128
+    blocks (``knn_kernel`` picks 4 from 256: a window's blocks are shorter);
+    else 1 (16 a block)."""
+    nps = -(-spec.window // 64) * 64
+    if C <= RESIDENT_C and 4 * (C + 1) * nps <= RESIDENT_BYTES:
+        lanes = 1
+        while lanes < 32 and 4 * lanes < spec.window and B * spec.S * lanes < FILL_THREADS:
+            lanes *= 2
+        return True, lanes
+    wide = 16 <= C <= 128 and B * spec.n_chunks * -(-spec.sq // 64) >= 128
+    return False, 4 if wide else 1
+
+
 def windowed_knn_cuda(
     k: int, base: torch.Tensor, query: torch.Tensor, spec: WindowSpec
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``windowed_knn_kernel`` on CUDA tensors."""
+    """Launch ``windowed_knn_kernel`` on CUDA tensors, in
+    :func:`windowed_knn_form`'s form."""
     _check_knn(k, base, query, spec)
     B, N, C = base.shape
     S = query.shape[1]
@@ -185,8 +217,11 @@ def windowed_knn_cuda(
         if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
                 f"windowed_knn_kernel: {name} must be a contiguous float32 CUDA tensor")
+        if t.data_ptr() % 16:  # the streaming form reads rows as float4s
+            raise ValueError(f"windowed_knn_kernel: {name} must start on a 16-byte boundary")
     if base.device != query.device:
         raise ValueError("windowed_knn_kernel: base and query on different devices")
+    resident, par = windowed_knn_form(B, C, spec)
     dist = torch.empty((B, S, k), dtype=torch.float32, device=base.device)
     idx = torch.empty((B, S, k), dtype=torch.int32, device=base.device)
     lib = build.load()
@@ -194,8 +229,9 @@ def windowed_knn_cuda(
         stream = torch.cuda.current_stream().cuda_stream
         build.check(
             lib.mpa_windowed_knn(base.data_ptr(), query.data_ptr(), dist.data_ptr(),
-                                 idx.data_ptr(), B, N, S, C, k, *_spec_args(spec), stream),
-            "windowed_knn_kernel",
+                                 idx.data_ptr(), B, N, S, C, k, *_spec_args(spec), int(resident),
+                                 par, stream),
+            f"windowed_knn_kernel (B={B}, C={C}, {spec}, resident={resident}, par={par})",
         )
     kernels.launched("windowed_knn_kernel", {"k": k, "base": base, "query": query, "spec": spec})
     return dist, idx
@@ -242,8 +278,7 @@ def windowed_knn_with_spec(
     """
     spec = make_window_spec(query.shape[1], base.shape[1], sq=sq)
     if on_cuda(base, "base"):
-        dist, idx = _WindowedKnnCuda.apply(k, base.float().contiguous(),
-                                          query.float().contiguous(), spec)
+        dist, idx = _WindowedKnnCuda.apply(k, aligned(base), aligned(query), spec)
         return dist, idx, spec
     _check_knn(k, base, query, spec)
     dist, idx = windowed_knn_plain(k, base, query, spec)

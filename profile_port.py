@@ -21,8 +21,9 @@ request. Needs a CUDA card; exits non-zero without one.
     python3 profile_port.py --kernels [--names a,b] [--inputs PATH] [--against DIR ...]
 
 Times ``knn_kernel``, ``windowed_knn_kernel``, ``fps_kernel``,
-``transition_attention_bwd_kernel`` and ``windowed_attention_bwd_kernel``
-launch by launch on the inputs the main paths give them: one served request
+``transition_attention_fwd_kernel``, ``transition_attention_bwd_kernel`` and
+``windowed_attention_bwd_kernel`` launch by launch on the inputs the main
+paths give them (the forward kernels' launches of a request): one served request
 of cls, part-seg, repsurf and semseg ``window_all``, one train step of cls,
 part-seg and semseg ``window_all``, and the FPS over 16384 points and the
 exact kNNs of one semseg ``window`` request at 16384 points are recorded,
@@ -65,8 +66,11 @@ PRESETS = {"cls": "scanobjectnn_cls", "partseg": "shapenetpart", "semseg": "s3di
 OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="window_all")}
 
 
-TIMED = ("knn_kernel", "windowed_knn_kernel", "fps_kernel", "transition_attention_bwd_kernel",
-         "windowed_attention_bwd_kernel")
+TIMED = ("knn_kernel", "windowed_knn_kernel", "fps_kernel", "transition_attention_fwd_kernel",
+         "transition_attention_bwd_kernel", "windowed_attention_bwd_kernel")
+# Forward kernels a train step launches at its request's shapes: timed on
+# the request only.
+REQUEST_ONLY = ("fps_kernel", "windowed_knn_kernel", "transition_attention_fwd_kernel")
 
 
 def kind(name: str) -> str:
@@ -182,7 +186,7 @@ def record_kernel_inputs(path: Path) -> None:
                 continue
             if model == "semseg_window" and name == "fps_kernel" and inp["points"].shape[1] < 16384:
                 continue
-            if train and name in ("fps_kernel", "windowed_knn_kernel"):  # the request's shapes
+            if train and name in REQUEST_ONLY:
                 continue
             inp = {k: v.detach().clone() if torch.is_tensor(v) else v for k, v in inp.items()}
             if "spec" in inp:
@@ -222,7 +226,7 @@ def time_saved(path: Path, names) -> list:
     ``mpa_tpu_torch`` first on ``sys.path``: median device ms of a CUDA
     graph of 20 calls (None for the others)."""
     import chip_smoke
-    from mpa_tpu_torch.ops.attention import attention_bwd_cuda
+    from mpa_tpu_torch.ops.attention import attention_bwd_cuda, attention_cuda
     from mpa_tpu_torch.ops.fps import fps_cuda
     from mpa_tpu_torch.ops.knn import knn_cuda
     from mpa_tpu_torch.ops.window import WindowSpec, windowed_attention_bwd_cuda, windowed_knn_cuda
@@ -243,6 +247,9 @@ def time_saved(path: Path, names) -> list:
         elif name == "fps_kernel":
             start = fps_start(inp)
             fn = lambda: fps_cuda(inp["points"], inp["npoint"], start)  # noqa: E731
+        elif name == "transition_attention_fwd_kernel":
+            fn = lambda: attention_cuda(inp["packed"], inp["idx"], inp["shifts"],  # noqa: E731
+                                        inp["n_branches"], inp["c"])
         elif name == "windowed_attention_bwd_kernel":
             fn = lambda: windowed_attention_bwd_cuda(  # noqa: E731
                 inp["packed"], inp["idx"], inp["shifts"], inp["gctx"], inp["n_branches"],
@@ -329,7 +336,7 @@ def main() -> int:
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     ap.add_argument("--train", action="store_true", help="profile train steps, not requests")
     ap.add_argument("--kernels", action="store_true",
-                    help="time the kNN, FPS and attention-backward launches of the main paths")
+                    help="time the kNN, FPS and attention launches of the main paths")
     ap.add_argument("--against", nargs="*", default=None,
                     help="with --kernels: other checkouts' roots")
     ap.add_argument("--names", default=None, help="with --kernels: only these kernels (a,b)")

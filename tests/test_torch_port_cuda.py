@@ -14,7 +14,9 @@ picks (one block, each cluster size, the sliced form for any C), each
 reached by the shape that picks it, with per-cloud starts,
 repeated and all-coincident points and npoint = N, on
 ``markov_partseg_fp``'s feature clouds and over 16384 points, through the
-semantic segmenter's ``window`` mode too. Every test here needs a CUDA
+semantic segmenter's ``window`` mode too; and each form of the windowed
+kNN (``windowed_knn_form``) and of the attention forward
+(``attention_fwd_form``), reached the same way, on the hard inputs. Every test here needs a CUDA
 card (the kernels have no CPU mode) and skips, through the ``dev`` fixture,
 without one.
 
@@ -33,8 +35,8 @@ each with the floor of its own largest entry. The train step is held to
 the claiming rows in a fixed order, the order of a sequential ``index_add_``:
 it is held bit for bit against the plain version run on the CPU, and within
 1e-5 against the plain version on the card, whose ``index_add_`` is
-atomic. The windowed kNN and the windowed attention forward do the plain
-versions' arithmetic in the same order and are held bit for bit; the
+atomic. The windowed kNN and both attention forwards do the plain versions'
+arithmetic in the same order and are held bit for bit; the
 windowed attention backward adds with atomics (shared, then global) and is
 held as the exact one; the windowed scatter-mean as the exact one. The ball
 query's sentinel stage does the plain version's distance arithmetic and is
@@ -55,6 +57,7 @@ from mpa_tpu_torch.ops.attention import (
     attention_bwd_cuda,
     attention_bwd_plain,
     attention_cuda,
+    attention_fwd_form,
     attention_plain,
 )
 from mpa_tpu_torch.ops.ball_query import (
@@ -74,6 +77,7 @@ from mpa_tpu_torch.ops.window import (
     windowed_attention_bwd_cuda,
     windowed_attention_cuda,
     windowed_knn_cuda,
+    windowed_knn_form,
     windowed_knn_plain,
     windowed_knn_with_spec,
     windowed_scatter_mean,
@@ -219,7 +223,7 @@ def test_attention_kernel_matches_plain(dev, n_branches, with_shift, N, S, K, c)
     shifts = None if shifts is None else shifts.to(dev)
     got = attention_cuda(packed, idx, shifts, n_branches, c)
     want = attention_plain(packed, idx, shifts, n_branches, c)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, want)
 
 
 def _close(got, want, rtol):
@@ -337,6 +341,61 @@ def test_attention_bwd_kernel_matches_plain(dev, n_branches, with_shift, N, S, K
         _close(got_s, want_s, rtol=1e-5)
     else:
         assert got_s is None
+
+
+# (n_branches, with_shift, N, S, K, c, case, B, channels a thread): every
+# case also plants an eps-floored query, a duplicate node and a K-way tie.
+ATTENTION_FWD_CASES = [
+    (1, True, 1024, 1024, 8, 64, "plain", 2, 4),
+    (1, False, 64, 32, 8, 512, "plain", 2, 4),
+    (2, True, 300, 100, 16, 24, "plain", 2, 4),
+    (2, False, 50, 20, 5, 7, "plain", 2, 1),
+    (1, True, 200, 60, 64, 32, "plain", 2, 1),  # K = 64: one channel a thread
+    (2, True, 512, 512, 8, 32, "hot", 2, 4),
+    (2, True, 300, 100, 16, 7, "hot", 2, 1),
+    (2, True, 256, 256, 8, 32, "twice", 2, 4),
+    (2, False, 256, 256, 8, 48, "ties", 2, 4),
+    (1, True, 100, 90, 5, 7, "ties", 2, 1),
+    (1, True, 128, 100, 64, 16, "ties", 2, 1),
+    (2, True, 200, 100, 33, 24, "twice", 2, 1),  # K = 33 in the K = 64 body
+    (1, True, 2048, 2048, 8, 64, "plain", 32, 4),  # part-seg's la0 shape
+    (2, True, 512, 512, 8, 128, "plain", 32, 4),  # part-seg's packed LocalMerge
+]
+
+
+@pytest.mark.parametrize("n_branches,with_shift,N,S,K,c,case,B,vec", ATTENTION_FWD_CASES)
+def test_attention_fwd_kernel_forms_match_plain(dev, n_branches, with_shift, N, S, K, c, case,
+                                                B, vec):
+    """Each of ``attention_fwd_form``'s forms, reached by the shape that
+    picks it, bit-equal to the plain version on the hard inputs."""
+    packed, idx, shifts, _ = _attention_inputs("cpu", n_branches, with_shift, N, S, K, c, B=B)
+    attention_case(case, packed, idx)
+    packed, idx = packed.to(dev), idx.to(dev)
+    shifts = None if shifts is None else shifts.to(dev)
+    assert attention_fwd_form(packed, shifts, K, c) == vec
+    got = attention_cuda(packed, idx, shifts, n_branches, c)
+    want = attention_plain(packed, idx, shifts, n_branches, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"{int((got != want).sum())} places differ"
+    assert torch.isfinite(got).all()  # the eps-floored query's attn is -1, not inf
+
+
+@pytest.mark.parametrize("misaligned", ["packed", "shifts"])
+def test_attention_fwd_kernel_misaligned_view(dev, misaligned):
+    """A contiguous view 4 bytes into its storage takes one channel a thread
+    (C % 4 == 0 notwithstanding) and still equals the plain version."""
+    packed, idx, shifts, _ = _attention_inputs("cpu", 2, True, 300, 200, 8, 32)
+
+    def shifted(t):
+        flat = torch.cat([torch.zeros(1), t.reshape(-1)]).to(dev)
+        return flat[1:].view(t.shape)
+
+    packed = shifted(packed) if misaligned == "packed" else packed.to(dev)
+    shifts = shifted(shifts) if misaligned == "shifts" else shifts.to(dev)
+    idx = idx.to(dev)
+    assert attention_fwd_form(packed, shifts, 8, 32) == 1
+    got = attention_cuda(packed, idx, shifts, 2, 32)
+    assert torch.equal(got, attention_plain(packed, idx, shifts, 2, 32))
 
 
 def test_autograd_functions_on_cuda_match_plain(dev):
@@ -544,6 +603,72 @@ def test_windowed_knn_kernel_matches_plain(dev, S, N, C, dup):
     assert torch.equal(gd, wd)
     win0 = spec.window_start(dev)[None, :, None]
     assert bool(((gi >= win0) & (gi < win0 + spec.window)).all())
+
+
+# (S, N, C, sq, k, cloud, form): each form of windowed_knn_form reached by
+# the shape that picks it, (resident, threads a query) or (streaming,
+# queries a thread), on knn_cloud's hard inputs: identical points, an
+# integer grid (many exact ties), distances that fall as the index rises;
+# sq = 8 and 64, so query tiles meet chunk edges; C = 5, 8, 9, 130; k = 1,
+# 16, 17, 32 (lists of 8 and of 32). B = 2.
+WINDOW_KNN_FORMS = [
+    (1024, 16384, 3, 128, 8, "normal", (True, 32)),  # the widest Fuse window, 4096 rows
+    (16384, 16384, 3, 128, 8, "normal", (True, 2)),  # la0's self search
+    (32768, 32768, 3, 128, 8, "grid", (True, 1)),
+    (8192, 16384, 3, 128, 8, "grid", (True, 4)),
+    (2048, 4096, 5, 128, 16, "identical", (True, 16)),
+    (64, 128, 3, 8, 8, "normal", (True, 8)),  # sq = 8: 16-row windows of 32
+    (512, 1024, 5, 64, 16, "grid", (True, 32)),
+    (256, 512, 5, 128, 1, "falling", (True, 32)),
+    (512, 512, 3, 128, 8, "identical", (True, 32)),
+    (1024, 2048, 3, 128, 32, "grid", (True, 32)),
+    (4096, 8192, 3, 128, 17, "falling", (True, 8)),
+    (8192, 8192, 8, 128, 8, "normal", (True, 4)),
+    (1024, 16384, 8, 128, 8, "normal", (False, 1)),  # C = 8 past the resident bytes
+    (8192, 16384, 64, 128, 8, "normal", (False, 4)),
+    (8192, 8192, 32, 128, 8, "grid", (False, 4)),
+    (8192, 16384, 64, 128, 32, "grid", (False, 4)),
+    (2048, 4096, 64, 128, 16, "falling", (False, 1)),
+    (1024, 2048, 128, 128, 17, "normal", (False, 1)),
+    (256, 512, 130, 64, 32, "normal", (False, 1)),  # the query tile streamed
+    (512, 1024, 9, 8, 17, "grid", (False, 1)),
+    (256, 256, 16, 128, 8, "identical", (False, 1)),
+    (1024, 2048, 64, 64, 32, "normal", (False, 1)),
+]
+
+
+@pytest.mark.parametrize("S,N,C,sq,k,cloud,form", WINDOW_KNN_FORMS)
+def test_windowed_knn_kernel_forms_match_plain(dev, S, N, C, sq, k, cloud, form):
+    base, query = knn_cloud(cloud, 2, N, S, C, False, False, seed=S + C)
+    base, query = torch.from_numpy(base).to(dev), torch.from_numpy(query).to(dev)
+    spec = make_window_spec(S, N, sq)
+    assert windowed_knn_form(2, C, spec) == form
+    gd, gi = windowed_knn_cuda(k, base, query, spec)
+    wd, wi = windowed_knn_plain(k, base, query, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi), f"{int((gi != wi).sum())} indices differ"
+    assert torch.equal(gd, wd)
+    win0 = spec.window_start(dev)[None, :, None]
+    assert bool(((gi >= win0) & (gi < win0 + spec.window)).all())
+    if cloud == "identical":  # every distance 0: each window's first k rows
+        assert not gd.any()
+        first = (win0 + torch.arange(k, device=dev)).to(torch.int32).expand_as(gi)
+        assert torch.equal(gi, first)
+
+
+def test_windowed_knn_kernel_misaligned_view(dev):
+    # The streaming form reads rows as float4s: windowed_knn_cuda refuses a
+    # view 4 bytes into its storage, and windowed_knn_with_spec copies it.
+    base, query = knn_cloud("normal", 2, 2048, 1024, 64, False, False)
+    flat = torch.from_numpy(np.concatenate([[0.0], base.ravel()]).astype(np.float32)).to(dev)
+    view = flat[1:].view(base.shape)
+    query = torch.from_numpy(query).to(dev)
+    spec = make_window_spec(1024, 2048)
+    with pytest.raises(ValueError, match="16-byte"):
+        windowed_knn_cuda(8, view, query, spec)
+    gd, gi, _ = windowed_knn_with_spec(8, view, query)
+    wd, wi = windowed_knn_plain(8, view, query, spec)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
 
 
 def test_windowed_knn_gradient_matches_autograd_of_plain(dev):

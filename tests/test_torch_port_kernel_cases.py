@@ -1,5 +1,5 @@
-"""The hard inputs of the kNN and attention-backward kernels, on the CPU:
-the port's plain versions against ``mpa_tpu`` on the same inputs.
+"""The hard inputs of the kNN, windowed kNN and attention kernels, on the
+CPU: the port's plain versions against ``mpa_tpu`` on the same inputs.
 
 The card tests (``tests/test_torch_port_cuda.py``) hold each kernel equal to
 its plain version on these inputs at full size; here, at small sizes, the
@@ -13,6 +13,17 @@ it), so the chain kernel = plain = ``mpa_tpu`` holds on them too:
   Indices exactly equal; distances within 1e-5 relative, with an absolute
   floor of 1e-6 of |q|^2 + |b|^2 (JAX's CPU distances round in their own
   order, and the expanded form cancels).
+- ``windowed_knn_plain`` against ``mpa_tpu``'s ``windowed_knn_reference``
+  and its Pallas kernel ``windowed_knn_indices`` in interpret mode (as
+  ``tests/test_window_attention.py`` runs it): identical points, an integer
+  grid, distances that fall as the index rises, C = 5, 9 and 130, k = 1, 16,
+  17 and 32, sq = 8 and 64 so that query chunks are short. Indices exactly
+  equal; distances within 1e-6 of ``mpa_tpu``'s (the tolerance of
+  ``tests/test_torch_port_window.py``, for its sums in XLA's order).
+- ``attention_plain`` against ``mpa_tpu``'s ``transition_attention`` (its
+  XLA reference, and its Pallas kernels in interpret mode): a hot node, a
+  node named twice by one query, several neighbours tied for the maximum,
+  an eps-floored denominator, K = 5, 8, 16 and 64; rtol 1e-5.
 - ``attention_bwd_plain`` against ``mpa_tpu``'s custom-VJP math and
   ``jax.grad`` of ``transition_attention`` (as
   ``tests/test_torch_port_train.py`` does): a hot node, unnamed nodes, a
@@ -33,11 +44,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import test_torch_port_cls  # noqa: E402,F401  (pins torch to one thread)
 from test_torch_port_cuda import FLOORED, _attention_inputs, attention_case, knn_cloud  # noqa: E402
 
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
 from mpa_tpu.ops.knn import knn as jax_knn  # noqa: E402
+from mpa_tpu.ops.pallas import window_attention as JWA  # noqa: E402
 from mpa_tpu.ops.pallas.attention_pallas import _bwd_scatter_xla  # noqa: E402
 from mpa_tpu.ops.pallas.attention_pallas import transition_attention as jax_attention  # noqa: E402
-from mpa_tpu_torch.ops.attention import attention_bwd_plain  # noqa: E402
+from mpa_tpu_torch.ops.attention import attention_bwd_plain, attention_plain  # noqa: E402
 from mpa_tpu_torch.ops.knn import knn_plain  # noqa: E402
+from mpa_tpu_torch.ops.window import make_window_spec, windowed_knn_plain  # noqa: E402
 
 
 # (k, N, S, C, dup, self_query, cloud, B): the card cases at small sizes.
@@ -124,3 +139,63 @@ def test_attention_bwd_plain_matches_mpa_tpu_on_kernel_cases(n_branches, with_sh
         np.testing.assert_allclose(got_s.numpy(), np.asarray(auto_s), rtol=1e-5, atol=1e-6)
     else:
         assert got_s is None
+
+
+# (S, N, C, sq, k, cloud): the card's windowed-kNN cases at small sizes.
+WINDOW_KNN_CPU_CASES = [
+    (64, 128, 3, 8, 8, "identical"),
+    (64, 64, 16, 128, 8, "identical"),
+    (128, 256, 5, 64, 16, "grid"),
+    (64, 128, 9, 8, 17, "grid"),
+    (128, 128, 3, 128, 32, "grid"),
+    (128, 256, 5, 128, 1, "falling"),
+    (64, 128, 64, 64, 16, "falling"),
+    (64, 128, 130, 64, 32, "falling"),
+    (128, 256, 3, 64, 8, "normal"),
+]
+
+
+@pytest.mark.parametrize("S,N,C,sq,k,cloud", WINDOW_KNN_CPU_CASES)
+def test_windowed_knn_plain_matches_mpa_tpu_on_kernel_cases(S, N, C, sq, k, cloud):
+    base, query = knn_cloud(cloud, 2, N, S, C, False, False, seed=S + C)
+    spec, jspec = make_window_spec(S, N, sq), JWA.make_window_spec(S, N, sq)
+    jb, jq = jnp.asarray(base), jnp.asarray(query)
+    want = np.asarray(JWA.windowed_knn_reference(k, jb, jq, jspec))
+    with pltpu.force_tpu_interpret_mode():
+        kernel = np.asarray(JWA.windowed_knn_indices(k, jb, jq, jspec, precision="highest"))
+    got_d, got_i = windowed_knn_plain(k, torch.from_numpy(base), torch.from_numpy(query), spec)
+    np.testing.assert_array_equal(got_i.numpy(), want)
+    np.testing.assert_array_equal(got_i.numpy(), kernel)
+    want_d, _, _ = JWA.windowed_knn_with_spec(k, jb, jq, sq=sq)
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=1e-6, atol=1e-6)
+    if cloud == "identical":
+        assert not got_d.numpy().any()
+
+
+# (n_branches, with_shift, N, S, K, c, case): the card's forward cases at
+# small sizes.
+ATTENTION_FWD_CPU_CASES = [
+    (2, True, 64, 48, 8, 8, "hot"),
+    (2, True, 60, 40, 16, 7, "hot"),
+    (2, True, 64, 48, 8, 8, "twice"),
+    (2, False, 64, 48, 8, 12, "ties"),
+    (1, True, 40, 30, 5, 7, "ties"),
+    (1, True, 40, 30, 64, 4, "ties"),
+    (1, True, 128, 128, 8, 16, "plain"),
+]
+
+
+@pytest.mark.parametrize("n_branches,with_shift,N,S,K,c,case", ATTENTION_FWD_CPU_CASES)
+def test_attention_plain_matches_mpa_tpu_on_kernel_cases(n_branches, with_shift, N, S, K, c,
+                                                         case):
+    packed, idx, shifts, _ = _attention_inputs("cpu", n_branches, with_shift, N, S, K, c)
+    attention_case(case, packed, idx)
+    args = (jnp.asarray(packed.numpy()), jnp.asarray(idx.numpy()),
+            None if shifts is None else jnp.asarray(shifts.numpy()))
+    got = attention_plain(packed, idx, shifts, n_branches, c).numpy()
+    assert np.isfinite(got).all()
+    want = np.asarray(jax_attention(*args, n_branches, c))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    with pltpu.force_tpu_interpret_mode():
+        kernel = np.asarray(jax_attention(*args, n_branches, c, use_pallas=True))
+    np.testing.assert_allclose(got, kernel, rtol=1e-5, atol=1e-6)
