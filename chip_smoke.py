@@ -81,7 +81,9 @@ backward):
    windowed attention backward as the exact one, the windowed scatter-mean as
    the exact one; the ball query's sentinel stage bit-equal), with the
    kernel's, the plain version's and, where one PyTorch
-   call computes the same function, that call's time, beside the bound the
+   call computes the same function, that call's time (for the scatter-means
+   ``scatter_reduce_(reduce="mean", include_self=False)``, and beside it
+   ``index_add_`` twice and a divide), beside the bound the
    card's memory rate and float32 rate put on the same work, and for FPS the
    chain floor (the same launch with its distance work cut: the time of
    its npoint dependent rounds of reduction and barrier); the kNN
@@ -476,13 +478,13 @@ def check_call(name: str, inp: dict) -> dict:
         gather_cuda, gather_plain, scatter_add_cuda, scatter_add_plain,
     )
     from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
-    from mpa_tpu_torch.ops.scatter import scatter_mean_cuda, scatter_mean_plain
+    from mpa_tpu_torch.ops.scatter import scatter_mean_cuda, scatter_mean_form, scatter_mean_plain
     from mpa_tpu_torch.ops.window import (
         check_in_window, windowed_attention_bwd_cuda, windowed_attention_cuda, windowed_knn_cuda,
         windowed_knn_form, windowed_knn_plain, windowed_scatter_mean_cuda,
     )
 
-    library, ref, chain, spec = None, None, None, inp.get("spec")
+    library, ref, chain, spec, extra = None, None, None, inp.get("spec"), {}
     if spec is not None and name != "windowed_knn_kernel":
         check_in_window(inp["idx"] if "idx" in inp else inp["knn_idx"], spec, name)
     if name == "knn_kernel":
@@ -573,10 +575,14 @@ def check_call(name: str, inp: dict) -> dict:
         vals = feats[:, :, None, :].expand(B, S, K, C).reshape(-1, C)
         ones = torch.ones_like(rows, dtype=torch.float32)
 
-        def library():  # index_add_ of the rows and of ones, then the divide
+        def index_adds():  # index_add_ of the rows and of ones, then the divide
             total = torch.zeros((B * n, C), device=feats.device).index_add_(0, rows, vals)
             cnt = torch.zeros((B * n,), device=feats.device).index_add_(0, rows, ones)
             return total / cnt.clamp_min(1.0)[:, None]
+
+        rows_c = rows[:, None].expand(-1, C)
+        library = lambda: torch.zeros((B * n, C), device=feats.device).scatter_reduce_(  # noqa: E731
+            0, rows_c, vals, reduce="mean", include_self=False)
 
         (got, gc), (again, _), (want, wc) = kern(), kern(), plain()
         cpu, cc = scatter_mean_plain(feats.cpu(), idx.cpu(), n)
@@ -593,6 +599,9 @@ def check_call(name: str, inp: dict) -> dict:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         err = (got - want).abs().max().item()
         shape = f"features {tuple(feats.shape)} idx {tuple(idx.shape)} into N={n}"
+        if spec is None:
+            shape += ", {} slots a block, {} channels a lane".format(*scatter_mean_form(feats, n))
+        extra["index_add_ms"] = time_graph(index_adds)
     elif name in ("transition_attention_bwd_kernel", "windowed_attention_bwd_kernel"):
         args = (inp["packed"], inp["idx"], inp["shifts"], inp["gctx"], inp["n_branches"], inp["c"])
         kern, plain = (lambda: attention_bwd_cuda(*args)), (lambda: attention_bwd_plain(*args))
@@ -616,10 +625,9 @@ def check_call(name: str, inp: dict) -> dict:
                                  f"{int((got != want).sum())} places")
         err = 0.0
         shape = (f"packed {tuple(args[0].shape)} idx {tuple(args[1].shape)} "
-                 f"shift={args[2] is not None} n_branches={args[3]}")
-        if spec is None:
-            vec = attention_fwd_form(args[0], args[2], args[1].shape[2], args[4])
-            shape += f", {vec} channels a thread"
+                 f"shift={args[2] is not None} n_branches={args[3]}, "
+                 f"{attention_fwd_form(args[0], args[2], args[1].shape[2], args[4])} "
+                 "channels a thread")
     torch.cuda.synchronize()
     nbytes, ops = bound(name, inp)
     row = {
@@ -635,6 +643,7 @@ def check_call(name: str, inp: dict) -> dict:
         "ops_ms": ops / PEAK_F32_OPS_PER_S * 1e3,
     }
     row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+    row.update(extra)
     return row
 
 
@@ -988,6 +997,8 @@ def replay_call(path: str, name: str, inp: dict) -> dict:
     lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
     ref = "" if row["max_abs_ref"] is None else f" (of max |ref| {row['max_abs_ref']:.3e})"
     chain = "" if row["chain_floor_ms"] is None else f", chain floor {row['chain_floor_ms']:.4f} ms"
+    if "index_add_ms" in row:
+        chain += f", index_add_ x2 + divide {row['index_add_ms']:.4f} ms"
     log(f"[3 {path}] {name} {row['shape']}: max_abs_err {row['max_abs_err']:.3e}{ref}, "
         f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {lib} ms, "
         f"bound {row['bound_ms']:.4f} ms{chain}")
@@ -1080,6 +1091,8 @@ def summarise(name: str, rows: list, counts: dict) -> dict:
             "library_ms": None if None in libs else sum(libs),
             **({"chain_floor_ms": sum(r["chain_floor_ms"] for r in mine)}
                if name == "fps_kernel" else {}),
+            **({"index_add_ms": sum(r["index_add_ms"] for r in mine)}
+               if "index_add_ms" in mine[0] else {}),
         }
 
     by_path = {path: sums([r for r in rows if r["name"] == name and r["path"] == path])
@@ -1114,16 +1127,16 @@ PLANTED_FAULTS = {
     "none": None,
     "first claimant of every slot dropped": (
         "partseg", "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
-        "if (c0 + c < C) acc[r] = __fadd_rn(acc[r], row[c]);",
-        "if (c0 + c < C && cnt > 0) acc[r] = __fadd_rn(acc[r], row[c]);"),
+        "int j = j0;",
+        "int j = min(j0 + 1, j1);"),
     "count used without the clamp": (
         "partseg", "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
-        "const float den = fmaxf(static_cast<float>(cnt), 1.f);",
-        "const float den = static_cast<float>(cnt);"),
-    "a lane's second claim not counted": (
+        "const float den = fmaxf(static_cast<float>(claims[slot]), 1.f);",
+        "const float den = static_cast<float>(claims[slot]);"),
+    "every fourth claim of a slot's list not added": (
         "partseg", "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
-        "            ++cnt;\n          }\n",
-        "          }\n          ++cnt;\n"),
+        "          add_row(acc, r3);\n",
+        ""),
     "backward without the divide by the count": (
         "partseg", "mpa_tpu_torch/ops/scatter.py",
         "g_norm = (grad / count.clamp_min(1.0)[..., None]).contiguous()",
@@ -1132,10 +1145,10 @@ PLANTED_FAULTS = {
         "semseg", "mpa_tpu_torch/kernels/csrc/knn_search.cuh",
         "return {s0, min(s0 + qt, w.s_hi), w.win0, 2 * a.bn};",
         "return {s0, min(s0 + qt, w.s_hi), w.win0, 2 * a.bn - 16};"),
-    "windowed attention: window offset off by one block": (
-        "semseg", "mpa_tpu_torch/kernels/csrc/window_attention.cu",
-        "auto local = [&](int k) { return my[k] - ch.win0; };",
-        "auto local = [&](int k) { return my[k] - ch.win0 - bn; };"),
+    "attention forward: the last neighbour's E left out of the denominator": (
+        "semseg", "mpa_tpu_torch/kernels/csrc/attention_fwd.cuh",
+        "if (k < K) denom = __fadd_rn(denom, e[k][i]);",
+        "if (k < K - 1) denom = __fadd_rn(denom, e[k][i]);"),
     "attention backward: no tie split": (
         "semseg", "mpa_tpu_torch/kernels/csrc/attention_bwd.cuh",
         "const float dw = __fmul_rn(__fdiv_rn(1.f, cnt), gctx[orow + oc]);",

@@ -10,10 +10,6 @@
 
 namespace mpa {
 
-// The widest window the attention forward stages (two [2*bn] f32 band
-// arrays of one channel fit a block's shared memory).
-constexpr int kMaxWindow = 8192;
-
 // Padded chunk c: its window's first base row and its real query rows
 // [s_lo, s_hi).
 struct WindowChunk {
@@ -25,16 +21,5 @@ struct WindowChunk {
     s_hi = min(c * sq + sq - pad, S);
   }
 };
-
-// Channels per block for the attention forward, which stages two band
-// arrays (E and V) of [W rows][ct] f32: a power of two, at most 32 and no
-// wider than C needs, halved until the arrays take at most 64 KB (three
-// blocks to an SM).
-inline int window_channel_tile(int W, int C) {
-  int ct = 32;
-  while (ct > 1 && ct / 2 >= C) ct /= 2;
-  while (ct > 1 && sizeof(float) * 2 * static_cast<size_t>(W) * ct > 64 * 1024) ct /= 2;
-  return ct;
-}
 
 }  // namespace mpa

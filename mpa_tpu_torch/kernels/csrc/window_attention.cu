@@ -9,112 +9,51 @@
 //   denom = sum_k E (in neighbour order),  attn = E / max(denom, 1e-20) - 1,
 //   ctx   = max_k(attn * (V + shift)),
 // for an idx whose row s lies in its query chunk's Morton window (WindowSpec
-// in ops/window.py): [g*bn, g*bn + 2*bn), g = clamp(c - 1, 0, n_chunks - 2),
-// c = (s + sq/2) / sq. An index outside that window is still read, from
-// device memory, so the result is right for any idx in [0, N); it is only
-// slower. It is never dropped, as the TPU kernel's one-hot band would drop
-// it.
+// in ops/window.py, window.cuh). An index outside that window is read like
+// any other, so the result is right for any idx in [0, N); it is never
+// dropped, as the TPU kernel's one-hot band would drop it.
 //
 // What bounds it on the H100: bytes (packed, idx and shifts read once, ctx
-// written once); the arithmetic is a few operations per gathered float. The
-// window is a locality fact: a chunk of sq queries reads only 2*bn rows.
-// Design: one block per (cloud, padded chunk, tile of up to 32 channels of
-// one branch). It stages the window's E and V columns of its tile in shared
-// memory (coalesced rows) and the chunk's indices beside them, then threads
-// run over (query, channel) pairs, channels fastest, and gather the K
-// neighbours from shared memory. The denominator is summed in neighbour
-// order with separately rounded adds, as attention.cu and the plain version
-// (ops/attention.py::attention_plain) do, so all three agree bit for bit.
+// written once); the arithmetic is a few operations per gathered float.
+// Design: the window is a locality fact, not a staging obligation. The
+// kernel runs the exact forward's one pass (attention_fwd.cuh): a block
+// takes 8 or 16 consecutive queries, which lie in one padded chunk where
+// that count divides sq/2 (the chunks' edges fall on multiples of sq/2) and
+// in Morton order name mostly the same rows, so the gathered rows come
+// from L1 and L2 while they are hot; each thread loads its K (E, V) pairs
+// once into registers, one or four channels a thread
+// (ops/attention.py::attention_fwd_form). The design before this
+// one staged each padded chunk's window in shared memory, a channel tile of
+// at most 32 (16 at semseg's 512-row windows) at a time: every row was
+// staged by about two chunks and once for each of n_branches * C / 16
+// tiles, and every E was read twice behind an in-window test.
+#include "attention_fwd.cuh"
 #include "common.cuh"
-#include "window.cuh"
 
 namespace {
 
-constexpr float kEps = 1e-20f;  // attention_pallas.py _EPS: the denominator floor
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
-windowed_attention_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ idx,
-                              const float* __restrict__ shifts, float* __restrict__ out, int N,
-                              int S, int K, int n_branches, int C, int sq, int bn, int n_chunks,
-                              int ct) {
-  extern __shared__ float smem[];
-  const int W = 2 * bn;
-  float* e_s = smem;           // [W][ct]
-  float* v_s = e_s + W * ct;   // [W][ct]
-  int* idx_s = reinterpret_cast<int*>(v_s + W * ct);  // [sq][K]
-  const mpa::WindowChunk ch(blockIdx.x, S, sq, bn, n_chunks);
-  const int b = blockIdx.z;
-  const int tiles = mpa::ceil_div(C, ct);
-  const int r = blockIdx.y / tiles, c0 = (blockIdx.y % tiles) * ct;
-  const int cw = min(ct, C - c0);  // channels of this tile
-  const int Wp = 2 * n_branches * C, Wo = n_branches * C;
-  const int e_off = 2 * r * C + c0, v_off = e_off + C;
-  const float* pb = packed + static_cast<size_t>(b) * N * Wp;
-
-  for (int i = threadIdx.x; i < W * ct; i += kThreads) {
-    const int row = i / ct, j = i - row * ct;
-    if (j < cw) {
-      const float* src = pb + static_cast<size_t>(ch.win0 + row) * Wp;
-      e_s[i] = src[e_off + j];
-      v_s[i] = src[v_off + j];
-    }
-  }
-  const int nq = ch.s_hi - ch.s_lo;
-  const int* ib = idx + (static_cast<size_t>(b) * S + ch.s_lo) * K;
-  for (int i = threadIdx.x; i < nq * K; i += kThreads) idx_s[i] = ib[i];
-  __syncthreads();
-
-  for (int p = threadIdx.x; p < nq * ct; p += kThreads) {
-    const int q = p / ct, j = p - q * ct;
-    if (j >= cw) continue;
-    const int* my = idx_s + q * K;
-    // Row k's E and V for channel j: from the band, or from device memory
-    // for an index outside the window.
-    auto local = [&](int k) { return my[k] - ch.win0; };
-    auto e_at = [&](int k) {
-      const int l = local(k);
-      return (l >= 0 && l < W) ? e_s[l * ct + j] : pb[static_cast<size_t>(my[k]) * Wp + e_off + j];
-    };
-    auto v_at = [&](int k) {
-      const int l = local(k);
-      return (l >= 0 && l < W) ? v_s[l * ct + j] : pb[static_cast<size_t>(my[k]) * Wp + v_off + j];
-    };
-    float denom = e_at(0);
-    for (int k = 1; k < K; ++k) denom = __fadd_rn(denom, e_at(k));
-    const float den = fmaxf(denom, kEps);
-    const size_t o = (static_cast<size_t>(b) * S + ch.s_lo + q) * Wo + r * C + c0 + j;
-    const float shift = shifts != nullptr ? shifts[o] : 0.f;
-    float m = -INFINITY;
-    for (int k = 0; k < K; ++k) {
-      float v = v_at(k);
-      if (shifts != nullptr) v = __fadd_rn(v, shift);
-      const float attn = __fsub_rn(__fdiv_rn(e_at(k), den), 1.f);
-      m = fmaxf(m, __fmul_rn(attn, v));
-    }
-    out[o] = m;
-  }
+template <int KMAX, int VEC>
+__global__ void __launch_bounds__(mpa::kAttentionFwdThreads,
+                                  mpa::attention_fwd_min_blocks(KMAX, VEC))
+windowed_attention_fwd_kernel(
+    const float* __restrict__ packed, const int* __restrict__ idx,
+    const float* __restrict__ shifts, float* __restrict__ out,
+    int N, int S, int K, int n_branches, int C) {
+  mpa::attention_fwd_body<KMAX, VEC>(packed, idx, shifts, out, N, S, K, n_branches, C);
 }
 
 }  // namespace
 
 // packed [B,N,nB*2C], idx [B,S,K] int32 in [0, N), shifts [B,S,nB*C] or null,
-// out [B,S,nB*C]; all contiguous f32 except idx; the window spec (sq, bn,
-// n_chunks) as make_window_spec gives it. Requires 1 <= K <= 64 and
-// 2*bn <= mpa::kMaxWindow (checked by the Python wrapper).
+// out [B,S,nB*C]; all contiguous f32 except idx. Requires 1 <= K <= 64
+// (checked by the Python wrapper). vec: as mpa_transition_attention_fwd.
 MPA_EXPORT int mpa_windowed_attention_fwd(const void* packed, const void* idx, const void* shifts,
                                           void* out, int B, int N, int S, int K, int n_branches,
-                                          int C, int sq, int bn, int n_chunks, void* stream) {
-  if (B == 0 || S == 0 || C == 0) return cudaGetLastError();
-  const int ct = mpa::window_channel_tile(2 * bn, C);
-  const size_t smem = sizeof(float) * 2 * static_cast<size_t>(2 * bn) * ct +
-                      sizeof(int) * static_cast<size_t>(sq) * K;
-  cudaError_t err = mpa::allow_smem(windowed_attention_fwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(n_chunks + 1, n_branches * mpa::ceil_div(C, ct), B);
-  windowed_attention_fwd_kernel<<<grid, kThreads, smem, mpa::as_stream(stream)>>>(
-      static_cast<const float*>(packed), static_cast<const int*>(idx),
-      static_cast<const float*>(shifts), static_cast<float*>(out), N, S, K, n_branches, C, sq, bn,
-      n_chunks, ct);
-  return cudaGetLastError();
+                                          int C, int vec, void* stream) {
+  static const mpa::AttentionFwdKernels kernels = {
+      {windowed_attention_fwd_kernel<8, 4>, windowed_attention_fwd_kernel<16, 4>},
+      {windowed_attention_fwd_kernel<8, 1>, windowed_attention_fwd_kernel<16, 1>,
+       windowed_attention_fwd_kernel<32, 1>, windowed_attention_fwd_kernel<64, 1>}};
+  return mpa::launch_attention_fwd(kernels, packed, idx, shifts, out, B, N, S, K, n_branches, C,
+                                   vec, mpa::as_stream(stream));
 }

@@ -9,7 +9,8 @@ counts twice); unclaimed fine points stay zero.
 
 On a CUDA tensor :func:`scatter_mean_upsample` is a
 ``torch.autograd.Function`` whose forward launches ``scatter_mean_kernel``
-(``kernels/csrc/scatter_mean.cu``) and keeps the per-slot count, and whose
+(``kernels/csrc/scatter_mean.cu``, in :func:`scatter_mean_form`'s form) and
+keeps the per-slot count, and whose
 backward is the VJP of ``scatter_pallas.py::_bwd``: the incoming gradient
 divided by the count, gathered through ``gather_rows_kernel`` and summed over
 K. On a CPU tensor it takes :func:`scatter_mean_plain`, which autograd
@@ -29,6 +30,11 @@ from mpa_tpu_torch.ops.gather import gather_cuda
 from mpa_tpu_torch.utils.device import on_cuda
 
 MAX_B = 65535  # the kernel's grid runs the batch along y
+# scatter_mean_kernel's blocks own at most 256 slots each (one a thread in
+# its scan); the form takes fewer, down to 32, until the launch has two
+# blocks for each of the H100's 132 SMs.
+MAX_SLOTS, MIN_SLOTS = 256, 32
+FILL_BLOCKS = 2 * 132
 
 
 def scatter_mean_plain(
@@ -66,11 +72,28 @@ def check_args(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int) -> 
         raise ValueError(f"scatter_mean_upsample: num_fine={num_fine} < 0")
 
 
+def scatter_mean_form(features: torch.Tensor, num_fine: int) -> Tuple[int, int]:
+    """``scatter_mean_kernel``'s form for ``features [B,S,C]`` into
+    ``num_fine`` slots: ``(slots, vec)``. ``slots``: the slots a block owns
+    (it reads the cloud's S*K indices once for them), 256 halved down to 32
+    while the launch has fewer than ``FILL_BLOCKS`` blocks. ``vec``: the
+    channels a lane adds, 4 (float4 loads and stores) where ``C % 4 == 0``
+    and ``features`` starts on a 16-byte boundary, else 1. The kernel's
+    entry refuses any other form."""
+    B, _, C = features.shape
+    slots = MAX_SLOTS
+    while slots > MIN_SLOTS and B * -(-num_fine // slots) < FILL_BLOCKS:
+        slots //= 2
+    vec = 4 if C % 4 == 0 and features.data_ptr() % 16 == 0 else 1
+    return slots, vec
+
+
 def scatter_mean_cuda(
     features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``scatter_mean_kernel``: features ``[B,S,C]`` f32, knn_idx
-    ``[B,S,K]`` int32 -> ``(mean [B,num_fine,C], count [B,num_fine])`` f32."""
+    """Launch ``scatter_mean_kernel`` in :func:`scatter_mean_form`'s form:
+    features ``[B,S,C]`` f32, knn_idx ``[B,S,K]`` int32 -> ``(mean
+    [B,num_fine,C], count [B,num_fine])`` f32."""
     check_args(features, knn_idx, num_fine)
     for arg, t, dt in (("features", features, torch.float32), ("knn_idx", knn_idx, torch.int32)):
         if t.device.type != "cuda" or t.dtype != dt or not t.is_contiguous():
@@ -82,6 +105,7 @@ def scatter_mean_cuda(
     if B > MAX_B or C < 1 or K < 1 or S * K >= 2 ** 31:
         raise ValueError(f"scatter_mean_kernel: B <= {MAX_B}, C >= 1, K >= 1 and S*K < 2^31 "
                          f"expected, got B={B}, S={S}, K={K}, C={C}")
+    slots, vec = scatter_mean_form(features, num_fine)
     out = torch.empty((B, num_fine, C), dtype=torch.float32, device=features.device)
     count = torch.empty((B, num_fine), dtype=torch.float32, device=features.device)
     lib = build.load()
@@ -89,8 +113,8 @@ def scatter_mean_cuda(
         stream = torch.cuda.current_stream().cuda_stream
         build.check(
             lib.mpa_scatter_mean(features.data_ptr(), knn_idx.data_ptr(), out.data_ptr(),
-                                 count.data_ptr(), B, S, K, num_fine, C, stream),
-            "scatter_mean_kernel",
+                                 count.data_ptr(), B, S, K, num_fine, C, slots, vec, stream),
+            f"scatter_mean_kernel ({slots} slots a block, {vec} channels a lane)",
         )
     kernels.launched("scatter_mean_kernel",
                      {"features": features, "knn_idx": knn_idx, "num_fine": num_fine})

@@ -41,7 +41,7 @@ from torch.autograd.function import once_differentiable
 
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
-from mpa_tpu_torch.ops.attention import attention_plain
+from mpa_tpu_torch.ops.attention import attention_fwd_form, attention_plain
 from mpa_tpu_torch.ops.attention import check_args as check_attention
 from mpa_tpu_torch.ops.attention import check_cuda_args as check_attention_cuda
 from mpa_tpu_torch.ops.knn import MAX_C, aligned, knn_distance_grads
@@ -61,7 +61,6 @@ RESIDENT_BYTES = 96 * 1024
 # Threads that fill the H100's 132 SMs (about 500 an SM) in the resident
 # form.
 FILL_THREADS = 1 << 16
-MAX_ATTENTION_WINDOW = 8192  # window.cuh kMaxWindow
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,18 +290,17 @@ def windowed_knn_with_spec(
 def _check_window_attention(name, packed, idx, shifts, n_branches, c, spec, gctx=None) -> None:
     check_attention_cuda(name, packed, idx, shifts, n_branches, c, gctx)
     _spec_for(spec, idx.shape[1], packed.shape[1], name)
-    if spec.window > MAX_ATTENTION_WINDOW:
-        raise ValueError(f"{name}: window {spec.window} > {MAX_ATTENTION_WINDOW}")
 
 
 def windowed_attention_cuda(packed, idx, shifts, n_branches: int, c: int,
                             spec: WindowSpec) -> torch.Tensor:
-    """Launch ``windowed_attention_fwd_kernel``; the function of
-    ``attention_plain``."""
+    """Launch ``windowed_attention_fwd_kernel``, with ``attention_fwd_form``'s
+    channels a thread; the function of ``attention_plain``."""
     name = "windowed_attention_fwd_kernel"
     _check_window_attention(name, packed, idx, shifts, n_branches, c, spec)
     B, N, _ = packed.shape
     S, K = idx.shape[1], idx.shape[2]
+    vec = attention_fwd_form(packed, shifts, K, c)
     out = torch.empty((B, S, n_branches * c), dtype=torch.float32, device=packed.device)
     lib = build.load()
     with torch.cuda.device(packed.device):
@@ -311,8 +309,8 @@ def windowed_attention_cuda(packed, idx, shifts, n_branches: int, c: int,
             lib.mpa_windowed_attention_fwd(
                 packed.data_ptr(), idx.data_ptr(),
                 None if shifts is None else shifts.data_ptr(), out.data_ptr(),
-                B, N, S, K, n_branches, c, *_spec_args(spec), stream),
-            name,
+                B, N, S, K, n_branches, c, vec, stream),
+            f"{name} (K={K}, c={c}, {vec} channels a thread)",
         )
     kernels.launched(name, {"packed": packed, "idx": idx, "shifts": shifts,
                             "n_branches": n_branches, "c": c, "spec": spec})

@@ -21,7 +21,8 @@ request. Needs a CUDA card; exits non-zero without one.
     python3 profile_port.py --kernels [--names a,b] [--inputs PATH] [--against DIR ...]
 
 Times ``knn_kernel``, ``windowed_knn_kernel``, ``fps_kernel``,
-``transition_attention_fwd_kernel``, ``transition_attention_bwd_kernel`` and
+``transition_attention_fwd_kernel``, ``windowed_attention_fwd_kernel``,
+``scatter_mean_kernel``, ``transition_attention_bwd_kernel`` and
 ``windowed_attention_bwd_kernel`` launch by launch on the inputs the main
 paths give them (the forward kernels' launches of a request): one served request
 of cls, part-seg, repsurf and semseg ``window_all``, one train step of cls,
@@ -67,10 +68,12 @@ OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="windo
 
 
 TIMED = ("knn_kernel", "windowed_knn_kernel", "fps_kernel", "transition_attention_fwd_kernel",
+         "windowed_attention_fwd_kernel", "scatter_mean_kernel",
          "transition_attention_bwd_kernel", "windowed_attention_bwd_kernel")
 # Forward kernels a train step launches at its request's shapes: timed on
 # the request only.
-REQUEST_ONLY = ("fps_kernel", "windowed_knn_kernel", "transition_attention_fwd_kernel")
+REQUEST_ONLY = ("fps_kernel", "windowed_knn_kernel", "transition_attention_fwd_kernel",
+                "windowed_attention_fwd_kernel", "scatter_mean_kernel")
 
 
 def kind(name: str) -> str:
@@ -229,7 +232,10 @@ def time_saved(path: Path, names) -> list:
     from mpa_tpu_torch.ops.attention import attention_bwd_cuda, attention_cuda
     from mpa_tpu_torch.ops.fps import fps_cuda
     from mpa_tpu_torch.ops.knn import knn_cuda
-    from mpa_tpu_torch.ops.window import WindowSpec, windowed_attention_bwd_cuda, windowed_knn_cuda
+    from mpa_tpu_torch.ops.scatter import scatter_mean_cuda
+    from mpa_tpu_torch.ops.window import (
+        WindowSpec, windowed_attention_bwd_cuda, windowed_attention_cuda, windowed_knn_cuda,
+    )
 
     times = []
     for _, name, inp in torch.load(path, weights_only=False):
@@ -250,6 +256,12 @@ def time_saved(path: Path, names) -> list:
         elif name == "transition_attention_fwd_kernel":
             fn = lambda: attention_cuda(inp["packed"], inp["idx"], inp["shifts"],  # noqa: E731
                                         inp["n_branches"], inp["c"])
+        elif name == "windowed_attention_fwd_kernel":
+            fn = lambda: windowed_attention_cuda(  # noqa: E731
+                inp["packed"], inp["idx"], inp["shifts"], inp["n_branches"], inp["c"], inp["spec"])
+        elif name == "scatter_mean_kernel":
+            fn = lambda: scatter_mean_cuda(inp["features"], inp["knn_idx"],  # noqa: E731
+                                           inp["num_fine"])
         elif name == "windowed_attention_bwd_kernel":
             fn = lambda: windowed_attention_bwd_cuda(  # noqa: E731
                 inp["packed"], inp["idx"], inp["shifts"], inp["gctx"], inp["n_branches"],
@@ -336,7 +348,7 @@ def main() -> int:
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     ap.add_argument("--train", action="store_true", help="profile train steps, not requests")
     ap.add_argument("--kernels", action="store_true",
-                    help="time the kNN, FPS and attention launches of the main paths")
+                    help="time the kNN, FPS, attention and scatter-mean launches of the main paths")
     ap.add_argument("--against", nargs="*", default=None,
                     help="with --kernels: other checkouts' roots")
     ap.add_argument("--names", default=None, help="with --kernels: only these kernels (a,b)")

@@ -16,7 +16,13 @@ repeated and all-coincident points and npoint = N, on
 ``markov_partseg_fp``'s feature clouds and over 16384 points, through the
 semantic segmenter's ``window`` mode too; and each form of the windowed
 kNN (``windowed_knn_form``) and of the attention forward
-(``attention_fwd_form``), reached the same way, on the hard inputs. Every test here needs a CUDA
+(``attention_fwd_form``), exact and windowed, and of the scatter-mean
+(``scatter_mean_form``: 32, 128 or 256 slots a block, one or four channels
+a lane, passes of 4096 indices), reached the same way, on the hard inputs
+(for the scatter-mean: slots with no claim and with more than 32, a slot
+named twice by one coarse point, indices outside [0, N), N not a multiple
+of a block's slots, S*K = 131072, B = 1, C = 1 to 512, a misaligned view).
+Every test here needs a CUDA
 card (the kernels have no CPU mode) and skips, through the ``dev`` fixture,
 without one.
 
@@ -69,7 +75,9 @@ from mpa_tpu_torch.ops.ball_query import (
 from mpa_tpu_torch.ops.fps import fps_chain_cuda, fps_cuda, fps_form, fps_plain
 from mpa_tpu_torch.ops.gather import gather_cuda, gather_plain, scatter_add_cuda, scatter_add_plain
 from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
-from mpa_tpu_torch.ops.scatter import scatter_mean_cuda, scatter_mean_plain, scatter_mean_upsample
+from mpa_tpu_torch.ops.scatter import (
+    scatter_mean_cuda, scatter_mean_form, scatter_mean_plain, scatter_mean_upsample,
+)
 from mpa_tpu_torch.ops.morton import morton_sort
 from mpa_tpu_torch.ops.pairwise import square_distance
 from mpa_tpu_torch.ops.window import (
@@ -498,6 +506,26 @@ SCATTER_CASES = ["decoder", "fuse_far", "wide", "odd", "k1", "c1", "c256", "c300
                  "tiles"]
 
 
+def scatter_mean_case(case, B, S, K, N, C, seed=0):
+    """numpy features ``[B,S,C]`` f32 and indices ``[B,S,K]`` int32 into N
+    slots: ``plain``, indices drawn in [0, N); ``zero_and_many``, slot N - 1
+    never claimed and slot 7 claimed by every fifth coarse point (more than
+    32 claims once S > 160); ``twice``, coarse point 3 naming slot 11 twice;
+    ``outside``, indices N + 2, -1, 2^31 - 1 and -2^31, which claim no
+    slot."""
+    rng = np.random.default_rng(seed + S + N + C)
+    feats = rng.standard_normal((B, S, C)).astype(np.float32)
+    idx = rng.integers(0, N - (case == "zero_and_many"), (B, S, K)).astype(np.int32)
+    if case == "zero_and_many":
+        idx[:, ::5, 0] = 7
+    elif case == "twice":
+        idx[:, 3] = (11 + np.maximum(np.arange(K) - 1, 0)) % N
+    elif case == "outside":
+        idx[:, 5, 0], idx[:, 6, K - 1] = N + 2, -1
+        idx[:, 7, 0], idx[:, 8, K - 1] = 2 ** 31 - 1, -2 ** 31
+    return feats, idx
+
+
 @pytest.mark.parametrize("case", SCATTER_CASES)
 def test_scatter_mean_kernel_matches_plain(dev, case):
     feats, idx, N = _scatter_case(case, dev)
@@ -515,6 +543,52 @@ def test_scatter_mean_kernel_matches_plain(dev, case):
         assert (got_count == 0).any() and (got[got_count == 0] == 0).all()
     if case == "one_slot":
         assert float(got_count[0, 7]) == 200 * 8 and float(got_count.sum()) == 2 * 200 * 8
+
+
+# (case, B, S, K, N, C, (slots a block, channels a lane)): each form of
+# scatter_mean_form, on the hard inputs of scatter_mean_case.
+SCATTER_MEAN_FORM_CASES = [
+    ("zero_and_many", 2, 512, 8, 1000, 64, (32, 4)),  # N not a multiple of 32
+    ("twice", 32, 1024, 8, 2048, 64, (128, 4)),  # part-seg's largest decoder upsample
+    ("outside", 2, 300, 8, 500, 31, (32, 1)),
+    ("plain", 64, 100, 8, 1100, 8, (256, 4)),  # N not a multiple of 256
+    ("plain", 1, 200, 8, 300, 1, (32, 1)),
+    ("plain", 2, 100, 8, 260, 33, (32, 1)),
+    ("plain", 2, 50, 8, 100, 130, (32, 1)),
+    ("zero_and_many", 2, 256, 8, 100, 512, (32, 4)),
+    ("zero_and_many", 1, 16384, 8, 4096, 16, (32, 4)),  # S*K = 131072: 32 passes
+]
+
+
+@pytest.mark.parametrize("case,B,S,K,N,C,form", SCATTER_MEAN_FORM_CASES)
+def test_scatter_mean_kernel_forms_match_plain(dev, case, B, S, K, N, C, form):
+    """Each form ``scatter_mean_form`` picks, reached by the shape that
+    picks it: the count exactly and the mean bit for bit equal to the plain
+    version on the CPU (the sequential order), and two launches equal."""
+    feats, idx = (torch.from_numpy(a) for a in scatter_mean_case(case, B, S, K, N, C))
+    f, i = feats.to(dev), idx.to(dev)
+    assert scatter_mean_form(f, N) == form
+    got, got_count = scatter_mean_cuda(f, i, N)
+    again, again_count = scatter_mean_cuda(f, i, N)
+    torch.cuda.synchronize()
+    want, want_count = scatter_mean_plain(feats, idx, N)
+    assert torch.equal(got_count.cpu(), want_count)
+    assert torch.equal(got.cpu(), want), f"{int((got.cpu() != want).sum())} places differ"
+    assert torch.equal(got, again) and torch.equal(got_count, again_count)
+    if case == "zero_and_many":
+        assert float(want_count.max()) > 32 and bool((want_count == 0).any())
+
+
+def test_scatter_mean_kernel_misaligned_view(dev):
+    """A contiguous view 4 bytes into its storage takes one channel a lane
+    (C % 4 == 0 notwithstanding) and still equals the plain version."""
+    feats, idx = (torch.from_numpy(a) for a in scatter_mean_case("plain", 2, 100, 8, 200, 64))
+    flat = torch.cat([torch.zeros(1), feats.reshape(-1)]).to(dev)
+    view = flat[1:].view(feats.shape)
+    assert scatter_mean_form(view, 200) == (32, 1)
+    got, got_count = scatter_mean_cuda(view, idx.to(dev), 200)
+    want, want_count = scatter_mean_plain(feats, idx, 200)
+    assert torch.equal(got_count.cpu(), want_count) and torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("case", ["decoder", "fuse_far", "odd", "k1", "c1", "c256", "one_slot"])
@@ -746,6 +820,66 @@ def test_windowed_attention_kernels_read_indices_outside_the_window(dev):
     want_p, want_s = attention_bwd_plain(packed, idx, shifts, gctx, 2, 16)
     _close(got_p, want_p, rtol=1e-4)
     _close(got_s, want_s, rtol=1e-5)
+
+
+# (n_branches, with_shift, S, N, c, K, case, channels a thread): each form of
+# attention_fwd_form in the windowed forward.
+WINDOW_ATTENTION_FWD_CASES = [
+    (1, True, 16384, 16384, 64, 8, "ties", 4),  # la0's self-window: 256 rows
+    (2, True, 8192, 16384, 64, 8, "floored", 4),  # an encoder pair's packed call
+    (2, False, 1024, 2048, 128, 16, "ties", 4),
+    (1, True, 1024, 2048, 16, 5, "plain", 4),
+    (1, True, 1024, 2048, 128, 8, "outside", 4),
+    (1, True, 2048, 2048, 64, 16, "floored", 4),
+    (2, True, 512, 1024, 7, 8, "floored", 1),
+    (1, False, 512, 1024, 16, 33, "ties", 1),
+    (2, True, 1024, 2048, 64, 33, "outside", 1),
+    (2, False, 512, 1024, 7, 5, "outside", 1),
+]
+
+
+@pytest.mark.parametrize("n_branches,with_shift,S,N,c,K,case,vec", WINDOW_ATTENTION_FWD_CASES)
+def test_windowed_attention_fwd_kernel_forms_match_plain(dev, n_branches, with_shift, S, N, c, K,
+                                                         case, vec):
+    """Each of ``attention_fwd_form``'s forms in the windowed forward,
+    reached by the shape that picks it, bit-equal to the plain version:
+    in-window indices with packed rows repeated in pairs (ties), a query
+    whose neighbours all have E = 0 (the eps floor), indices anywhere in
+    [0, N)."""
+    spec, packed, idx, shifts, _ = _window_attention_inputs(
+        dev, n_branches, with_shift, S, N, c, seed=S + c + K, outside=case == "outside", K=K)
+    e_cols = torch.cat([torch.arange(2 * r * c, (2 * r + 1) * c) for r in range(n_branches)])
+    if case == "ties":
+        packed[:, 1::2] = packed[:, 0::2]
+    elif case == "floored":
+        for b in range(2):
+            packed[b, idx[b, 1].long()[:, None], e_cols.to(dev)[None, :]] = 0.0
+    elif case == "outside":
+        win0 = spec.window_start(dev)[None, :, None]
+        assert bool(((idx < win0) | (idx >= win0 + spec.window)).any())
+    assert attention_fwd_form(packed, shifts, K, c) == vec
+    got = windowed_attention_cuda(packed, idx, shifts, n_branches, c, spec)
+    want = attention_plain(packed, idx, shifts, n_branches, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"{int((got != want).sum())} places differ"
+    assert torch.isfinite(got).all()  # the eps-floored query's attn is -1, not inf
+
+
+@pytest.mark.parametrize("misaligned", ["packed", "shifts"])
+def test_windowed_attention_fwd_kernel_misaligned_view(dev, misaligned):
+    """A contiguous view 4 bytes into its storage takes one channel a thread
+    (C % 4 == 0 notwithstanding) and still equals the plain version."""
+    spec, packed, idx, shifts, _ = _window_attention_inputs(dev, 2, True, 1024, 2048, 32, 9)
+
+    def shifted(t):
+        flat = torch.cat([torch.zeros(1, device=dev), t.reshape(-1)])
+        return flat[1:].view(t.shape)
+
+    packed = shifted(packed) if misaligned == "packed" else packed
+    shifts = shifted(shifts) if misaligned == "shifts" else shifts
+    assert attention_fwd_form(packed, shifts, 8, 32) == 1
+    got = windowed_attention_cuda(packed, idx, shifts, 2, 32, spec)
+    assert torch.equal(got, attention_plain(packed, idx, shifts, 2, 32))
 
 
 @pytest.mark.parametrize("K", [8, 16, 32])

@@ -24,6 +24,21 @@ it), so the chain kernel = plain = ``mpa_tpu`` holds on them too:
   XLA reference, and its Pallas kernels in interpret mode): a hot node, a
   node named twice by one query, several neighbours tied for the maximum,
   an eps-floored denominator, K = 5, 8, 16 and 64; rtol 1e-5.
+- ``attention_plain`` on window-constrained indices (``mpa_tpu``'s
+  windowed kNN on Morton-ordered clouds) against ``_wattn_fwd``, the Pallas
+  kernel of ``mpa_tpu``'s windowed attention forward, in interpret mode:
+  la0's self-window of 256 rows, sq = 8 and 32, K = 5, 8, 16 and 33, c = 4,
+  7 and 16, with and without shifts, neighbours tied for the maximum and an
+  eps-floored query; rtol 1e-5.
+- ``scatter_mean_plain`` against ``mpa_tpu``'s scatter-mean kernel
+  (``scatter_mean_upsample_pallas``'s ``_scatter_sum_count``) in interpret
+  mode and, where every index lies in ``[0, N)`` (``mpa_tpu``'s segment
+  form defines no other), ``mpa_tpu.ops.scatter.scatter_mean_upsample``: a
+  slot with no claim and one with more than 32, one coarse point naming a
+  slot twice, indices outside ``[0, N)``, N not a multiple of a block's
+  slots, C = 1, 31, 33, 130 and 512, B = 1. Counts exactly equal, means
+  within 1e-6 relative with an absolute floor of 1e-6 (the Pallas kernel
+  sums by a matrix product, split into bf16 hi and lo parts).
 - ``attention_bwd_plain`` against ``mpa_tpu``'s custom-VJP math and
   ``jax.grad`` of ``transition_attention`` (as
   ``tests/test_torch_port_train.py`` does): a hot node, unnamed nodes, a
@@ -42,16 +57,21 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import test_torch_port_cls  # noqa: E402,F401  (pins torch to one thread)
-from test_torch_port_cuda import FLOORED, _attention_inputs, attention_case, knn_cloud  # noqa: E402
+from test_torch_port_cuda import (  # noqa: E402
+    FLOORED, _attention_inputs, _morton_pair, attention_case, knn_cloud, scatter_mean_case,
+)
 
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from mpa_tpu.ops.knn import knn as jax_knn  # noqa: E402
+from mpa_tpu.ops.pallas.scatter_pallas import _scatter_sum_count  # noqa: E402
+from mpa_tpu.ops.scatter import scatter_mean_upsample as jax_scatter_mean  # noqa: E402
 from mpa_tpu.ops.pallas import window_attention as JWA  # noqa: E402
 from mpa_tpu.ops.pallas.attention_pallas import _bwd_scatter_xla  # noqa: E402
 from mpa_tpu.ops.pallas.attention_pallas import transition_attention as jax_attention  # noqa: E402
 from mpa_tpu_torch.ops.attention import attention_bwd_plain, attention_plain  # noqa: E402
 from mpa_tpu_torch.ops.knn import knn_plain  # noqa: E402
+from mpa_tpu_torch.ops.scatter import scatter_mean_plain  # noqa: E402
 from mpa_tpu_torch.ops.window import make_window_spec, windowed_knn_plain  # noqa: E402
 
 
@@ -199,3 +219,77 @@ def test_attention_plain_matches_mpa_tpu_on_kernel_cases(n_branches, with_shift,
     with pltpu.force_tpu_interpret_mode():
         kernel = np.asarray(jax_attention(*args, n_branches, c, use_pallas=True))
     np.testing.assert_allclose(got, kernel, rtol=1e-5, atol=1e-6)
+
+
+# (n_branches, with_shift, S, N, c, K, sq, case): the card's windowed-forward
+# cases at small sizes.
+WINDOW_ATTENTION_FWD_CPU_CASES = [
+    (1, True, 256, 256, 16, 8, 128, "ties"),  # la0's self-window: 256 rows
+    (2, True, 64, 128, 7, 5, 8, "floored"),
+    (2, False, 64, 128, 16, 16, 32, "ties"),
+    (1, True, 128, 256, 4, 33, 64, "floored"),
+    (1, False, 64, 64, 7, 8, 16, "plain"),
+]
+
+
+@pytest.mark.parametrize("n_branches,with_shift,S,N,c,K,sq,case", WINDOW_ATTENTION_FWD_CPU_CASES)
+def test_windowed_attention_plain_matches_mpa_tpu_kernel(n_branches, with_shift, S, N, c, K,
+                                                         sq, case):
+    base, query = _morton_pair(S + N + K, 2, S, N, 3, "cpu", dup=True)
+    jspec = JWA.make_window_spec(S, N, sq)
+    idx = np.array(JWA.windowed_knn_reference(K, jnp.asarray(base.numpy()),
+                                              jnp.asarray(query.numpy()), jspec))
+    rng = np.random.default_rng(S + c)
+    packed = rng.standard_normal((2, N, n_branches * 2 * c)).astype(np.float32)
+    e_cols = np.concatenate([np.arange(2 * r * c, (2 * r + 1) * c) for r in range(n_branches)])
+    packed[..., e_cols] = np.exp(packed[..., e_cols])
+    if case == "ties":
+        packed[:, 1::2] = packed[:, 0::2]
+    elif case == "floored":  # query 1's neighbours all have E = 0
+        for b in range(2):
+            packed[b, idx[b, 1][:, None], e_cols[None, :]] = 0.0
+    shifts = (rng.standard_normal((2, S, n_branches * c)).astype(np.float32)
+              if with_shift else None)
+    got = attention_plain(torch.from_numpy(packed), torch.from_numpy(idx),
+                          None if shifts is None else torch.from_numpy(shifts),
+                          n_branches, c).numpy()
+    assert np.isfinite(got).all()
+    if case == "floored":  # the denominator is 0 and floored at 1e-20
+        assert not packed[0, idx[0, 1]][:, e_cols].any()
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(JWA._wattn_fwd(jnp.asarray(packed), jnp.asarray(idx),
+                                         None if shifts is None else jnp.asarray(shifts),
+                                         n_branches, c, jspec))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+# (case, B, S, K, N, C): the card's scatter-mean cases at small sizes.
+SCATTER_MEAN_CPU_CASES = [
+    ("zero_and_many", 2, 200, 8, 100, 16),
+    ("twice", 2, 40, 8, 90, 33),
+    ("outside", 2, 40, 8, 90, 31),
+    ("plain", 1, 100, 8, 300, 1),
+    ("plain", 2, 50, 3, 70, 130),
+    ("zero_and_many", 1, 180, 4, 40, 512),
+]
+
+
+@pytest.mark.parametrize("case,B,S,K,N,C", SCATTER_MEAN_CPU_CASES)
+def test_scatter_mean_plain_matches_mpa_tpu_on_kernel_cases(case, B, S, K, N, C):
+    feats, idx = scatter_mean_case(case, B, S, K, N, C)
+    got, got_count = scatter_mean_plain(torch.from_numpy(feats), torch.from_numpy(idx), N)
+    with pltpu.force_tpu_interpret_mode():
+        summed, cnt = _scatter_sum_count(jnp.asarray(feats), jnp.asarray(idx), N, n_tile=128)
+    np.testing.assert_array_equal(got_count.numpy(), np.asarray(cnt))
+    want = np.asarray(summed) / np.maximum(np.asarray(cnt), 1.0)[..., None]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    if case != "outside":
+        seg = np.asarray(jax_scatter_mean(jnp.asarray(feats), jnp.asarray(idx), N,
+                                          use_pallas=False))
+        np.testing.assert_allclose(got.numpy(), seg, rtol=1e-6, atol=1e-6)
+    counts = got_count.numpy()
+    if case == "zero_and_many":
+        assert (counts == 0).any() and counts.max() > 32
+        assert not got.numpy()[counts == 0].any()
+    if case == "twice":
+        assert (idx[:, 3] == 11).sum() == 2 * B
