@@ -475,13 +475,14 @@ def check_call(name: str, inp: dict) -> dict:
     from mpa_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_plain
     from mpa_tpu_torch.ops.fps import fps_chain_cuda, fps_cuda, fps_form, fps_plain
     from mpa_tpu_torch.ops.gather import (
-        gather_cuda, gather_plain, scatter_add_cuda, scatter_add_plain,
+        gather_cuda, gather_plain, scatter_add_cuda, scatter_add_form, scatter_add_plain,
     )
     from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
     from mpa_tpu_torch.ops.scatter import scatter_mean_cuda, scatter_mean_form, scatter_mean_plain
     from mpa_tpu_torch.ops.window import (
         check_in_window, windowed_attention_bwd_cuda, windowed_attention_cuda, windowed_knn_cuda,
         windowed_knn_form, windowed_knn_plain, windowed_scatter_mean_cuda,
+        windowed_scatter_mean_form,
     )
 
     library, ref, chain, spec, extra = None, None, None, inp.get("spec"), {}
@@ -559,10 +560,20 @@ def check_call(name: str, inp: dict) -> dict:
         flat_grads = grads.reshape(-1, W)
         library = lambda: torch.zeros((B * n, W), device=grads.device).index_add_(  # noqa: E731
             0, rows, flat_grads)
-        got, want = kern(), plain()
+        got, again, want = kern(), kern(), plain()
+        cpu = scatter_add_plain(grads.cpu(), idx.cpu(), n)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        if not torch.equal(got.cpu(), cpu):
+            raise AssertionError(
+                f"{name} differs from the plain version on the CPU at "
+                f"{int((got.cpu() != cpu).sum())} places")
+        # The plain version's index_add_ is atomic on the card: sums in another
+        # order. The CPU comparison above is the exact one.
         err = assert_close_scaled(got, want, rtol=1e-5, what=name)
         ref = want.abs().max().item()
-        shape = f"grads {tuple(grads.shape)} into N={n}"
+        shape = ("grads {} into N={}, {} slots a block, {} channels a lane"
+                 .format(tuple(grads.shape), n, *scatter_add_form(grads, n)))
     elif name in ("scatter_mean_kernel", "windowed_scatter_mean_kernel"):
         feats, idx, n = inp["features"], inp["knn_idx"], inp["num_fine"]
         B, S, C = feats.shape
@@ -599,8 +610,8 @@ def check_call(name: str, inp: dict) -> dict:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         err = (got - want).abs().max().item()
         shape = f"features {tuple(feats.shape)} idx {tuple(idx.shape)} into N={n}"
-        if spec is None:
-            shape += ", {} slots a block, {} channels a lane".format(*scatter_mean_form(feats, n))
+        form = scatter_mean_form(feats, n) if spec is None else windowed_scatter_mean_form(feats, n)
+        shape += ", {} slots a block, {} channels a lane".format(*form)
         extra["index_add_ms"] = time_graph(index_adds)
     elif name in ("transition_attention_bwd_kernel", "windowed_attention_bwd_kernel"):
         args = (inp["packed"], inp["idx"], inp["shifts"], inp["gctx"], inp["n_branches"], inp["c"])
@@ -1126,17 +1137,17 @@ def summarise(name: str, rows: list, counts: dict) -> dict:
 PLANTED_FAULTS = {
     "none": None,
     "first claimant of every slot dropped": (
-        "partseg", "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
-        "int j = j0;",
-        "int j = min(j0 + 1, j1);"),
+        "partseg", "mpa_tpu_torch/kernels/csrc/scatter_index.cuh",
+        "for (int j = j0; j < j1; j += DEPTH) {",
+        "for (int j = min(j0 + 1, j1); j < j1; j += DEPTH) {"),
     "count used without the clamp": (
-        "partseg", "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
-        "const float den = fmaxf(static_cast<float>(claims[slot]), 1.f);",
-        "const float den = static_cast<float>(claims[slot]);"),
+        "partseg", "mpa_tpu_torch/kernels/csrc/scatter_index.cuh",
+        "const float den = fmaxf(static_cast<float>(sh.claims[slot]), 1.f);",
+        "const float den = static_cast<float>(sh.claims[slot]);"),
     "every fourth claim of a slot's list not added": (
-        "partseg", "mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
-        "          add_row(acc, r3);\n",
-        ""),
+        "partseg", "mpa_tpu_torch/kernels/csrc/scatter_index.cuh",
+        "if (j + u < j1) add_row(acc, r[u]);",
+        "if (j + u < j1 && u % 4 != 3) add_row(acc, r[u]);"),
     "backward without the divide by the count": (
         "partseg", "mpa_tpu_torch/ops/scatter.py",
         "g_norm = (grad / count.clamp_min(1.0)[..., None]).contiguous()",
@@ -1157,6 +1168,10 @@ PLANTED_FAULTS = {
         "semseg", "mpa_tpu_torch/kernels/csrc/window_scatter_mean.cu",
         "const int e_lo = lo * K, e_hi = hi * K;",
         "const int e_lo = lo * K, e_hi = max(hi - sq, lo) * K;"),
+    "scatter-add: each cloud's last edge left out": (
+        "repsurf", "mpa_tpu_torch/kernels/csrc/scatter_add.cu",
+        "idx + e0, 0, E, 1,",
+        "idx + e0, 0, E - 1, 1,"),
     "ball query: the last 32 base points never tested": (
         "repsurf", "mpa_tpu_torch/kernels/csrc/ball_query.cu",
         "for (int r0 = 0; r0 < nt && count < nsample; r0 += 32) {",
@@ -1225,8 +1240,10 @@ def repsurf_parity(batch: int = PATHS["repsurf"]["parity_batch"]) -> dict:
 
 def parity_readings(path: str) -> dict:
     """``--parity PATH``: the path's card-against-CPU readings (``partseg``,
-    ``semseg`` or ``repsurf``) and replays of its newest kernels, each
-    check's failure caught and reported."""
+    ``semseg`` or ``repsurf``), replays of its newest kernels and of the
+    card step's scatter-adds, each check's failure caught and reported."""
+    from mpa_tpu_torch import kernels
+
     out = {}
     seg, limits = {"partseg": (segmenter_parity, SEG_LIMITS),
                    "semseg": (semseg_parity, SEMSEG_LIMITS),
@@ -1235,9 +1252,12 @@ def parity_readings(path: str) -> dict:
     out["served"] = {k: seg[k] for k in ("median_abs", "p99_abs", "max_abs", "argmax_agreement")}
     out["served_within_limits"] = all(
         seg[k] <= v if k.endswith("_abs") else seg[k] >= v for k, v in limits.items())
+    kernels.recorded = []
     parity = train_parity(path)
+    recorded, kernels.recorded = kernels.recorded, None
     out["train"] = {"loss_diff": parity["loss_diff"], "grad_units": parity["grad_units"][:3],
                     "stat": parity["stat"]}
+    scatter_adds = [inp for name, inp in recorded if name == "scatter_add_rows_kernel"]
     if path == "repsurf":
         checks = [(f"ball query replay {i}", lambda inp=inp: check_call("ball_query_kernel", inp))
                   for i, inp in enumerate(seg["ball_query"])]
@@ -1255,6 +1275,8 @@ def parity_readings(path: str) -> dict:
                   for name, inp in inputs.items()]
         checks.append(("windowed scatter-mean backward", lambda: check_scatter_mean_grad(
             inputs["windowed_scatter_mean_kernel"])))
+    checks.append((f"{len(scatter_adds)} scatter-add replays of the train step", lambda: [
+        check_call("scatter_add_rows_kernel", inp) for inp in scatter_adds]))
     for what, check in checks:
         try:
             check()

@@ -8,50 +8,66 @@
 // _scatter_add_kernel, a one-hot MXU matmul). Contract: grads [B,E,W] f32,
 // idx [B,E] int32 -> out [B,N,W] f32, zero where no edge lands; targets
 // outside [0, N) are dropped, as scatter_add_rmw drops its padded sentinels.
+// Each target's sum is taken in ascending e from 0, the order of
+// scatter_add_rmw's sequential loop and of a sequential index_add_, so the
+// result equals the plain version on the CPU bit for bit.
 //
-// What bounds it on the H100: bytes. It reads E rows of W floats and writes
-// the N-row output once (plus the zeroing pass over it). Design: the entry
-// zeroes the output with cudaMemsetAsync on the caller's stream, then a 2-D
-// grid over (batch, flattened (edge, column)) adds each gradient float into
-// its target with atomicAdd; neighbouring threads touch neighbouring columns
-// of one row, so loads and the atomic reductions are coalesced. Sums of
-// edges that share a target land in no fixed order, so the result can
-// differ from a sequential sum in the last bits. The TPU's one-hot matmul and
+// What bounds it on the H100: bytes (grads and idx read once, the N-row
+// output written once). Design: the inverse-index body of scatter_index.cuh
+// with one claim a source row (K = 1, edge e brings row e) and the sum
+// epilogue: a block owns `slots` consecutive target rows of one cloud,
+// stages the cloud's E indices in passes, lists each row's edges in
+// ascending e in shared memory and adds their gradient rows in that order,
+// G lanes a row (vec channels a lane: float4, float2 for even widths such
+// as repsurf's 10 normal channels, or one float). Every output row is
+// written once, zero where no edge lands: no memset ahead of the adds, and
+// no float atomics, which would sum in no fixed order. The TPU's one-hot matmul and
 // VMEM accumulator are TPU workarounds and are not carried over.
-#include "common.cuh"
+#include "scatter_index.cuh"
 
 namespace {
 
-__global__ void scatter_add_rows_kernel(const float* __restrict__ grads,
-                                        const int* __restrict__ idx, float* __restrict__ out,
-                                        int N, int E, int W) {
-  const int b = blockIdx.y;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(E) * W) return;
-  const int e = static_cast<int>(i / W);
-  const int w = static_cast<int>(i - static_cast<long long>(e) * W);
-  const int row = __ldg(idx + static_cast<size_t>(b) * E + e);
-  if (row < 0 || row >= N) return;  // dropped, as in scatter_add_rmw
-  atomicAdd(out + (static_cast<size_t>(b) * N + row) * W + w,
-            grads[(static_cast<size_t>(b) * E + e) * W + w]);
+// Grid (ceil(N / slots), B); dynamic shared memory: mpa::index_smem(tile).
+template <int VEC, int DEPTH>
+__global__ void __launch_bounds__(mpa::kIndexThreads, mpa::kIndexBlocks)
+scatter_add_rows_kernel(const float* __restrict__ grads, const int* __restrict__ idx,
+                        float* __restrict__ out, int N, int E, int W, int slots, int tile) {
+  extern __shared__ int4 smem4[];
+  __shared__ mpa::IndexShared sh;
+  const int b = blockIdx.y, n0 = blockIdx.x * slots;
+  const size_t e0 = static_cast<size_t>(b) * E;
+  mpa::scatter_rows<VEC, DEPTH, false>(grads + e0 * W, idx + e0, 0, E, 1, n0,
+                                       min(slots, N - n0), W, tile,
+                                       out + (static_cast<size_t>(b) * N + n0) * W, nullptr, sh,
+                                       smem4);
 }
 
 }  // namespace
 
-// grads [B,E,W] f32, idx [B,E] int32, out [B,N,W] f32, all contiguous. The
-// output is zeroed here, on the same stream, before the adds.
+// grads [B,E,W] f32, idx [B,E] int32, out [B,N,W] f32, all contiguous.
+// Requires B <= 65535 and W >= 1 (checked by the Python wrapper). slots: a
+// block's range of target rows, 1..256; vec: channels a lane, 4 or 2 (W a
+// multiple of it, grads and out aligned to vec floats) or 1
+// (ops/gather.py::scatter_add_form picks both); any other is refused with
+// cudaErrorInvalidValue.
 MPA_EXPORT int mpa_scatter_add_rows(const void* grads, const void* idx, void* out, int B, int N,
-                                    int E, int W, void* stream) {
-  cudaStream_t st = mpa::as_stream(stream);
-  cudaError_t err =
-      cudaMemsetAsync(out, 0, sizeof(float) * static_cast<size_t>(B) * N * W, st);
-  if (err != cudaSuccess) return err;
-  const long long work = static_cast<long long>(E) * W;
-  if (B == 0 || work == 0) return cudaGetLastError();
-  const int threads = 256;
-  dim3 grid(static_cast<unsigned>((work + threads - 1) / threads), B);
-  scatter_add_rows_kernel<<<grid, threads, 0, st>>>(static_cast<const float*>(grads),
-                                                    static_cast<const int*>(idx),
-                                                    static_cast<float*>(out), N, E, W);
+                                    int E, int W, int slots, int vec, void* stream) {
+  if (B == 0 || N == 0) return cudaGetLastError();
+  const auto aligned = [vec](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % (sizeof(float) * vec) == 0;
+  };
+  if (slots < 1 || slots > mpa::kMaxSlots || !(vec == 1 || vec == 2 || vec == 4) || W % vec != 0 ||
+      !aligned(grads) || !aligned(out))
+    return cudaErrorInvalidValue;
+  const int tile = mpa::index_tile(E);
+  auto kernel = vec == 2 ? scatter_add_rows_kernel<2, 4> : scatter_add_rows_kernel<1, 4>;
+  if (vec == 4) {
+    const bool deep = mpa::index_depth(E, N) == 8;
+    kernel = deep ? scatter_add_rows_kernel<4, 8> : scatter_add_rows_kernel<4, 4>;
+  }
+  dim3 grid(mpa::ceil_div(N, slots), B);
+  kernel<<<grid, mpa::kIndexThreads, mpa::index_smem(tile), mpa::as_stream(stream)>>>(
+      static_cast<const float*>(grads), static_cast<const int*>(idx), static_cast<float*>(out), N,
+      E, W, slots, tile);
   return cudaGetLastError();
 }

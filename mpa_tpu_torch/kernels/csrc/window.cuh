@@ -22,4 +22,21 @@ struct WindowChunk {
   }
 };
 
+// The query rows [lo, hi) whose windows can contain fine slot n: n lies in
+// base block j = n / bn, which only the windows g = j - 1 and g = j contain;
+// the padded chunks with those windows are consecutive (chunks 0 and 1 share
+// window 0, the last two the last one), so their real rows are one range.
+// Nondecreasing in n, so the rows that can claim slots [n0, n1] are
+// [lo(n0), hi(n1)). ops/window.py::claim_rows is its Python twin.
+__device__ __forceinline__ void claim_rows(int n, int S, int sq, int bn, int n_chunks, int& lo,
+                                                int& hi) {
+  const int j = n / bn;
+  const int g_lo = max(j - 1, 0), g_hi = min(j, n_chunks - 2);
+  const int c_lo = g_lo == 0 ? 0 : g_lo + 1;                    // first chunk with window g_lo
+  const int c_hi = g_hi == n_chunks - 2 ? n_chunks : g_hi + 1;  // last chunk with window g_hi
+  const int pad = sq / 2;
+  lo = max(c_lo * sq - pad, 0);
+  hi = min((c_hi + 1) * sq - pad, S);
+}
+
 }  // namespace mpa

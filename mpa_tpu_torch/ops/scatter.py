@@ -26,15 +26,8 @@ from torch.autograd.function import once_differentiable
 
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
-from mpa_tpu_torch.ops.gather import gather_cuda
+from mpa_tpu_torch.ops.gather import MAX_B, gather_cuda, index_form
 from mpa_tpu_torch.utils.device import on_cuda
-
-MAX_B = 65535  # the kernel's grid runs the batch along y
-# scatter_mean_kernel's blocks own at most 256 slots each (one a thread in
-# its scan); the form takes fewer, down to 32, until the launch has two
-# blocks for each of the H100's 132 SMs.
-MAX_SLOTS, MIN_SLOTS = 256, 32
-FILL_BLOCKS = 2 * 132
 
 
 def scatter_mean_plain(
@@ -74,18 +67,12 @@ def check_args(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int) -> 
 
 def scatter_mean_form(features: torch.Tensor, num_fine: int) -> Tuple[int, int]:
     """``scatter_mean_kernel``'s form for ``features [B,S,C]`` into
-    ``num_fine`` slots: ``(slots, vec)``. ``slots``: the slots a block owns
-    (it reads the cloud's S*K indices once for them), 256 halved down to 32
-    while the launch has fewer than ``FILL_BLOCKS`` blocks. ``vec``: the
-    channels a lane adds, 4 (float4 loads and stores) where ``C % 4 == 0``
-    and ``features`` starts on a 16-byte boundary, else 1. The kernel's
-    entry refuses any other form."""
-    B, _, C = features.shape
-    slots = MAX_SLOTS
-    while slots > MIN_SLOTS and B * -(-num_fine // slots) < FILL_BLOCKS:
-        slots //= 2
-    vec = 4 if C % 4 == 0 and features.data_ptr() % 16 == 0 else 1
-    return slots, vec
+    ``num_fine`` slots, ``(slots, vec)``: ``ops/gather.py::index_form``'s
+    (256 slots a block halved down to 32 while the launch has fewer than
+    ``FILL_BLOCKS`` blocks; four channels a lane where ``C % 4 == 0`` and
+    ``features`` is 16-byte aligned, else one). The kernel's entry refuses
+    any other form."""
+    return index_form(features, num_fine)
 
 
 def scatter_mean_cuda(

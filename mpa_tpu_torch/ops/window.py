@@ -25,9 +25,10 @@ plain versions, which compute the same function for any index, as
 
 An index outside its row's window is a caller error (the windowed kNN never
 makes one). The attention kernels still read such a row, from device
-memory; the scatter-mean kernel does not see it. :func:`check_in_window`
-checks an index with torch ops (``chip_smoke.py`` checks every recorded
-one).
+memory; the scatter-mean kernel sees such a claim only where its row lies
+among the rows that can claim the block's slots (:func:`block_claim_rows`).
+:func:`check_in_window` checks an index with torch ops (``chip_smoke.py``
+checks every recorded one).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from mpa_tpu_torch.kernels import build
 from mpa_tpu_torch.ops.attention import attention_fwd_form, attention_plain
 from mpa_tpu_torch.ops.attention import check_args as check_attention
 from mpa_tpu_torch.ops.attention import check_cuda_args as check_attention_cuda
+from mpa_tpu_torch.ops.gather import MIN_ROW_SLOTS, index_form
 from mpa_tpu_torch.ops.knn import MAX_C, aligned, knn_distance_grads
 from mpa_tpu_torch.ops.pairwise import dot_in_channel_order
 from mpa_tpu_torch.ops.scatter import MAX_B, scatter_mean_bwd_cuda, scatter_mean_plain
@@ -118,6 +120,26 @@ def check_in_window(idx: torch.Tensor, spec: WindowSpec, what: str) -> None:
     if bool(outside.any()):
         raise ValueError(f"{what}: {int(outside.sum())} indices lie outside their rows' "
                          f"windows ({spec})")
+
+
+def claim_rows(spec: WindowSpec, n: int) -> Tuple[int, int]:
+    """The query rows ``[lo, hi)`` whose windows can contain fine slot ``n``
+    (``kernels/csrc/window.cuh::claim_rows``): n lies in base block ``j = n
+    // bn``, which only the windows ``j - 1`` and ``j`` contain, and the
+    padded chunks with those windows are consecutive."""
+    j = n // spec.bn
+    g_lo, g_hi = max(j - 1, 0), min(j, spec.n_chunks - 2)
+    c_lo = 0 if g_lo == 0 else g_lo + 1
+    c_hi = spec.n_chunks if g_hi == spec.n_chunks - 2 else g_hi + 1
+    return max(c_lo * spec.sq - spec.pad, 0), min((c_hi + 1) * spec.sq - spec.pad, spec.S)
+
+
+def block_claim_rows(spec: WindowSpec, n0: int, slots: int) -> Tuple[int, int]:
+    """The query rows ``[lo, hi)`` that ``windowed_scatter_mean_kernel``'s
+    block of slots ``[n0, n0 + slots)`` reads (:func:`claim_rows` is
+    nondecreasing in n, so the union of its slots' ranges is one range)."""
+    n1 = min(n0 + slots, spec.N) - 1
+    return claim_rows(spec, n0)[0], claim_rows(spec, n1)[1]
 
 
 def _spec_for(spec: WindowSpec, S: int, N: int, what: str) -> None:
@@ -386,10 +408,21 @@ def windowed_transition_attention(
 # -- the windowed scatter-mean -------------------------------------------------------------
 
 
+def windowed_scatter_mean_form(features: torch.Tensor, num_fine: int) -> Tuple[int, int]:
+    """``windowed_scatter_mean_kernel``'s form ``(slots, vec)``:
+    ``ops/gather.py::index_form``'s, with the slots halved down to 8, not
+    32, while the launch is short of blocks. A block reads only the rows
+    that can claim its slots, so a smaller block costs no more index reads.
+    The kernel's entry refuses any other form."""
+    return index_form(features, num_fine, min_slots=MIN_ROW_SLOTS)
+
+
 def windowed_scatter_mean_cuda(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int,
                                spec: WindowSpec) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``windowed_scatter_mean_kernel``: ``(mean [B,N,C], count [B,N])``
-    f32, the function of ``scatter_mean_plain`` for an in-window index."""
+    """Launch ``windowed_scatter_mean_kernel`` in
+    :func:`windowed_scatter_mean_form`'s form: ``(mean [B,N,C], count
+    [B,N])`` f32, the function of ``scatter_mean_plain`` for an in-window
+    index."""
     name = "windowed_scatter_mean_kernel"
     check_scatter(features, knn_idx, num_fine)
     _spec_for(spec, features.shape[1], num_fine, name)
@@ -403,6 +436,7 @@ def windowed_scatter_mean_cuda(features: torch.Tensor, knn_idx: torch.Tensor, nu
     if B > MAX_B or C < 1 or K < 1 or S * K >= 2 ** 31:
         raise ValueError(f"{name}: B <= {MAX_B}, C >= 1, K >= 1 and S*K < 2^31 expected, "
                          f"got B={B}, S={S}, K={K}, C={C}")
+    slots, vec = windowed_scatter_mean_form(features, num_fine)
     out = torch.empty((B, num_fine, C), dtype=torch.float32, device=features.device)
     count = torch.empty((B, num_fine), dtype=torch.float32, device=features.device)
     lib = build.load()
@@ -410,9 +444,9 @@ def windowed_scatter_mean_cuda(features: torch.Tensor, knn_idx: torch.Tensor, nu
         stream = torch.cuda.current_stream().cuda_stream
         build.check(
             lib.mpa_windowed_scatter_mean(features.data_ptr(), knn_idx.data_ptr(), out.data_ptr(),
-                                          count.data_ptr(), B, S, K, num_fine, C,
+                                          count.data_ptr(), B, S, K, num_fine, C, slots, vec,
                                           *_spec_args(spec), stream),
-            name,
+            f"{name} ({slots} slots a block, {vec} channels a lane)",
         )
     kernels.launched(name, {"features": features, "knn_idx": knn_idx, "num_fine": num_fine,
                             "spec": spec})

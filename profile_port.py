@@ -22,11 +22,12 @@ request. Needs a CUDA card; exits non-zero without one.
 
 Times ``knn_kernel``, ``windowed_knn_kernel``, ``fps_kernel``,
 ``transition_attention_fwd_kernel``, ``windowed_attention_fwd_kernel``,
-``scatter_mean_kernel``, ``transition_attention_bwd_kernel`` and
-``windowed_attention_bwd_kernel`` launch by launch on the inputs the main
-paths give them (the forward kernels' launches of a request): one served request
+``scatter_mean_kernel``, ``windowed_scatter_mean_kernel``,
+``transition_attention_bwd_kernel``, ``windowed_attention_bwd_kernel`` and
+``scatter_add_rows_kernel`` launch by launch on the inputs the main paths
+give them (the forward kernels' launches of a request): one served request
 of cls, part-seg, repsurf and semseg ``window_all``, one train step of cls,
-part-seg and semseg ``window_all``, and the FPS over 16384 points and the
+part-seg, repsurf and semseg ``window_all``, and the FPS over 16384 points and the
 exact kNNs of one semseg ``window`` request at 16384 points are recorded,
 saved, and every recorded launch is timed (``chip_smoke.time_graph``) in a
 subprocess that imports ``mpa_tpu_torch`` from a given root. ``--against``
@@ -68,12 +69,14 @@ OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="windo
 
 
 TIMED = ("knn_kernel", "windowed_knn_kernel", "fps_kernel", "transition_attention_fwd_kernel",
-         "windowed_attention_fwd_kernel", "scatter_mean_kernel",
-         "transition_attention_bwd_kernel", "windowed_attention_bwd_kernel")
+         "windowed_attention_fwd_kernel", "scatter_mean_kernel", "windowed_scatter_mean_kernel",
+         "transition_attention_bwd_kernel", "windowed_attention_bwd_kernel",
+         "scatter_add_rows_kernel")
 # Forward kernels a train step launches at its request's shapes: timed on
 # the request only.
 REQUEST_ONLY = ("fps_kernel", "windowed_knn_kernel", "transition_attention_fwd_kernel",
-                "windowed_attention_fwd_kernel", "scatter_mean_kernel")
+                "windowed_attention_fwd_kernel", "scatter_mean_kernel",
+                "windowed_scatter_mean_kernel")
 
 
 def kind(name: str) -> str:
@@ -161,14 +164,15 @@ def make_train_steps(model: str, batch: int):
 
 def record_kernel_inputs(path: Path) -> None:
     """Record the ``TIMED`` launches of one served request of each model, one
-    train step of cls, part-seg and semseg, and the FPS over 16384 points
-    and the exact kNNs of one semseg ``window`` request at 16384 points, and
-    save them to ``path`` as ``[(path, name, inputs)]`` (a window spec as its
+    train step of cls, part-seg, repsurf and semseg, and the FPS over 16384
+    points and the exact kNNs of one semseg ``window`` request at 16384
+    points, and save them to ``path`` as ``[(path, name, inputs)]`` (a window spec as its
     fields)."""
     from mpa_tpu_torch import kernels
 
     runs = [("cls", False), ("cls", True), ("partseg", False), ("partseg", True),
-            ("repsurf", False), ("semseg", False), ("semseg", True), ("semseg_window", False)]
+            ("repsurf", False), ("repsurf", True), ("semseg", False), ("semseg", True),
+            ("semseg_window", False)]
     out = []
     for model, train in runs:
         if model == "semseg_window":
@@ -231,10 +235,12 @@ def time_saved(path: Path, names) -> list:
     import chip_smoke
     from mpa_tpu_torch.ops.attention import attention_bwd_cuda, attention_cuda
     from mpa_tpu_torch.ops.fps import fps_cuda
+    from mpa_tpu_torch.ops.gather import scatter_add_cuda
     from mpa_tpu_torch.ops.knn import knn_cuda
     from mpa_tpu_torch.ops.scatter import scatter_mean_cuda
     from mpa_tpu_torch.ops.window import (
         WindowSpec, windowed_attention_bwd_cuda, windowed_attention_cuda, windowed_knn_cuda,
+        windowed_scatter_mean_cuda,
     )
 
     times = []
@@ -262,6 +268,11 @@ def time_saved(path: Path, names) -> list:
         elif name == "scatter_mean_kernel":
             fn = lambda: scatter_mean_cuda(inp["features"], inp["knn_idx"],  # noqa: E731
                                            inp["num_fine"])
+        elif name == "windowed_scatter_mean_kernel":
+            fn = lambda: windowed_scatter_mean_cuda(  # noqa: E731
+                inp["features"], inp["knn_idx"], inp["num_fine"], inp["spec"])
+        elif name == "scatter_add_rows_kernel":
+            fn = lambda: scatter_add_cuda(inp["grads"], inp["idx"], inp["num_points"])  # noqa: E731
         elif name == "windowed_attention_bwd_kernel":
             fn = lambda: windowed_attention_bwd_cuda(  # noqa: E731
                 inp["packed"], inp["idx"], inp["shifts"], inp["gctx"], inp["n_branches"],

@@ -26,11 +26,16 @@ Every test here needs a CUDA
 card (the kernels have no CPU mode) and skips, through the ``dev`` fixture,
 without one.
 
-Tolerances: the backward kernels add with ``atomicAdd``, in an order that
-changes from run to run, so their sums are held to a relative tolerance
-(1e-5 for the scatter-add, 1e-4 for the attention backward, whose node
-gradients also subtract near-equal terms) with an absolute floor at 1e-5 of
-the largest entry. The kNN cases add identical points, distances that fall
+Tolerances: the attention backward adds with ``atomicAdd``, in an order
+that changes from run to run, so its sums are held to a relative tolerance
+of 1e-4 (its node gradients also subtract near-equal terms) with an
+absolute floor at 1e-5 of the largest entry. The scatter-add adds each
+target's edges in ascending order, as the plain version does on the CPU:
+it is held bit for bit to that (and within 1e-5 to the plain version on
+the card, whose ``index_add_`` is atomic), at the four random shapes, at
+``repsurf_ssg_2x``'s eight scatter-adds of a train step on ball-query and
+FPS targets, with a target of more than 4096 edges, E = 0, N = 0, each
+channel form (one, two and four a lane) and misaligned views. The kNN cases add identical points, distances that fall
 as the index rises, an integer grid, the umbrella's k = 9 and part-seg's
 largest launch, all held bit for bit; the attention-backward cases a hot
 node, unnamed nodes, a node named twice by one query, several neighbours
@@ -44,7 +49,9 @@ it is held bit for bit against the plain version run on the CPU, and within
 atomic. The windowed kNN and both attention forwards do the plain versions'
 arithmetic in the same order and are held bit for bit; the
 windowed attention backward adds with atomics (shared, then global) and is
-held as the exact one; the windowed scatter-mean as the exact one. The ball
+held as the exact one; the windowed scatter-mean as the exact one, also
+where a block's 256 slots span two base blocks and where a block's claim
+range takes two passes. The ball
 query's sentinel stage does the plain version's distance arithmetic and is
 held bit for bit.
 
@@ -73,7 +80,9 @@ from mpa_tpu_torch.ops.ball_query import (
     radius_squared,
 )
 from mpa_tpu_torch.ops.fps import fps_chain_cuda, fps_cuda, fps_form, fps_plain
-from mpa_tpu_torch.ops.gather import gather_cuda, gather_plain, scatter_add_cuda, scatter_add_plain
+from mpa_tpu_torch.ops.gather import (
+    gather_cuda, gather_plain, scatter_add_cuda, scatter_add_form, scatter_add_plain,
+)
 from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
 from mpa_tpu_torch.ops.scatter import (
     scatter_mean_cuda, scatter_mean_form, scatter_mean_plain, scatter_mean_upsample,
@@ -81,6 +90,7 @@ from mpa_tpu_torch.ops.scatter import (
 from mpa_tpu_torch.ops.morton import morton_sort
 from mpa_tpu_torch.ops.pairwise import square_distance
 from mpa_tpu_torch.ops.window import (
+    block_claim_rows,
     make_window_spec,
     windowed_attention_bwd_cuda,
     windowed_attention_cuda,
@@ -90,6 +100,7 @@ from mpa_tpu_torch.ops.window import (
     windowed_knn_with_spec,
     windowed_scatter_mean,
     windowed_scatter_mean_cuda,
+    windowed_scatter_mean_form,
 )
 from mpa_tpu_torch.serve import load_classifier, load_segmenter
 
@@ -252,6 +263,95 @@ def test_scatter_add_kernel_matches_plain(dev, N, E, W, oob):
     got = scatter_add_cuda(grads, idx, N)
     want = scatter_add_plain(grads, idx, N)
     _close(got, want, rtol=1e-5)
+    # The sequential order of the plain version on the CPU, bit for bit.
+    assert torch.equal(got.cpu(), scatter_add_plain(grads.cpu(), idx.cpu(), N))
+
+
+def _scatter_add_exact(grads, idx, N, form=None):
+    """``scatter_add_cuda`` bit for bit equal to ``scatter_add_plain`` on the
+    CPU (the sequential order), twice the same, in the form ``form``
+    (``scatter_add_form``'s pick asserted) where given."""
+    if form is not None:
+        assert scatter_add_form(grads, N) == form
+    kernels.reset_launch_counts()
+    got = scatter_add_cuda(grads, idx, N)
+    again = scatter_add_cuda(grads, idx, N)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scatter_add_rows_kernel"] == 2
+    want = scatter_add_plain(grads.cpu(), idx.cpu(), N)
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu(), want), f"{int((got.cpu() != want).sum())} places differ"
+    assert torch.equal(got, again)
+    return want
+
+
+# (N, S, radius, W, edges, form): repsurf_ssg_2x's scatter-adds of a train
+# step at its batch, B = 64: each stage's new normals (FPS targets,
+# distinct) and grouped normals (ball query targets, a short ball repeating
+# its first hit), and the features grouped at sa2 (W = 256) and sa3
+# (W = 512).
+REPSURF_SCATTER_ADDS = [
+    (1024, 512, 0.1, 10, "fps", (128, 2)), (1024, 512, 0.1, 10, "ball", (128, 2)),
+    (512, 128, 0.2, 10, "fps", (64, 2)), (512, 128, 0.2, 10, "ball", (64, 2)),
+    (512, 128, 0.2, 256, "ball", (16, 4)),
+    (128, 32, 0.4, 10, "fps", (32, 2)), (128, 32, 0.4, 10, "ball", (32, 2)),
+    (128, 32, 0.4, 512, "ball", (8, 4)),
+]
+
+
+@pytest.mark.parametrize("N,S,radius,W,edges,form", REPSURF_SCATTER_ADDS)
+def test_scatter_add_kernel_repsurf_shapes(dev, N, S, radius, W, edges, form):
+    B = 64
+    r = np.random.default_rng(N + W)
+    xyz = (0.3 * r.standard_normal((B, N, 3))).astype(np.float32)
+    perm = r.permutation(N)[:S]
+    if edges == "fps":
+        idx = torch.from_numpy(np.broadcast_to(perm, (B, S)).astype(np.int32).copy())
+    else:
+        centres = torch.from_numpy(xyz[:, perm]).contiguous()
+        idx = ball_query(radius, 24, torch.from_numpy(xyz), centres).reshape(B, S * 24)
+        idx = idx.to(torch.int32)
+        assert int(torch.bincount(idx[0], minlength=N).max()) > 12  # a first hit repeated
+    grads = torch.from_numpy(r.standard_normal((B, idx.shape[1], W)).astype(np.float32))
+    _scatter_add_exact(grads.to(dev), idx.to(dev), N, form)
+
+
+@pytest.mark.parametrize("case", ["passes", "empty_edges", "no_points", "vec1", "vec2", "vec4",
+                                  "misaligned", "misaligned8", "dropped"])
+def test_scatter_add_kernel_edge_cases(dev, case):
+    """A target with more than 4096 edges (several passes of the index), E =
+    0, N = 0, each channel form, views of the gradients 4 and 8 bytes into
+    their storage, and every edge dropped."""
+    g = torch.Generator().manual_seed(len(case))
+    B, E, N, W, form = {
+        "passes": (2, 10000, 64, 3, (32, 1)),
+        "empty_edges": (2, 0, 100, 8, (32, 4)),
+        "no_points": (2, 50, 0, 8, (32, 4)),
+        "vec1": (4, 3000, 700, 37, (32, 1)),
+        "vec2": (4, 3000, 700, 38, (32, 2)),
+        "vec4": (64, 3000, 700, 36, (128, 4)),
+        "misaligned": (2, 500, 300, 64, (32, 1)),
+        "misaligned8": (2, 500, 300, 64, (32, 2)),
+        "dropped": (2, 500, 300, 16, (32, 4)),
+    }[case]
+    grads = torch.randn((B, E, W), generator=g)
+    idx = torch.randint(0, max(N, 1), (B, E), generator=g, dtype=torch.int32)
+    if case == "passes":
+        idx[:, ::3] = 7  # 3334 edges to row 7 a cloud, in three passes of 4096
+        idx[0, :5000] = 7  # 5000 and more to row 7 of cloud 0
+    if case == "dropped":
+        idx[0] = -1
+        idx[1] = N
+    grads, idx = grads.to(dev), idx.to(dev)
+    if case.startswith("misaligned"):
+        pad = 2 if case == "misaligned8" else 1
+        flat = torch.cat([torch.zeros(pad, device=dev), grads.reshape(-1)])
+        grads = flat[pad:].view(B, E, W)
+    want = _scatter_add_exact(grads, idx, N, form)
+    if case == "passes":
+        assert int((idx[0] == 7).sum()) > 4096
+    if case in ("empty_edges", "dropped"):
+        assert not want.any()
 
 
 FLOORED = 4  # the last nodes, E = 0: the neighbours of the eps-floored query
@@ -914,6 +1014,30 @@ def test_windowed_attention_bwd_kernel_cases(dev, K, with_shift, case):
 # (S, N, C): the semseg decoder and Fuse upsamples at 16384 points and ragged ones.
 WINDOW_SCATTER = [(8192, 16384, 64), (1024, 16384, 64), (2048, 8192, 128), (256, 512, 37),
                   (16, 32, 300), (64, 64, 1)]
+
+
+def test_windowed_scatter_mean_kernel_block_over_several_base_blocks(dev):
+    """A launch whose 256-slot blocks each span two base blocks (bn = 128)
+    and read their claims from the union of their windows' rows, and one
+    whose blocks' claim ranges take two passes of 4096 indices (sq = 128,
+    K = 24)."""
+    for B, S, N, C, K, form in ((16, 8192, 8192, 64, 8, (256, 4)),
+                                (1, 2048, 4096, 12, 24, (8, 4))):
+        fine, coarse = _morton_pair(S + N + C, B, S, N, 3, dev, dup=True)
+        spec = make_window_spec(S, N)
+        _, idx = windowed_knn_plain(K, fine, coarse, spec)
+        feats = torch.randn((B, S, C), generator=torch.Generator().manual_seed(C)).to(dev)
+        assert windowed_scatter_mean_form(feats, N) == form
+        rows = max(hi - lo for lo, hi in (block_claim_rows(spec, n0, form[0])
+                                          for n0 in range(0, N, form[0])))
+        assert spec.bn < form[0] or rows * K > 4096
+        got, got_count = windowed_scatter_mean_cuda(feats, idx, N, spec)
+        again, _ = windowed_scatter_mean_cuda(feats, idx, N, spec)
+        torch.cuda.synchronize()
+        cpu, cpu_count = scatter_mean_plain(feats.cpu(), idx.cpu(), N)
+        assert torch.equal(got_count.cpu(), cpu_count)
+        assert torch.equal(got.cpu(), cpu), f"{int((got.cpu() != cpu).sum())} places differ"
+        assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("S,N,C", WINDOW_SCATTER)
