@@ -68,9 +68,10 @@ backward):
    exact FPS over 16384 points and exact feature kNNs are replayed in
    phase 3;
 3. every kernel launch of one more request of each model, and every
-   backward launch of one more train step of each, is replayed on its own
-   inputs, kernel against its plain PyTorch version (FPS, gather, and kNN
-   indices and distances exactly equal; the attention forward bit-equal;
+   backward launch and gather of one more train step of each, is replayed
+   on its own inputs, kernel against its plain PyTorch version (FPS,
+   gather, and kNN indices and distances exactly equal; the attention
+   forward bit-equal;
    the scatter-add within 1e-5 and the attention backward within 1e-4
    relative, with an absolute floor at 1e-5 of the largest entry, for their
    atomic adds; the scatter-mean's count exactly equal, its mean bit-equal
@@ -88,8 +89,10 @@ backward):
    chain floor (the same launch with its distance work cut: the time of
    its npoint dependent rounds of reduction and barrier); the kNN
    distance gradient of one recorded feature-space kNN (windowed for semseg)
-   is held against torch autograd of the plain kNN, and the scatter-means'
-   backward at every recorded launch against autograd of the plain version;
+   is held against torch autograd of the plain kNN (its gathers replayed
+   too), and the scatter-means' backward at every recorded launch against
+   autograd of the plain version; and an empty kernel is timed the way the
+   kernels are, the floor of a launch;
 4. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -311,6 +314,16 @@ def time_graph(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
+def launch_floor() -> float:
+    """``time_graph`` of an empty kernel: what one launch costs in the
+    harness the kernels are timed with."""
+    from mpa_tpu_torch.kernels import build
+
+    lib = build.load()
+    return time_graph(lambda: build.check(
+        lib.mpa_empty(torch.cuda.current_stream().cuda_stream), "empty_kernel"))
+
+
 def time_events(fn, reps: int = 3) -> float:
     """Median milliseconds of ``fn()`` between CUDA events, one call each
     (for the plain versions, whose host loops a graph would hide)."""
@@ -472,10 +485,11 @@ def check_call(name: str, inp: dict) -> dict:
         attention_bwd_cuda, attention_bwd_plain, attention_cuda, attention_fwd_form,
         attention_plain,
     )
-    from mpa_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_plain
+    from mpa_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_form, ball_query_plain
     from mpa_tpu_torch.ops.fps import fps_chain_cuda, fps_cuda, fps_form, fps_plain
     from mpa_tpu_torch.ops.gather import (
-        gather_cuda, gather_plain, scatter_add_cuda, scatter_add_form, scatter_add_plain,
+        gather_cuda, gather_form, gather_plain, scatter_add_cuda, scatter_add_form,
+        scatter_add_plain,
     )
     from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
     from mpa_tpu_torch.ops.scatter import scatter_mean_cuda, scatter_mean_form, scatter_mean_plain
@@ -528,7 +542,8 @@ def check_call(name: str, inp: dict) -> dict:
         shape = (f"xyz {tuple(args[2].shape)} new_xyz {tuple(args[3].shape)} r={args[0]} "
                  f"nsample={args[1]}, hits per centre {hits.mean().item():.2f} "
                  f"(full {(hits == args[1]).float().mean().item():.3f}, centre alone "
-                 f"{(hits == 1).float().mean().item():.3f})")
+                 f"{(hits == 1).float().mean().item():.3f}), "
+                 f"{ball_query_form(args[2].shape[0], args[3].shape[1])} centres a warp")
     elif name == "fps_kernel":
         pts, npoint, start = inp["points"], inp["npoint"], inp["start"]
         kern, plain = (lambda: fps_cuda(pts, npoint, start)), (lambda: fps_plain(pts, npoint, start))
@@ -551,7 +566,8 @@ def check_call(name: str, inp: dict) -> dict:
         if not torch.equal(got, want):
             raise AssertionError("gather_rows_kernel differs from the plain version")
         err = 0.0
-        shape = f"points {tuple(pts.shape)} idx {tuple(idx.shape)}"
+        shape = ("points {} idx {}, {} floats a column, {} columns a thread"
+                 .format(tuple(pts.shape), tuple(idx.shape), *gather_form(pts, idx.numel())))
     elif name == "scatter_add_rows_kernel":
         grads, idx, n = inp["grads"], inp["idx"], inp["num_points"]
         B, _, W = grads.shape
@@ -824,11 +840,13 @@ def train_phase(path: str, tag: str) -> dict:
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train losses {losses}")
 
-    # One more step records the backward launches' inputs for phase 3.
+    # One more step records the backward launches' inputs, and the step's
+    # gathers (forward, and the scatter-means' backward), for phase 3.
     kernels.recorded = []
     step(state, *batch(TRAIN_WARMUP + TRAIN_STEPS))
     torch.cuda.synchronize()
-    recorded = [(n, inp) for n, inp in kernels.recorded if n in BACKWARD]
+    recorded = [(n, inp) for n, inp in kernels.recorded
+                if n in BACKWARD or n == "gather_rows_kernel"]
     kernels.recorded = None
     del state
 
@@ -899,17 +917,24 @@ def semseg_parity() -> dict:
 
 def segmenter_parity(batch: int = PATHS["partseg"]["parity_batch"]) -> dict:
     """``load_segmenter`` on the card against the CPU (plain ops) from the
-    same weights on ``batch`` synthetic clouds: ``segmentation_agreement``
-    and the CPU's seconds."""
+    same weights on ``batch`` synthetic clouds: ``segmentation_agreement``,
+    the CPU's seconds, and the inputs of the card request's
+    ``gather_rows_kernel`` launches."""
+    from mpa_tpu_torch import kernels
     from mpa_tpu_torch.data import realistic_partseg
     from mpa_tpu_torch.serve import load_segmenter
 
     pts, cats, _ = realistic_partseg(batch, PATHS["partseg"]["points"], seed=SEED)
-    got = load_segmenter("shapenetpart", seed=SEED)(pts, cats).cpu()
+    kernels.recorded = []
+    try:
+        got = load_segmenter("shapenetpart", seed=SEED)(pts, cats).cpu()
+    finally:
+        recorded, kernels.recorded = kernels.recorded, None
     cpu = load_segmenter("shapenetpart", seed=SEED, device="cpu")
     t0 = time.perf_counter()
     want = cpu(pts, cats)
-    return dict(segmentation_agreement(got, want), cpu_s=time.perf_counter() - t0)
+    return dict(segmentation_agreement(got, want), cpu_s=time.perf_counter() - t0,
+                gather=[inp for name, inp in recorded if name == "gather_rows_kernel"])
 
 
 def serve_phase(path: str, tag: str) -> dict:
@@ -1049,15 +1074,26 @@ def fps_16384_phase() -> list:
 
 def replay(path: str, served: dict, trained: dict) -> list:
     """Phase 3 for one model: every recorded launch against its plain
-    version, the kNN distance gradient, and the scatter-mean's backward."""
-    rows = [replay_call(path, name, inp)
-            for name, inp in served["recorded"] + trained["recorded"]]
+    version (a train step's gathers tagged ``PATH_train``), the kNN distance
+    gradient and its gathers (tagged ``PATH_knn_grad``), and the
+    scatter-mean's backward."""
+    from mpa_tpu_torch import kernels
+
+    rows = [replay_call(path, name, inp) for name, inp in served["recorded"]]
+    rows += [replay_call(path if name in BACKWARD else f"{path}_train", name, inp)
+             for name, inp in trained["recorded"]]
     # repsurf's one kNN (the umbrella's, on coordinates) keeps only indices.
     knn_feature = next((inp for name, inp in served["recorded"]
                         if name in ("knn_kernel", "windowed_knn_kernel")
                         and inp["base"].shape[-1] > 3), None)
     if knn_feature is not None:
-        err = check_knn_grad(knn_feature)
+        kernels.recorded = []
+        try:
+            err = check_knn_grad(knn_feature)
+        finally:
+            recorded, kernels.recorded = kernels.recorded, None
+        rows += [replay_call(f"{path}_knn_grad", name, inp) for name, inp in recorded
+                 if name == "gather_rows_kernel"]
         log(f"[3 {path}] knn distance gradient (gather_rows_kernel + scatter_add_rows_kernel) "
             f"base {tuple(knn_feature['base'].shape)} query {tuple(knn_feature['query'].shape)}"
             f"{' windowed' if 'spec' in knn_feature else ''}: max_abs_err {err:.3e} against "
@@ -1077,7 +1113,8 @@ def summarise(name: str, rows: list, counts: dict) -> dict:
     path (markov_semseg window_all for the windowed kernels, repsurf_ssg_2x
     for the ball query, markov_partseg for the others), and ``by_path`` has
     each model's; ``other_replays`` the replays of launches outside the
-    timed paths (FPS and the exact kNNs of the 16384-point window request).
+    timed requests (FPS and the exact kNNs of the 16384-point window request,
+    a train step's gathers, the kNN distance gradient's gathers).
     ``launches`` is the count in the timed run of that path the times are
     per (3 requests or 5 steps); ``launches_by_path`` has all eight timed
     runs."""
@@ -1174,12 +1211,16 @@ PLANTED_FAULTS = {
         "idx + e0, 0, E - 1, 1,"),
     "ball query: the last 32 base points never tested": (
         "repsurf", "mpa_tpu_torch/kernels/csrc/ball_query.cu",
-        "for (int r0 = 0; r0 < nt && count < nsample; r0 += 32) {",
-        "for (int r0 = 0; r0 < nt - 32 && count < nsample; r0 += 32) {"),
+        "const int n_slabs = min(32, (nt32 - c0) / 32);",
+        "const int n_slabs = min(32, (nt32 - c0) / 32 - 1);"),
     "ball query: the radius compared where its square belongs": (
         "repsurf", "mpa_tpu_torch/kernels/csrc/ball_query.cu",
-        "in = d <= r2;",
-        "in = d <= sqrtf(r2);"),
+        "const unsigned m = __ballot_sync(FULL, d <= r2);",
+        "const unsigned m = __ballot_sync(FULL, d <= sqrtf(r2));"),
+    "gather: each cloud's last row left unwritten": (
+        "partseg", "mpa_tpu_torch/kernels/csrc/gather.cu",
+        "if (i < total) o[i] = v[k];",
+        "if (i < total && (i / wv + 1) % E != 0) o[i] = v[k];"),
 }
 
 
@@ -1268,7 +1309,9 @@ def parity_readings(path: str) -> dict:
                                         dtype=torch.int32).cuda(),
                "num_fine": 2048}
         checks = [("replay", lambda: check_call("scatter_mean_kernel", inp)),
-                  ("backward", lambda: check_scatter_mean_grad(inp))]
+                  ("backward", lambda: check_scatter_mean_grad(inp)),
+                  (f"{len(seg['gather'])} gather replays of the request", lambda: [
+                      check_call("gather_rows_kernel", g) for g in seg["gather"]])]
     else:
         inputs = window_replay_inputs()
         checks = [(name, lambda name=name, inp=inp: check_call(name, inp))
@@ -1392,6 +1435,10 @@ def main() -> int:
     del served["repsurf"]["recorded"], trained["repsurf"]["recorded"]
     torch.cuda.empty_cache()
     rows += fps_16384_phase()
+
+    floor = launch_floor()
+    log(f"[3 floor] empty_kernel (one block of one thread) in the same CUDA-graph harness: "
+        f"{floor:.4f} ms a launch")
 
     counts = {f"{path}_serve": served[path]["launches"] for path in PATHS}
     counts.update({f"{path}_train": trained[path]["launches"] for path in PATHS})

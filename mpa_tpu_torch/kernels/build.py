@@ -116,7 +116,7 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "mpa_knn": [_VP] * 5 + [_I] * 5 + [_VP],
     "mpa_fps": [_VP, _VP, _I, _VP] + [_I] * 8 + [_VP],
-    "mpa_gather_rows": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "mpa_gather_rows": [_VP, _VP, _VP] + [_I] * 6 + [_VP],
     "mpa_transition_attention_fwd": [_VP] * 4 + [_I] * 7 + [_VP],
     "mpa_scatter_add_rows": [_VP, _VP, _VP] + [_I] * 6 + [_VP],
     "mpa_transition_attention_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
@@ -125,7 +125,8 @@ _SIGNATURES = {
     "mpa_windowed_attention_fwd": [_VP, _VP, _VP, _VP] + [_I] * 7 + [_VP],
     "mpa_windowed_attention_bwd": [_VP] * 6 + [_I] * 6 + [_VP],
     "mpa_windowed_scatter_mean": [_VP] * 4 + [_I] * 10 + [_VP],
-    "mpa_ball_query": [_VP, _VP, _VP] + [_I] * 5 + [ctypes.c_float, _VP],
+    "mpa_ball_query": [_VP, _VP, _VP] + [_I] * 5 + [ctypes.c_float, _I, _VP],
+    "mpa_empty": [_VP],
 }
 
 

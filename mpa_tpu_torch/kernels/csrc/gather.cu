@@ -6,50 +6,100 @@
 // out [B,E,W] f32. Forward only.
 //
 // What bounds it on the H100: bytes. It reads E rows of W floats and writes
-// as many, so the bound is 2*B*E*W*4 bytes over the memory rate. Design: a
-// 2-D grid over (batch, flattened (row, column)); neighbouring threads copy
-// neighbouring columns of a row, as float4 when W % 4 == 0 and both pointers
-// are 16-byte aligned, so every warp's loads and stores are coalesced. The
-// TPU's scalar-prefetch row loop is a TPU layout and is not carried over.
+// as many, so the bound is 2*B*E*W*4 bytes over the memory rate; at the
+// paths' small launches (a few hundred KB) what a launch costs comes first,
+// then the two dependent loads (the index, then the row). The TPU's
+// scalar-prefetch row loop is a TPU layout and is not carried over.
+//
+// Design: one flat grid over the output's B*E*W/VEC columns of VEC floats
+// (float4 where W % 4 == 0 and both pointers are 16-byte aligned, float2
+// where W is even and they are 8-byte aligned, else scalar), ELEMS columns
+// a thread, 256 apart, all loads issued before the first store; 32-bit
+// index arithmetic (a column's row is i / (W/VEC), the row's cloud row / E).
+// Neighbouring threads copy neighbouring columns, so every warp's loads and
+// stores are coalesced, and a row's index is loaded by its columns' lanes
+// from one address, one transaction a warp. A thread holds few registers,
+// so an SM keeps 2048 threads resident. ops/gather.py::gather_form picks
+// VEC and ELEMS.
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void gather_rows_kernel(const T* __restrict__ src, const int* __restrict__ idx,
-                                   T* __restrict__ out, int N, int E, int W) {
-  const int b = blockIdx.y;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(E) * W) return;
-  const int e = static_cast<int>(i / W);
-  const int w = static_cast<int>(i - static_cast<long long>(e) * W);
-  const int row = __ldg(idx + static_cast<size_t>(b) * E + e);
-  out[(static_cast<size_t>(b) * E + e) * W + w] =
-      src[(static_cast<size_t>(b) * N + row) * W + w];
+constexpr int THREADS = 256;
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<1> { using T = float; };
+template <>
+struct Vec<2> { using T = float2; };
+template <>
+struct Vec<4> { using T = float4; };
+
+template <int VEC, int ELEMS>
+__global__ void __launch_bounds__(THREADS)
+gather_rows_kernel(const float* __restrict__ src, const int* __restrict__ idx,
+                   float* __restrict__ out, int N, int E, int wv, int total) {
+  using T = typename Vec<VEC>::T;
+  const T* s = reinterpret_cast<const T*>(src);
+  T* o = reinterpret_cast<T*>(out);
+  const int i0 = blockIdx.x * (THREADS * ELEMS) + threadIdx.x;
+  T v[ELEMS];
+#pragma unroll
+  for (int k = 0; k < ELEMS; ++k) {
+    const int i = i0 + k * THREADS;
+    if (i < total) {
+      const unsigned r = static_cast<unsigned>(i) / static_cast<unsigned>(wv);
+      const unsigned c = static_cast<unsigned>(i) - r * static_cast<unsigned>(wv);
+      const int b = static_cast<int>(r / static_cast<unsigned>(E));
+      v[k] = __ldg(s + static_cast<size_t>(b * N + __ldg(idx + r)) * wv + c);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < ELEMS; ++k) {
+    const int i = i0 + k * THREADS;
+    if (i < total) o[i] = v[k];
+  }
 }
 
-template <typename T>
-cudaError_t launch(const T* src, const int* idx, T* out, int B, int N, int E, int W,
+template <int VEC, int ELEMS>
+cudaError_t launch(const float* src, const int* idx, float* out, int N, int E, int wv, int total,
                    cudaStream_t stream) {
-  const int threads = 256;
-  const long long work = static_cast<long long>(E) * W;
-  dim3 grid(static_cast<unsigned>((work + threads - 1) / threads), B);
-  gather_rows_kernel<T><<<grid, threads, 0, stream>>>(src, idx, out, N, E, W);
+  const int blocks = mpa::ceil_div(total, THREADS * ELEMS);
+  gather_rows_kernel<VEC, ELEMS><<<blocks, THREADS, 0, stream>>>(src, idx, out, N, E, wv, total);
   return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t launch_elems(const float* src, const int* idx, float* out, int N, int E, int wv,
+                         int total, int elems, cudaStream_t stream) {
+  switch (elems) {
+    case 1: return launch<VEC, 1>(src, idx, out, N, E, wv, total, stream);
+    case 2: return launch<VEC, 2>(src, idx, out, N, E, wv, total, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// src [B,N,W] f32, idx [B,E] int32, out [B,E,W] f32, all contiguous.
+// src [B,N,W] f32, idx [B,E] int32, out [B,E,W] f32, all contiguous, in
+// ops/gather.py::gather_form's form: vec floats a column (1, 2 or 4,
+// dividing W, both pointers aligned to it) and elems columns a thread (1 or
+// 2). Requires B * N and B * E * W below 2^31 (checked by the Python
+// wrapper).
 MPA_EXPORT int mpa_gather_rows(const void* src, const void* idx, void* out, int B, int N,
-                               int E, int W, void* stream) {
+                               int E, int W, int vec, int elems, void* stream) {
+  const auto align = reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out);
+  if ((vec != 1 && vec != 2 && vec != 4) || W % vec != 0 || align % (4 * vec) != 0)
+    return cudaErrorInvalidValue;
+  const int wv = W / vec;
+  const int total = B * E * wv;
+  if (total == 0) return cudaSuccess;
   cudaStream_t st = mpa::as_stream(stream);
+  const auto s = static_cast<const float*>(src);
   const auto ip = static_cast<const int*>(idx);
-  const bool vec = (W % 4 == 0) &&
-                   ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out)) % 16 == 0);
-  if (vec)
-    return launch<float4>(static_cast<const float4*>(src), ip, static_cast<float4*>(out), B,
-                          N, E, W / 4, st);
-  return launch<float>(static_cast<const float*>(src), ip, static_cast<float*>(out), B, N, E,
-                       W, st);
+  const auto o = static_cast<float*>(out);
+  if (vec == 4) return launch_elems<4>(s, ip, o, N, E, wv, total, elems, st);
+  if (vec == 2) return launch_elems<2>(s, ip, o, N, E, wv, total, elems, st);
+  return launch_elems<1>(s, ip, o, N, E, wv, total, elems, st);
 }

@@ -6,9 +6,10 @@ within ``radius**2``; slots left over repeat the first hit, and a centre with
 no hit at all gets index 0.
 
 It runs in two stages. The sentinel stage marks the missing slots with N: on
-a CUDA tensor ``ball_query_kernel`` (``kernels/csrc/ball_query.cu``) computes
-it, always, at any size; on a CPU tensor :func:`ball_query_plain` does. The
-backfill then runs in torch on both.
+a CUDA tensor ``ball_query_kernel`` (``kernels/csrc/ball_query.cu``, in
+:func:`ball_query_form`'s form) computes it, always, at any size; on a CPU
+tensor :func:`ball_query_plain` does. The backfill then runs in torch on
+both.
 
 Membership must agree where a distance lies within a last bit of the radius:
 both stages take the distance of ``ops/pairwise.py::square_distance`` and
@@ -27,6 +28,12 @@ from mpa_tpu_torch.ops.pairwise import square_distance
 from mpa_tpu_torch.utils.device import on_cuda
 
 MAX_C = 256
+MAX_B = 65535  # the kernel's grid runs the batch along y
+# ball_query_kernel's warps take 8 centres each, halved down to 1 while the
+# launch has fewer than FILL_WARPS warps (16 a streaming multiprocessor of
+# the H100's 132): a warp reads each staged base row once for all its
+# centres, and a launch wants enough warps to hide each test's latency.
+MAX_CENTRES, FILL_WARPS = 8, 16 * 132
 
 
 def radius_squared(radius: float) -> float:
@@ -47,6 +54,17 @@ def ball_query_plain(radius: float, nsample: int, xyz: torch.Tensor,
     return torch.topk(marked, nsample, dim=-1, largest=False, sorted=True).values
 
 
+def ball_query_form(B: int, S: int) -> int:
+    """The centres a warp of ``ball_query_kernel`` holds for ``B`` clouds of
+    ``S`` centres: ``MAX_CENTRES`` halved down to 1 while ``B * ceil(S /
+    G)`` warps fall short of ``FILL_WARPS``. The kernel's entry refuses any
+    other value than 1, 2, 4 or 8."""
+    g = MAX_CENTRES
+    while g > 1 and B * -(-S // g) < FILL_WARPS:
+        g //= 2
+    return g
+
+
 def _check(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> None:
     if xyz.dim() != 3 or new_xyz.dim() != 3:
         raise ValueError(f"ball_query: xyz/new_xyz must be [B,N,C]/[B,S,C], got "
@@ -64,22 +82,23 @@ def ball_query_cuda(radius: float, nsample: int, xyz: torch.Tensor,
     _check(nsample, xyz, new_xyz)
     B, N, C = xyz.shape
     S = new_xyz.shape[1]
-    if C > MAX_C or B < 1 or S < 1:
-        raise ValueError(f"ball_query_kernel supports C <= {MAX_C} and B, S >= 1, got "
-                         f"C={C}, B={B}, S={S}")
+    if C > MAX_C or not 1 <= B <= MAX_B or S < 1:
+        raise ValueError(f"ball_query_kernel supports C <= {MAX_C}, 1 <= B <= {MAX_B} and "
+                         f"S >= 1, got C={C}, B={B}, S={S}")
     for name, t in (("xyz", xyz), ("new_xyz", new_xyz)):
         if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"ball_query_kernel: {name} must be a contiguous float32 CUDA tensor")
     if xyz.device != new_xyz.device:
         raise ValueError("ball_query_kernel: xyz and new_xyz on different devices")
+    g = ball_query_form(B, S)
     out = torch.empty((B, S, nsample), dtype=torch.int32, device=xyz.device)
     lib = build.load()
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(
             lib.mpa_ball_query(xyz.data_ptr(), new_xyz.data_ptr(), out.data_ptr(), B, N, S, C,
-                               nsample, radius_squared(radius), stream),
-            "ball_query_kernel",
+                               nsample, radius_squared(radius), g, stream),
+            f"ball_query_kernel ({g} centres a warp)",
         )
     kernels.launched("ball_query_kernel",
                      {"radius": radius, "nsample": nsample, "xyz": xyz, "new_xyz": new_xyz})

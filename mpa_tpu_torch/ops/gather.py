@@ -5,7 +5,8 @@ Counterpart of ``mpa_tpu/ops/gather.py::index_points`` (and of its
 outside any Pallas kernel there) and of the custom VJP
 of ``mpa_tpu/ops/pallas/gather_pallas.py::gather_neighbors``. On a CUDA
 float32 tensor, :func:`index_points` is a ``torch.autograd.Function`` whose
-forward launches ``gather_rows_kernel`` (``kernels/csrc/gather.cu``) and whose
+forward launches ``gather_rows_kernel`` (``kernels/csrc/gather.cu``, in
+:func:`gather_form`'s form) and whose
 backward launches ``scatter_add_rows_kernel``
 (``kernels/csrc/scatter_add.cu``, in :func:`scatter_add_form`'s form); on a
 CPU tensor it takes :func:`gather_plain`, which autograd differentiates.
@@ -33,6 +34,11 @@ MAX_B = 65535  # the inverse-index kernels' grids run the batch along y
 MAX_SLOTS, MIN_SLOTS, MIN_ROW_SLOTS = 256, 32, 8
 FILL_BLOCKS = 2 * 132
 ROW_BYTES = 64 * 1024
+# gather_rows_kernel: a thread copies one column of the output, two where
+# the launch would have MANY_BLOCKS blocks of GATHER_THREADS or more at one
+# (four waves of eight blocks on each of the H100's 132 SMs): long launches
+# gain from loads in flight, short ones from threads.
+MANY_BLOCKS, GATHER_THREADS = 32 * 132, 256
 
 
 def gather_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -78,6 +84,21 @@ def index_form(rows: torch.Tensor, num_slots: int, claims: int = 0,
     return slots, vec
 
 
+def gather_form(points: torch.Tensor, rows: int) -> Tuple[int, int]:
+    """``gather_rows_kernel``'s form for ``rows`` output rows (B * E) of
+    ``points [B,N,W]``: ``(vec, elems)``. ``vec``: the floats a column
+    moves at once, 4 where ``W % 4 == 0`` and ``points`` starts on a
+    16-byte boundary, 2 where W is even and it starts on an 8-byte one, else
+    1 (the output is a fresh allocation, always aligned). ``elems``: the
+    columns a thread copies, 2 where one a thread takes ``MANY_BLOCKS``
+    blocks or more, else 1. The kernel's entry refuses any other form."""
+    W = points.shape[2]
+    ptr = points.data_ptr()
+    vec = 4 if W % 4 == 0 and ptr % 16 == 0 else 2 if W % 2 == 0 and ptr % 8 == 0 else 1
+    blocks = -(-rows * (W // vec) // GATHER_THREADS)
+    return vec, 2 if blocks >= MANY_BLOCKS else 1
+
+
 def scatter_add_form(grads: torch.Tensor, num_points: int) -> Tuple[int, int]:
     """``scatter_add_rows_kernel``'s form for ``grads [B,E,W]`` into
     ``num_points`` rows: :func:`index_form`'s, with E claims a cloud, and two
@@ -118,14 +139,18 @@ def gather_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                        ("idx", idx, torch.int32)))
     B, N, W = points.shape
     E = idx.shape[1]
+    if B * N >= 2**31 or B * E * W >= 2**31:
+        raise ValueError(f"gather_rows_kernel: B * N and B * E * W below 2^31 expected, got "
+                         f"B={B}, N={N}, E={E}, W={W}")
+    vec, elems = gather_form(points, B * E)
     out = torch.empty((B, E, W), dtype=points.dtype, device=points.device)
     lib = build.load()
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(
             lib.mpa_gather_rows(points.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                B, N, E, W, stream),
-            "gather_rows_kernel",
+                                B, N, E, W, vec, elems, stream),
+            f"gather_rows_kernel ({vec} floats a column, {elems} columns a thread)",
         )
     kernels.launched("gather_rows_kernel", {"points": points, "idx": idx})
     return out

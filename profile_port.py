@@ -23,9 +23,11 @@ request. Needs a CUDA card; exits non-zero without one.
 Times ``knn_kernel``, ``windowed_knn_kernel``, ``fps_kernel``,
 ``transition_attention_fwd_kernel``, ``windowed_attention_fwd_kernel``,
 ``scatter_mean_kernel``, ``windowed_scatter_mean_kernel``,
+``ball_query_kernel``, ``gather_rows_kernel``,
 ``transition_attention_bwd_kernel``, ``windowed_attention_bwd_kernel`` and
 ``scatter_add_rows_kernel`` launch by launch on the inputs the main paths
-give them (the forward kernels' launches of a request): one served request
+give them (the forward kernels' launches of a request, and the gathers of
+a train step too, the scatter-means' backward among them): one served request
 of cls, part-seg, repsurf and semseg ``window_all``, one train step of cls,
 part-seg, repsurf and semseg ``window_all``, and the FPS over 16384 points and the
 exact kNNs of one semseg ``window`` request at 16384 points are recorded,
@@ -70,13 +72,13 @@ OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="windo
 
 TIMED = ("knn_kernel", "windowed_knn_kernel", "fps_kernel", "transition_attention_fwd_kernel",
          "windowed_attention_fwd_kernel", "scatter_mean_kernel", "windowed_scatter_mean_kernel",
-         "transition_attention_bwd_kernel", "windowed_attention_bwd_kernel",
-         "scatter_add_rows_kernel")
+         "ball_query_kernel", "gather_rows_kernel", "transition_attention_bwd_kernel",
+         "windowed_attention_bwd_kernel", "scatter_add_rows_kernel")
 # Forward kernels a train step launches at its request's shapes: timed on
 # the request only.
 REQUEST_ONLY = ("fps_kernel", "windowed_knn_kernel", "transition_attention_fwd_kernel",
                 "windowed_attention_fwd_kernel", "scatter_mean_kernel",
-                "windowed_scatter_mean_kernel")
+                "windowed_scatter_mean_kernel", "ball_query_kernel")
 
 
 def kind(name: str) -> str:
@@ -234,8 +236,9 @@ def time_saved(path: Path, names) -> list:
     graph of 20 calls (None for the others)."""
     import chip_smoke
     from mpa_tpu_torch.ops.attention import attention_bwd_cuda, attention_cuda
+    from mpa_tpu_torch.ops.ball_query import ball_query_cuda
     from mpa_tpu_torch.ops.fps import fps_cuda
-    from mpa_tpu_torch.ops.gather import scatter_add_cuda
+    from mpa_tpu_torch.ops.gather import gather_cuda, scatter_add_cuda
     from mpa_tpu_torch.ops.knn import knn_cuda
     from mpa_tpu_torch.ops.scatter import scatter_mean_cuda
     from mpa_tpu_torch.ops.window import (
@@ -273,6 +276,11 @@ def time_saved(path: Path, names) -> list:
                 inp["features"], inp["knn_idx"], inp["num_fine"], inp["spec"])
         elif name == "scatter_add_rows_kernel":
             fn = lambda: scatter_add_cuda(inp["grads"], inp["idx"], inp["num_points"])  # noqa: E731
+        elif name == "gather_rows_kernel":
+            fn = lambda: gather_cuda(inp["points"], inp["idx"])  # noqa: E731
+        elif name == "ball_query_kernel":
+            fn = lambda: ball_query_cuda(inp["radius"], inp["nsample"], inp["xyz"],  # noqa: E731
+                                         inp["new_xyz"])
         elif name == "windowed_attention_bwd_kernel":
             fn = lambda: windowed_attention_bwd_cuda(  # noqa: E731
                 inp["packed"], inp["idx"], inp["shifts"], inp["gctx"], inp["n_branches"],
@@ -359,7 +367,7 @@ def main() -> int:
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     ap.add_argument("--train", action="store_true", help="profile train steps, not requests")
     ap.add_argument("--kernels", action="store_true",
-                    help="time the kNN, FPS, attention and scatter-mean launches of the main paths")
+                    help="time the kernels' launches of the main paths")
     ap.add_argument("--against", nargs="*", default=None,
                     help="with --kernels: other checkouts' roots")
     ap.add_argument("--names", default=None, help="with --kernels: only these kernels (a,b)")

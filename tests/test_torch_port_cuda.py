@@ -53,7 +53,14 @@ held as the exact one; the windowed scatter-mean as the exact one, also
 where a block's 256 slots span two base blocks and where a block's claim
 range takes two passes. The ball
 query's sentinel stage does the plain version's distance arithmetic and is
-held bit for bit.
+held bit for bit: at the repsurf stages, on ``hit_cloud``'s centres of 0,
+1, exactly nsample and more hits (N not a multiple of 32, S not a multiple
+of a block's or a warp's centres, C = 3, 6 and 256, N = 16384, several
+staged tiles), at r2 on, just below and just above a pair's distance, and
+on NaN rows and centres. The gather is held bit for bit in each form
+``gather_form`` picks (float4, float2 and scalar columns, one or two a
+thread) at W = 1 to 512, E = 1, B = 1 and 64 and views 4, 8 and 12 bytes
+off, and its entry refuses the forms it does not take.
 
 Run on a machine with an H100:
     python -m pytest tests/test_torch_port_cuda.py -q
@@ -76,12 +83,13 @@ from mpa_tpu_torch.ops.attention import (
 from mpa_tpu_torch.ops.ball_query import (
     ball_query,
     ball_query_cuda,
+    ball_query_form,
     ball_query_plain,
     radius_squared,
 )
 from mpa_tpu_torch.ops.fps import fps_chain_cuda, fps_cuda, fps_form, fps_plain
 from mpa_tpu_torch.ops.gather import (
-    gather_cuda, gather_plain, scatter_add_cuda, scatter_add_form, scatter_add_plain,
+    gather_cuda, gather_form, gather_plain, scatter_add_cuda, scatter_add_form, scatter_add_plain,
 )
 from mpa_tpu_torch.ops.knn import knn_cuda, knn_plain
 from mpa_tpu_torch.ops.scatter import (
@@ -223,6 +231,80 @@ def test_gather_kernel_matches_plain(dev, N, E, W):
     pts = _cloud(3, (2, N, W), dev)
     idx = torch.randint(0, N, (2, E), generator=torch.Generator().manual_seed(0)).to(torch.int32).to(dev)
     assert torch.equal(gather_cuda(pts, idx), gather_plain(pts, idx))
+
+
+def offset_cloud(shape, offset, seed=3):
+    """A contiguous float32 ``[B,N,W]`` CUDA view that starts ``offset``
+    floats into its buffer (misaligned for float4 unless offset % 4 == 0)."""
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(np.random.default_rng(seed).standard_normal(n + offset)
+                           .astype(np.float32)).cuda()
+    return buf[offset:].view(shape)
+
+
+# (B, N, E, W, offset, form): W = 1, 3, 10, 64, 256 and 512, E = 1, B = 1
+# and 64, views 4, 8 and 12 bytes off; form is gather_form's (vec, elems).
+GATHER_CASES = [
+    (64, 1024, 512, 3, 0, (1, 1)),  # new_xyz at cls's first step
+    (64, 1024, 512, 64, 0, (4, 1)),  # center_feat at cls's first step
+    (64, 64, 32, 256, 0, (4, 1)),  # cls's last step
+    (64, 128, 768, 512, 0, (4, 2)),  # repsurf sa3's grouped features
+    (64, 1024, 12288, 10, 0, (2, 2)),  # repsurf sa1's grouped normals
+    (64, 64, 1, 1, 0, (1, 1)),  # E = 1
+    (1, 100, 1, 3, 0, (1, 1)),  # B = 1, E = 1
+    (1, 64, 1, 256, 0, (4, 1)),
+    (1, 300, 900, 10, 1, (1, 1)),  # 4 bytes off: scalar columns
+    (2, 300, 700, 256, 2, (2, 1)),  # 8 bytes off: float2
+    (3, 77, 130, 64, 3, (1, 1)),
+    (2, 90, 45, 6, 2, (2, 1)),
+    (2, 90, 4000, 4, 0, (4, 1)),
+    (2, 90, 4000, 4, 1, (1, 1)),
+    (64, 2048, 16384, 3, 0, (1, 2)),
+    (32, 2048, 8192, 64, 0, (4, 2)),  # part-seg's largest scatter-mean backward
+    (2, 16384, 8192, 64, 0, (4, 1)),  # semseg's first center_feat
+]
+
+
+@pytest.mark.parametrize("B,N,E,W,offset,form", GATHER_CASES)
+def test_gather_kernel_forms_match_plain(dev, B, N, E, W, offset, form):
+    pts = offset_cloud((B, N, W), offset)
+    idx = torch.randint(0, N, (B, E), generator=torch.Generator().manual_seed(E), dtype=torch.int32)
+    idx = idx.to(dev)
+    assert gather_form(pts, B * E) == form
+    kernels.reset_launch_counts()
+    got = gather_cuda(pts, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gather_rows_kernel"] == 1
+    assert torch.equal(got, gather_plain(pts, idx))
+    assert torch.equal(got.cpu(), gather_plain(pts.cpu(), idx.cpu()))
+
+
+def test_gather_kernel_refuses_forms_gather_form_does_not_pick(dev):
+    """The entry refuses a vec that does not divide W or is misaligned and
+    elems other than 1 and 2, and launches nothing for E = 0; both
+    columns-a-thread counts copy the same rows."""
+    from mpa_tpu_torch.kernels import build
+
+    lib = build.load()
+    pts = offset_cloud((2, 64, 12), 1)
+    idx = torch.randint(0, 64, (2, 300), generator=torch.Generator().manual_seed(1),
+                        dtype=torch.int32).to(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(vec, elems, E=300):
+        out = torch.zeros((2, E, 12), device=dev)
+        err = lib.mpa_gather_rows(pts.data_ptr(), idx.data_ptr(), out.data_ptr(), 2, 64, E, 12,
+                                  vec, elems, stream)
+        return err, out
+
+    for vec, elems in [(4, 1), (2, 1), (3, 1), (1, 0), (1, 3), (1, 4)]:
+        assert call(vec, elems)[0] != 0, (vec, elems)
+    assert call(1, 1, E=0)[0] == 0
+    want = gather_plain(pts, idx)
+    for elems in (1, 2):
+        err, out = call(1, elems)
+        torch.cuda.synchronize()
+        assert err == 0 and torch.equal(out, want)
 
 
 @pytest.mark.parametrize("n_branches,with_shift,N,S,K,c", [
@@ -1213,9 +1295,9 @@ def _ball_case(name, dev):
         "ragged": (3, 1000, 77, 3, 24, 0.5, 1.0),  # N not a multiple of 32
         "sparse": (2, 257, 40, 3, 4, 0.2, 1.0),  # fewer hits than nsample
         "all_in": (2, 64, 16, 3, 64, 30.0, 1.0),  # everything in radius, nsample = N
-        "tiles": (2, 5000, 100, 3, 24, 0.3, 1.0),  # three staged tiles of base rows
+        "tiles": (2, 5000, 100, 3, 24, 0.3, 1.0),  # two staged tiles of base rows
         "c6": (2, 300, 50, 6, 16, 0.8, 1.0),  # even C: padded shared-memory rows
-        "c40": (1, 200, 33, 40, 8, 6.0, 1.0),  # wide C: one 32-row tile at a time
+        "c40": (1, 200, 33, 40, 8, 6.0, 1.0),  # wide C: centres in shared memory too
     }[name]
     r = np.random.default_rng(len(name) + N)
     xyz = (scale * r.standard_normal((B, N, C))).astype(np.float32)
@@ -1260,6 +1342,106 @@ def test_ball_query_kernel_identical_points_and_the_boundary(dev):
     got = ball_query_cuda(radius, ns, xyz, new_xyz)
     assert torch.equal(got, ball_query_plain(radius, ns, xyz, new_xyz))
     assert (got[0, 0] == 7).any()  # on the boundary: in the ball
+
+
+def hit_cloud(B, N, S, C, ns, seed=0):
+    """``(xyz [B,N,C], new_xyz [B,S,C])`` float32 numpy arrays whose centres
+    at radius 0.3 hold 0, 1, exactly ``ns`` and more than ``ns`` hits, in
+    turns: base points on a unit lattice in the first three channels (each
+    alone in its ball), a centre 0.87 from every lattice point (no hit), on
+    a lattice point (its own hit), or on a lattice point around which ns - 1
+    or 2 ns - 1 rows, scattered over the cloud's indices, were moved to
+    within 0.1 (the first ns of them in index order are its group). Also
+    ``kinds [B,S]``: each centre's expected hit class (0, 1, 2 for ns, 3 for
+    more)."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(N ** (1 / 3)))
+    lattice = np.stack(np.unravel_index(np.arange(N), (side, side, side)), -1).astype(np.float32)
+    xyz = np.zeros((B, N, C), np.float32)
+    xyz[..., :3] = lattice
+    new_xyz = np.zeros((B, S, C), np.float32)
+    kinds = np.zeros((B, S), np.int64)
+    for b in range(B):
+        perm, ptr = rng.permutation(N), 0
+        for s in range(S):
+            kind = s % 4
+            need = {0: 0, 1: 1, 2: ns, 3: 2 * ns}[kind]
+            if ptr + need > N:
+                kind, need = 0, 0
+            kinds[b, s] = kind
+            if kind == 0:
+                new_xyz[b, s, :3] = lattice[perm[s % N]] + 0.5
+                continue
+            anchor, members = perm[ptr], perm[ptr + 1:ptr + need]
+            ptr += need
+            offsets = rng.uniform(-0.1, 0.1, (len(members), C)) / np.sqrt(C)
+            xyz[b, members] = xyz[b, anchor] + offsets.astype(np.float32)
+            new_xyz[b, s] = xyz[b, anchor]
+    return xyz, new_xyz, kinds
+
+
+# (B, N, S, C, ns): N not a multiple of 32, S not a multiple of a block's
+# centres (and, at B = 40, of a warp's eight), C = 3, 6 and 256, N = 16384,
+# several staged tiles (C = 6 at 5000 rows, C = 256 at 700).
+BALL_HIT_CASES = [
+    (2, 1000, 77, 3, 24),
+    (40, 600, 500, 3, 24),
+    (2, 16384, 300, 3, 24),
+    (2, 5000, 130, 6, 16),
+    (2, 700, 45, 256, 8),
+    (1, 16384, 64, 6, 24),
+]
+
+
+@pytest.mark.parametrize("B,N,S,C,ns", BALL_HIT_CASES)
+def test_ball_query_kernel_hit_classes(dev, B, N, S, C, ns):
+    xyz, new_xyz, kinds = hit_cloud(B, N, S, C, ns)
+    xyz, new_xyz = torch.from_numpy(xyz).to(dev), torch.from_numpy(new_xyz).to(dev)
+    kernels.reset_launch_counts()
+    got = ball_query_cuda(0.3, ns, xyz, new_xyz)
+    want = ball_query_plain(0.3, ns, xyz, new_xyz)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ball_query_kernel"] == 1
+    assert torch.equal(got, want)
+    hits = (want < N).sum(-1).cpu().numpy()
+    assert set(kinds.flatten()) == {0, 1, 2, 3}
+    assert (hits[kinds == 0] == 0).all() and (hits[kinds == 1] == 1).all()
+    assert (hits[kinds >= 2] == ns).all()
+    if B == 40:
+        assert ball_query_form(B, S) == 8 and S % 8 != 0
+
+
+@pytest.mark.parametrize("C", [3, 6, 256])
+def test_ball_query_kernel_within_a_last_bit_of_r2(dev, C):
+    """For several (centre, point) pairs, r2 set to their float32 distance
+    and to the floats just below and above it: the point joins the ball
+    exactly from r2 = d on, on the card as in the plain version (nsample =
+    N, so every hit is listed)."""
+    rng = np.random.default_rng(C)
+    xyz = torch.from_numpy((0.3 * rng.standard_normal((2, 300, C))).astype(np.float32)).to(dev)
+    new_xyz = xyz[:, 10:50].contiguous()
+    d = square_distance(new_xyz, xyz)
+    for b, s, n in [(0, 0, 7), (1, 5, 299), (0, 39, 31), (1, 17, 32)]:
+        t = np.float32(d[b, s, n].item())
+        for r2 in (np.nextafter(t, np.float32(0)), t, np.nextafter(t, np.float32(np.inf))):
+            radius = float(np.sqrt(np.float64(r2)))
+            assert radius_squared(radius) == r2
+            got = ball_query_cuda(radius, 300, xyz, new_xyz)
+            assert torch.equal(got, ball_query_plain(radius, 300, xyz, new_xyz))
+            assert bool((got[b, s] == n).any()) == bool(r2 >= t)
+
+
+def test_ball_query_kernel_nan_rows_and_centres(dev):
+    """A NaN coordinate puts a point, or a centre's whole ball, out: the
+    plain version's clamp keeps a NaN distance NaN, which no radius admits."""
+    xyz = (0.2 * torch.randn((2, 200, 3), generator=torch.Generator().manual_seed(4))).to(dev)
+    xyz[0, 3, 1] = float("nan")
+    xyz[1, 150:, 0] = float("nan")
+    new_xyz = xyz[:, :40].contiguous()
+    new_xyz[1, 5, 2] = float("nan")
+    got = ball_query_cuda(0.2, 16, xyz, new_xyz)
+    assert torch.equal(got, ball_query_plain(0.2, 16, xyz, new_xyz))
+    assert not (got[0] == 3).any() and (got[1, 5] == 200).all()
 
 
 def test_repsurf_classifier_on_cuda_matches_cpu_and_counts_launches(dev):
