@@ -11,9 +11,10 @@ parts) served and trained, ``markov_semseg`` in the Morton-window mode
 ``window_all`` at the large-scene shape (``s3dis_semseg`` at 16384 points,
 B = 2, ladder 8192/4096/2048/1024, 13 classes) served and trained, and
 ``repsurf_ssg_2x`` (``scanobjectnn_2x``: 1024 points, 15 classes, SA ladder
-512/128/32, widths up to 2048) served and trained. It shows that they run
-through the port's twelve hand-written kernels (nine forward, three
-backward):
+512/128/32, widths up to 2048) served and trained, and the published
+recipe of cls and part-seg through ``cli.train`` and ``cli.eval`` (phase
+5). It shows that they run through the port's twelve hand-written kernels
+(nine forward, three backward):
 
 1. the card (``nvidia-smi`` name and power limit), then the kernel build
    from ``mpa_tpu_torch/kernels/csrc`` and its seconds;
@@ -93,6 +94,23 @@ backward):
    too), and the scatter-means' backward at every recorded launch against
    autograd of the plain version; and an empty kernel is timed the way the
    kernels are, the floor of a launch;
+5. the published recipe (run after phase 3, before the lines of 4):
+   ``markov_cls`` (``modelnet40_cls``, 40 classes, B = 64 x 1024) and
+   ``markov_partseg`` (``shapenetpart``, B = 32 x 2048) through the entry
+   points a user calls, on a ModelNet40 and a ShapeNetPart tree written in
+   their own text formats (``synthetic_clouds`` and ``realistic_partseg``;
+   192 train and 64 test clouds, 96 and 32): ``cli.train`` takes three
+   steps, one epoch (part-seg with its scale and shift augmentation, whose
+   mean change is logged), ends it with its eval (three votes for cls) and
+   keeps a checkpoint, its launches exactly three train steps' and the
+   eval's forwards; the checkpoint, restored weights only into a fresh
+   model on the card, gives bit for bit the trained model's log-probs;
+   ``cli.eval --checkpoint --num_votes 3 --num_repeat 2`` gives metrics in
+   [0, 1] with launches of votes x batches x the path's forward; the vote
+   pool of the first ``parity_batch`` test clouds on the card agrees with
+   the CPU's (plain ops, the same weights and vote scales) within cls's
+   served limit (max 1e-3) or ``SEG_LIMITS``; the eval's clouds/s (votes x
+   clouds over the median pass) and the train steps' ms are logged;
 4. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -871,13 +889,14 @@ def train_phase(path: str, tag: str) -> dict:
             or parity["stat"][1] > 1e-4):
         raise AssertionError(f"[{tag}] the CUDA train step differs from the CPU step")
 
-    # The training CLI, in-process.
-    out = cli_train.main(["--preset", spec["preset"], "--device", "cuda", "--max_steps", "3",
-                          "--seed", str(SEED), *spec.get("cli", [])])
+    # The training CLI, in-process, its checkpoint in a directory of its own.
+    with tempfile.TemporaryDirectory() as log_dir:
+        out = cli_train.main(["--preset", spec["preset"], "--device", "cuda", "--max_steps", "3",
+                              "--seed", str(SEED), "--log_dir", log_dir, *spec.get("cli", [])])
     if out["steps"] != 3 or not np.isfinite(out["losses"]).all():
         raise AssertionError(f"cli.train: {out}")
     log(f"[{tag}] cli.train: 3 steps, losses {out['losses']}, eval "
-        + ", ".join(f"{k} {v:.4f}" for k, v in out.items() if k not in ("steps", "losses")))
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items() if isinstance(v, float)))
     return {"launches": launches, "recorded": recorded,
             "step_ms": [t * 1e3 for t in times]}
 
@@ -1169,6 +1188,188 @@ def summarise(name: str, rows: list, counts: dict) -> dict:
     return entry
 
 
+# Phase 5: the published recipe through the entry points a user calls, on
+# data trees written in the datasets' own formats. A train split of three
+# batches, so that ``--max_steps 3`` is one epoch, one eval and one
+# checkpoint, the state the trained model ends in.
+RECIPE = {
+    "cls": dict(preset="modelnet40_cls", dataset="modelnet40", train=192, test=64),
+    "partseg": dict(preset="shapenetpart", dataset="shapenetpart", train=96, test=32),
+}
+RECIPE_VOTES, RECIPE_REPEATS, RECIPE_STEPS = 3, 2, 3
+
+
+def write_modelnet_tree(root: Path, n_train: int, n_test: int, points: int) -> None:
+    """A ModelNet40 tree: the class list, the split lists and one
+    comma-separated xyz + normal text file of ``points`` rows a shape, made
+    from ``synthetic_clouds`` over the 40 classes."""
+    from mpa_tpu_torch.data import synthetic_clouds
+
+    names = [f"class{c:02d}" for c in range(40)]
+    (root / "modelnet40_shape_names.txt").write_text("\n".join(names) + "\n")
+    pts, labels = synthetic_clouds(n_train + n_test, points, 40, seed=SEED)
+    normals = np.random.default_rng(SEED).standard_normal(pts.shape).astype(np.float32)
+    ids = []
+    for i, (p, n, c) in enumerate(zip(pts, normals, labels)):
+        (root / names[c]).mkdir(exist_ok=True)
+        ids.append(f"{names[c]}_{i:04d}")
+        np.savetxt(root / names[c] / f"{ids[-1]}.txt", np.concatenate([p, n], -1),
+                   fmt="%.6f", delimiter=",")
+    (root / "modelnet40_train.txt").write_text("\n".join(ids[:n_train]) + "\n")
+    (root / "modelnet40_test.txt").write_text("\n".join(ids[n_train:]) + "\n")
+
+
+def write_shapenet_tree(root: Path, n_train: int, n_test: int, points: int) -> None:
+    """A ShapeNetPart tree: ``synsetoffset2category.txt``, the shuffled split
+    lists (a quarter of the train clouds in ``val``) and one ``x y z nx ny nz
+    seg`` text file of ``points`` rows a shape, made from
+    ``realistic_partseg``, whose labels lie in their category's block."""
+    from mpa_tpu_torch.data.shapenetpart import CATEGORIES, SEG_PARTS
+    from mpa_tpu_torch.data import realistic_partseg
+
+    synsets = [f"{9000000 + c:08d}" for c in range(len(CATEGORIES))]
+    (root / "synsetoffset2category.txt").write_text(
+        "".join(f"{name}\t{syn}\n" for name, syn in zip(CATEGORIES, synsets)))
+    pts, cats, segs = realistic_partseg(n_train + n_test, points, seed=SEED)
+    if not all(np.isin(s, SEG_PARTS[c]).all() for s, c in zip(segs, cats)):
+        raise AssertionError("realistic_partseg gave a label outside its category's block")
+    normals = np.random.default_rng(SEED).standard_normal(pts.shape).astype(np.float32)
+    lists = {"train": [], "val": [], "test": []}
+    for i, (p, n, c, s) in enumerate(zip(pts, normals, cats, segs)):
+        syn = synsets[c]
+        (root / syn).mkdir(exist_ok=True)
+        np.savetxt(root / syn / f"shape{i:04d}.txt", np.column_stack([p, n, s]), fmt="%.6f")
+        split = "test" if i >= n_train else ("val" if i % 4 == 3 else "train")
+        lists[split].append(f"shape_data/{syn}/shape{i:04d}")
+    (root / "train_test_split").mkdir()
+    for split, names in lists.items():
+        (root / "train_test_split" / f"shuffled_{split}_file_list.json").write_text(
+            json.dumps(names))
+
+
+def recipe_phase(path: str, tag: str, work: Path) -> dict:
+    """Phase 5 for ``path``: ``cli.train`` three steps on its data tree with
+    the launch counts read, the checkpoint restored weights only into a
+    fresh model on the card and held bit for bit against the trained model,
+    ``cli.eval --checkpoint`` with its launch counts, and the vote pool of a
+    test batch on the card against the CPU with the same weights and
+    scales."""
+    from mpa_tpu_torch import kernels
+    from mpa_tpu_torch.cli import eval as cli_eval
+    from mpa_tpu_torch.cli import train as cli_train
+    from mpa_tpu_torch.data import native_available
+    from mpa_tpu_torch.train import BestCheckpointer, make_eval_step, vote_predict
+    from mpa_tpu_torch.train.votes import draw_vote_scales
+
+    spec, rec = PATHS[path], RECIPE[path]
+    root, log_dir = work / f"{path}_data", work / f"{path}_runs"
+    root.mkdir()
+    t0 = time.perf_counter()
+    writer = write_modelnet_tree if path == "cls" else write_shapenet_tree
+    writer(root, rec["train"], rec["test"], spec["points"])
+    log(f"[{tag}] wrote {rec['dataset']} tree: {rec['train']} train and {rec['test']} test "
+        f"clouds of {spec['points']} points in {time.perf_counter() - t0:.1f} s")
+    data = ["--preset", rec["preset"], "--dataset", rec["dataset"], "--data_root", str(root),
+            "--log_dir", str(log_dir), "--device", "cuda"]
+
+    kernels.reset_launch_counts()
+    state, out = cli_train.run(cli_train.parse_args(
+        data + ["--max_steps", str(RECIPE_STEPS), "--seed", str(SEED)]))
+    torch.cuda.synchronize()
+    train_launches = dict(kernels.LAUNCHES)
+    cfg = cli_train.config_from_args(cli_train.parse_args(data))
+    batches = -(-rec["test"] // cfg.batch_size)
+    votes = cfg.num_votes if path == "cls" else 1  # the train eval of part-seg is one pass
+    want = {k: RECIPE_STEPS * spec["per_train_step"].get(k, 0)
+            + votes * batches * spec["per_forward"].get(k, 0) for k in kernels.KERNELS}
+    log(f"[{tag}] cli.train ({'native' if native_available() else 'numpy'} text parser): "
+        f"{out['steps']} steps, losses {out['losses']}, step ms {out['step_ms']}, "
+        f"augmented mean |d| of the first batch {out['aug_delta']}; launches {train_launches}")
+    check_launches(f"{tag} train", train_launches, want, 1, "run")
+    if out["steps"] != RECIPE_STEPS or not np.isfinite(out["losses"]).all():
+        raise AssertionError(f"[{tag}] cli.train: {out}")
+    if (path == "partseg") != (out["aug_delta"] is not None and out["aug_delta"] > 0):
+        raise AssertionError(f"[{tag}] augmentation {out['aug_delta']}: part-seg's recipe "
+                             "scales and shifts, cls's does not")
+    ckpt_dir = cli_train.checkpoint_dir(cfg, rec["preset"])
+
+    # The checkpoint, weights only, in a fresh model: bit for bit the trained one.
+    _, test = cli_train.load_dataset(cfg)
+    inputs, _ = cli_train.make_inputs(cfg, tuple(a[:cfg.batch_size] for a in test),
+                                      torch.device("cuda"))
+    fresh = cli_eval.eval_state(cfg, torch.device("cuda"))
+    BestCheckpointer(ckpt_dir).restore(fresh, restore_optimizer=False)
+    eval_step = make_eval_step()
+    got, trained = eval_step(fresh, inputs), eval_step(state, inputs)
+    same = torch.equal(got, trained)
+    log(f"[{tag}] restored step {fresh.step} of {state.step}: log-probs "
+        f"{'bit-equal' if same else 'differ'}, max |d| {(got - trained).abs().max().item():.3e}")
+    if not same or fresh.step != state.step:
+        raise AssertionError(f"[{tag}] the restored model is not the trained one")
+    del state
+
+    # cli.eval --checkpoint, its launches votes x batches x the path's forward.
+    kernels.reset_launch_counts()
+    res = cli_eval.main(data + ["--checkpoint", ckpt_dir, "--num_votes", str(RECIPE_VOTES),
+                                "--num_repeat", str(RECIPE_REPEATS)])
+    launches = dict(kernels.LAUNCHES)
+    passes = len(res["pass_seconds"])
+    log(f"[{tag}] cli.eval: " + ", ".join(f"{k} {v:.4f}" for k, v in res.items()
+                                          if isinstance(v, float))
+        + f"; {passes} vote passes of {RECIPE_VOTES} votes x {res['clouds']} clouds; launches "
+          f"{launches}")
+    check_launches(f"{tag} eval", launches, spec["per_forward"], passes * RECIPE_VOTES * batches,
+                   "forward")
+    metrics = {k: v for k, v in res.items() if isinstance(v, float)}
+    if not metrics or not all(0.0 <= v <= 1.0 for v in metrics.values()):
+        raise AssertionError(f"[{tag}] eval metrics {res}")
+
+    # The vote pool on the card against the CPU, the same weights and scales.
+    n = spec["parity_batch"]
+    card = tuple(t[:n] for t in inputs) if path == "partseg" else inputs[:n]
+    cpu_state = cli_eval.eval_state(cfg, torch.device("cpu"))
+    cpu_state.model.load_state_dict(fresh.model.state_dict())
+    gen = torch.Generator().manual_seed(SEED)
+    pts = (card[0] if path == "partseg" else card).cpu()
+    scales = [draw_vote_scales(gen, pts) for _ in range(RECIPE_VOTES - 1)]
+
+    def pool(state, x, device):
+        if path == "partseg":
+            onehot = x[1].to(device)
+            fwd, x = (lambda p: eval_step(state, (p, onehot))), x[0]
+        else:
+            fwd = lambda p: eval_step(state, p)  # noqa: E731
+        with torch.inference_mode():
+            return vote_predict(fwd, x.to(device), RECIPE_VOTES,
+                                scales=[s.to(device) for s in scales])[0].cpu()
+
+    t1 = time.perf_counter()
+    want_pool = pool(cpu_state, tuple(t.cpu() for t in card) if path == "partseg" else pts,
+                     "cpu")
+    cpu_s = time.perf_counter() - t1
+    got_pool = pool(fresh, card, "cuda")
+    if path == "partseg":
+        agree = segmentation_agreement(got_pool, want_pool)
+        ok = agree["median_abs"] <= SEG_LIMITS["median_abs"] and (
+            agree["argmax_agreement"] >= SEG_LIMITS["argmax_agreement"])
+        limits = SEG_LIMITS
+    else:  # cls's served limit, which REPSURF_LIMITS holds
+        agree = {"max_abs": (got_pool - want_pool).abs().max().item()}
+        ok = agree["max_abs"] <= REPSURF_LIMITS["max_abs"]
+        limits = REPSURF_LIMITS
+    log(f"[{tag}] vote pool of {len(pts)} test clouds, card against the CPU ({cpu_s:.1f} s): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in agree.items()) + f" (limits {limits})")
+    if not ok:
+        raise AssertionError(f"[{tag}] the card's vote pool differs from the CPU's")
+
+    clouds_s = RECIPE_VOTES * res["clouds"] / statistics.median(res["pass_seconds"])
+    log(f"[{tag}] eval {clouds_s:.1f} clouds/s ({RECIPE_VOTES} votes x {res['clouds']} clouds "
+        f"over the median of the pass seconds {res['pass_seconds']}); train step ms "
+        f"{out['step_ms']}")
+    return {"train": train_launches, "eval": launches, "clouds_s": clouds_s,
+            "step_ms": out["step_ms"]}
+
+
 # One-line faults for ``--planted-faults``: (path whose --parity readings
 # the copy gives, file, text, replacement); "none" gives every path's.
 PLANTED_FAULTS = {
@@ -1440,8 +1641,15 @@ def main() -> int:
     log(f"[3 floor] empty_kernel (one block of one thread) in the same CUDA-graph harness: "
         f"{floor:.4f} ms a launch")
 
+    # -- 5: the recipe, cli.train -> checkpoint -> cli.eval, on data trees -------
+    with tempfile.TemporaryDirectory() as work:
+        recipe = {path: recipe_phase(path, f"5 {path} recipe", Path(work)) for path in RECIPE}
+    torch.cuda.empty_cache()
+
     counts = {f"{path}_serve": served[path]["launches"] for path in PATHS}
     counts.update({f"{path}_train": trained[path]["launches"] for path in PATHS})
+    counts.update({f"{path}_recipe_{run}": recipe[path][run] for path in RECIPE
+                   for run in ("train", "eval")})
     summary = [summarise(name, rows, counts) for name in kernels.KERNELS]
     log("[4 kernels] times are per request for the forward kernels and per train step for "
         "the backward kernels: the sum over its launches of each; top level: the kernel's "
@@ -1455,6 +1663,9 @@ def main() -> int:
             f"{spec['batch'] / statistics.median(lat) * 1e3:.1f} clouds/s")
         log(f"[4 {path}] train step ms {step}, median {statistics.median(step):.3f} ms, "
             f"{spec['batch'] / statistics.median(step) * 1e3:.1f} clouds/s")
+    for path, r in recipe.items():
+        log(f"[5 {path}] recipe ({card}): eval {r['clouds_s']:.1f} clouds/s, train step ms "
+            f"{r['step_ms']}, median {statistics.median(r['step_ms']):.3f} ms")
     print(card, flush=True)  # the card, exactly as nvidia-smi reports it
     log(f"[4 total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": summary}), flush=True)

@@ -1,10 +1,15 @@
 """Training configuration and presets (the fields of
 ``mpa_tpu/utils/config.py::TrainConfig`` that the ported paths read, and
-the presets of ``mpa_tpu/configs/presets.py`` that the port runs)."""
+the presets of ``mpa_tpu/configs/presets.py`` that the port runs).
+
+A preset trains on ``synthetic`` clouds unless ``dataset`` names a real one
+(``cli.train --dataset ... --data_root ...``); ``mpa_tpu``'s presets name
+their real dataset instead, which no test or smoke run here has."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -16,6 +21,9 @@ class TrainConfig:
     num_categories: int = 16  # part-seg: shape categories
     num_points: int = 1024
     batch_size: int = 64
+    # 'synthetic' | 'scanobjectnn' | 'modelnet40' | 'shapenetpart' (cli/train.py load_dataset)
+    dataset: str = "synthetic"
+    data_root: Optional[str] = None
     # segmentation: 'exact' (reference semantics) | 'window' (Morton-window
     # spatial neighbourhoods) | 'window_all' (feature kNN and FPS banded too)
     neighbor_mode: str = "exact"
@@ -34,7 +42,15 @@ class TrainConfig:
     eta_min: float = 0.0
     epochs: int = 300
     label_smoothing: float = 0.1
+    # train augmentation: per-cloud scale 0.8-1.25 and shift +-0.1 of every
+    # channel; part segmentation always takes both (cli/train.py augment_batch)
+    aug_scale: bool = False
+    aug_shift: bool = False
+    # eval: vote passes of the cls eval (train/votes.py), first epoch evaluated
+    num_votes: int = 3
+    min_val_epoch: int = 0
     seed: int = 2800
+    log_dir: str = "runs"  # checkpoints under {log_dir}/{preset}_{dataset}/checkpoints
 
     def with_overrides(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -64,7 +80,14 @@ PRESETS = {
         model="markov_cls", num_classes=15, num_points=1024, batch_size=64,
         optimizer="adam-l2", learning_rate=1e-3, weight_decay=1e-4,
         decay_step=20, decay_gamma=0.7,
-        epochs=300, seed=2800,
+        epochs=300, seed=2800, num_votes=3,
+    ),
+    # ModelNet40 classification, 1024-point clouds, 40 classes: the cls recipe.
+    "modelnet40_cls": TrainConfig(
+        model="markov_cls", num_classes=40, num_points=1024, batch_size=64,
+        optimizer="adam-l2", learning_rate=1e-3, weight_decay=1e-4,
+        decay_step=20, decay_gamma=0.7,
+        epochs=300, seed=2800, num_votes=3,
     ),
     # RepSurf-SSG-2x (the umbrella-surface baseline at doubled widths) on
     # ScanObjectNN, 1024-point clouds, 15 classes: the cls recipe, 250 epochs.
@@ -72,17 +95,18 @@ PRESETS = {
         model="repsurf_ssg_2x", num_classes=15, num_points=1024, batch_size=64,
         optimizer="adam-l2", learning_rate=1e-3, weight_decay=1e-4,
         decay_step=20, decay_gamma=0.7,
-        epochs=250, seed=2800,
+        epochs=250, seed=2800, num_votes=3,
     ),
     # ShapeNetPart part segmentation (published 86.76% ins-mIoU), 2048-point
     # clouds, 16 categories / 50 parts: batch 32, SGD 0.1 / momentum 0.9 /
-    # wd 1e-4, cosine to 1e-3 over 300 epochs, seed 2800. The preset's
-    # scale and shift augmentation is not ported yet.
+    # wd 1e-4, cosine to 1e-3 over 300 epochs, seed 2800, scale and shift
+    # augmentation.
     "shapenetpart": TrainConfig(
         task="partseg", model="markov_partseg", num_parts=50, num_categories=16,
         num_points=2048, batch_size=32,
         optimizer="sgd", learning_rate=0.1, weight_decay=1e-4, momentum=0.9,
         scheduler="cos", eta_min=1e-3, epochs=300, seed=2800,
+        aug_scale=True, aug_shift=True,
     ),
     # S3DIS semantic segmentation, 4096-point blocks with 9 features, 13
     # classes: batch 16, SGD 0.1 / momentum 0.9 / wd 1e-4, cosine to 1e-3

@@ -17,6 +17,7 @@ from mpa_tpu_torch.ops.ball_query import ball_query
 from mpa_tpu_torch.ops.attention import transition_attention
 from mpa_tpu_torch.ops.scatter import scatter_mean_upsample
 from mpa_tpu_torch.ops.morton import morton_code, morton_order
+from mpa_tpu_torch.ops.sampling import subsample_points
 from mpa_tpu_torch.ops.window import (
     WindowSpec,
     make_window_spec,
@@ -38,6 +39,7 @@ __all__ = [
     "pick_fps_bands",
     "morton_code",
     "morton_order",
+    "subsample_points",
     "WindowSpec",
     "make_window_spec",
     "windowed_knn_with_spec",

@@ -1,5 +1,7 @@
-"""Training: losses, schedules, the train and eval steps, metrics."""
+"""Training: losses, schedules, the train and eval steps, metrics, vote
+test-time augmentation and the best-metric checkpointer."""
 
+from mpa_tpu_torch.train.checkpoint import BestCheckpointer
 from mpa_tpu_torch.train.losses import cls_loss, smooth_cls_loss, smooth_seg_loss
 from mpa_tpu_torch.train.loop import (
     TRAIN_STEPS,
@@ -15,20 +17,26 @@ from mpa_tpu_torch.train.loop import (
 )
 from mpa_tpu_torch.train.metrics import (
     category_masked_argmax,
+    class_avg_point_accuracy,
     class_average_accuracy,
     instance_accuracy,
     part_iou_metrics,
+    point_accuracy,
 )
 from mpa_tpu_torch.train.schedules import cosine_schedule, step_decay_schedule
+from mpa_tpu_torch.train.votes import draw_vote_scales, scale_point_cloud, vote_predict
 
 __all__ = [
+    "BestCheckpointer",
     "TRAIN_STEPS",
     "TrainState",
     "category_masked_argmax",
+    "class_avg_point_accuracy",
     "class_average_accuracy",
     "cls_loss",
     "cosine_schedule",
     "create_train_state",
+    "draw_vote_scales",
     "instance_accuracy",
     "make_cls_train_step",
     "make_eval_step",
@@ -38,7 +46,10 @@ __all__ = [
     "make_semseg_train_step",
     "make_train_step",
     "part_iou_metrics",
+    "point_accuracy",
+    "scale_point_cloud",
     "smooth_cls_loss",
     "smooth_seg_loss",
     "step_decay_schedule",
+    "vote_predict",
 ]

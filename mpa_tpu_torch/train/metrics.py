@@ -3,7 +3,9 @@ protocols): classification instance and class-average accuracy (reference
 tool/train_cls_scanobjectnn.py:115-123), and the ShapeNetPart protocol
 (reference tool/train_partseg.py:226-290): the argmax restricted to the
 shape's category parts, per-shape IoU averaged over that category's part
-labels with an absent part counting 1.0, then instance and class mIoU."""
+labels with an absent part counting 1.0, then instance and class mIoU, and
+the per-point accuracies of the reference's part-seg eval
+(tool/test_partseg.py)."""
 
 from __future__ import annotations
 
@@ -76,3 +78,32 @@ def part_iou_metrics(
     cat_mious = {c: float(np.mean(lst)) for c, lst in shape_ious.items() if lst}
     class_miou = float(np.mean(list(cat_mious.values()))) if cat_mious else 0.0
     return instance_miou, class_miou, cat_mious
+
+
+def point_accuracy(preds: List[np.ndarray], targets: List[np.ndarray]) -> float:
+    """Overall per-point accuracy across shapes."""
+    correct = sum(int(np.sum(p == t)) for p, t in zip(preds, targets))
+    total = sum(p.size for p in preds)
+    return correct / total if total else 0.0
+
+
+def class_avg_point_accuracy(
+    preds: List[np.ndarray],
+    targets: List[np.ndarray],
+    seg_parts: Sequence[Sequence[int]],
+) -> float:
+    """The reference's "Class avg accuracy": the mean over global PART labels
+    of per-part recall (tool/test_partseg.py:164-167,194-195, accumulated over
+    ``num_part`` labels, not per category). Part labels never seen in the
+    targets are skipped (the reference would divide by zero there; on the
+    full test set every part occurs)."""
+    num_parts = max(p for parts in seg_parts for p in parts) + 1
+    seen = np.zeros(num_parts, dtype=np.int64)
+    correct = np.zeros(num_parts, dtype=np.int64)
+    for pred, target in zip(preds, targets):
+        for lab in np.unique(target):
+            mask = target == lab
+            seen[lab] += int(np.sum(mask))
+            correct[lab] += int(np.sum(pred[mask] == lab))
+    valid = seen > 0
+    return float(np.mean(correct[valid] / seen[valid])) if valid.any() else 0.0
