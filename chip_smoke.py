@@ -3,17 +3,22 @@
 
     python3 chip_smoke.py
 
-Drives the port's eight main paths at their presets' published widths with
+Drives the port's main paths at their presets' published widths with
 random weights from a seed: ``markov_cls`` (``scanobjectnn_cls``: 1024
 points, 15 classes, full ladder) served and trained, ``markov_partseg``
 (``shapenetpart``: 2048 points, ladder 1024/512/256/128, 16 categories, 50
 parts) served and trained, ``markov_semseg`` in the Morton-window mode
 ``window_all`` at the large-scene shape (``s3dis_semseg`` at 16384 points,
-B = 2, ladder 8192/4096/2048/1024, 13 classes) served and trained, and
+B = 2, ladder 8192/4096/2048/1024, 13 classes) served and trained,
 ``repsurf_ssg_2x`` (``scanobjectnn_2x``: 1024 points, 15 classes, SA ladder
-512/128/32, widths up to 2048) served and trained, and the published
-recipe of cls and part-seg through ``cli.train`` and ``cli.eval`` (phase
-5). It shows that they run through the port's twelve hand-written kernels
+512/128/32, widths up to 2048) served and trained, ``markov_partseg_fp``
+(``shapenetpart_fp``, B = 32 x 2048), ``markov_pose`` (``pose_modelnet40``,
+B = 64 x 1024) and ``markov_completion`` (``completion``, B = 64 x 512
+partial points against 1024) served and trained, ``markov_partseg`` served
+in the ``window`` and ``window_all`` modes, the published recipe of cls
+and part-seg through ``cli.train`` and ``cli.eval`` (phase 5) and the
+S3DIS rooms through ``cli.train`` and the sliding scene inference (phase
+6). It shows that they run through the port's twelve hand-written kernels
 (nine forward, three backward):
 
 1. the card (``nvidia-smi`` name and power limit), then the kernel build
@@ -68,6 +73,19 @@ recipe of cls and part-seg through ``cli.train`` and ``cli.eval`` (phase
    ``markov_semseg`` in the ``window`` mode at 16384 points (B = 2), whose
    exact FPS over 16384 points and exact feature kNNs are replayed in
    phase 3;
+2i-2n. ``markov_partseg_fp``, ``markov_pose`` and ``markov_completion``,
+   each served (``load_segmenter("shapenetpart_fp")``,
+   ``load_pose_regressor``, ``load_completer``: two warm-up and three timed
+   requests, launch counts exact, log-probs whose rows sum to 1,
+   orthonormal rotations of determinant 1, finite clouds of the right
+   sizes; the card against the CPU plain ops on ``parity_batch`` clouds
+   within ``SEG_LIMITS`` or ``CLOUD_LIMITS``) and trained as 2b (with the
+   steps' peak memory), and replayed in phase 3;
+2o. ``markov_partseg`` served by ``load_segmenter(neighbor_mode=MODE)`` in
+   ``window`` and ``window_all`` at B = 32 x 2048: three timed requests,
+   launch counts exactly ``PARTSEG_WINDOW_FORWARD``'s, the card against the
+   CPU at B = 4 within ``SEG_LIMITS``, every launch of one more request
+   replayed (``partseg_MODE`` in phase 3);
 3. every kernel launch of one more request of each model, and every
    backward launch and gather of one more train step of each, is replayed
    on its own inputs, kernel against its plain PyTorch version (FPS,
@@ -111,6 +129,20 @@ recipe of cls and part-seg through ``cli.train`` and ``cli.eval`` (phase
    the CPU's (plain ops, the same weights and vote scales) within cls's
    served limit (max 1e-3) or ``SEG_LIMITS``; the eval's clouds/s (votes x
    clouds over the median pass) and the train steps' ms are logged;
+6. the S3DIS scene path (run after phase 5): three rooms written as
+   ``Area_*.npy`` files (``S3DIS_ROOMS``), ``cli.train --preset
+   s3dis_semseg --dataset s3dis`` three steps at B = 16 x 4096 (exact
+   mode) and its eval, launches exactly the steps' and the eval's forwards;
+   ``scene_inference`` of the Area 5 room through
+   ``load_semantic_segmenter`` on the card (4096-point blocks, batches of
+   8, launches exactly its batches' forwards, its seconds, and the seconds
+   of the same scene with a forward that returns zeros); the scene of a
+   small room on the card and on the CPU, their per-point labels agreeing
+   on at least ``SEMSEG_LIMITS``' argmax share; the exact model's
+   log-probs on one 4096-point block within ``SEMSEG_LIMITS`` and its train
+   step at B = 1 x 4096 within ``S3DIS_PATH``'s ``grad_limit``, card
+   against CPU; and every launch of ``cli.train``'s first step and of the
+   scene's first batch replayed as in phase 3 (tagged ``s3dis``);
 4. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -165,6 +197,28 @@ PARTSEG_FORWARD = {
     # la0, then per state one two-branch call (xyz + spatial) and one feature call
     "transition_attention_fwd_kernel": 17,
     "scatter_mean_kernel": 14,  # four decoder upsamples, ten coarser sources in Fuse
+}
+# markov_partseg_fp at 2048 points (shapenetpart_fp's 4-level ladder): la0's
+# self-kNN and attention; per level FPS on the feature cloud, the gathers of
+# new_xyz and center_feat, the spatial kNN and one attention; per decoder
+# step a self-kNN and an attention (upla), and the 3-NN search and the row
+# gather of the interpolation.
+PARTSEG_FP_FORWARD = {
+    "knn_kernel": 13,  # 1 + 4 + 4 + 4 (k = 3)
+    "fps_kernel": 4,
+    "gather_rows_kernel": 12,  # 4 + 4 + 4 (the interpolations' [B, 3N] rows)
+    "transition_attention_fwd_kernel": 9,  # 1 + 4 + 4
+}
+# markov_partseg in the window modes at 2048 points: every scale pair of the
+# ladder admits a window. ``window`` keeps the feature-space searches (la1..4
+# and the four decoder states) and their attention exact; ``window_all``
+# bands them too (its FPS bands fold into one launch a level).
+PARTSEG_WINDOW_FORWARD = {
+    "window": {"windowed_knn_kernel": 14, "knn_kernel": 8, "fps_kernel": 4,
+               "gather_rows_kernel": 18, "windowed_attention_fwd_kernel": 9,
+               "transition_attention_fwd_kernel": 8, "windowed_scatter_mean_kernel": 14},
+    "window_all": {"windowed_knn_kernel": 22, "fps_kernel": 4, "gather_rows_kernel": 18,
+                   "windowed_attention_fwd_kernel": 17, "windowed_scatter_mean_kernel": 14},
 }
 # markov_semseg in window_all at 16384 points: every scale pair admits a
 # window, so every search, attention and upsample is windowed, FPS banded.
@@ -234,7 +288,48 @@ PATHS = {
         ),
         grad_limit=20,
     ),
+    "partseg_fp": dict(
+        preset="shapenetpart_fp", batch=32, points=2048, parity_batch=4,
+        per_forward=PARTSEG_FP_FORWARD,
+        per_train_step=dict(
+            PARTSEG_FP_FORWARD,
+            transition_attention_bwd_kernel=9,
+            # center_feat's gathers and the interpolations' (3 edges a row)
+            scatter_add_rows_kernel=8,
+        ),
+        grad_limit=20,
+    ),
+    # markov_pose and markov_completion run the cls encoder: cls's launches.
+    "pose": dict(
+        preset="pose_modelnet40", batch=64, points=1024, parity_batch=16,
+        per_forward=CLS_FORWARD,
+        per_train_step=dict(CLS_FORWARD, transition_attention_bwd_kernel=11,
+                            scatter_add_rows_kernel=5),
+        grad_limit=20,
+    ),
+    # 512 partial points (the half of each 1024-point cloud with the lowest x)
+    # against the 1024: its first FPS takes all 512.
+    "completion": dict(
+        preset="completion", batch=64, points=512, parity_batch=16,
+        per_forward=CLS_FORWARD,
+        per_train_step=dict(CLS_FORWARD, transition_attention_bwd_kernel=11,
+                            scatter_add_rows_kernel=5),
+        grad_limit=20,
+    ),
 }
+# Phase 6's S3DIS path: exact markov_semseg at the preset's own shape, B = 16
+# blocks of 4096 points, which launches what part-seg's does; its step
+# against the CPU's at B = 1.
+S3DIS_PATH = dict(preset="s3dis_semseg", batch=16, points=4096, parity_batch=1,
+                  per_forward=PARTSEG_FORWARD, per_train_step=PATHS["partseg"]["per_train_step"],
+                  grad_limit=20)
+
+
+def path_spec(path: str) -> dict:
+    """The entry of ``PATHS`` for ``path``, or ``S3DIS_PATH`` for ``"s3dis"``."""
+    return S3DIS_PATH if path == "s3dis" else PATHS[path]
+
+
 # The served part-seg log-probs on the card against the CPU's, per point the
 # largest difference over the 50 parts: limits on its median over the points
 # and on the share of points whose argmax agrees. A feature-space neighbour
@@ -246,6 +341,9 @@ SEMSEG_LIMITS = {"median_abs": 1e-4, "argmax_agreement": 0.99}
 # The served repsurf log-probs against the CPU's: cls's limit on the largest
 # difference (phase 2g holds it; ``--parity repsurf`` reads it).
 REPSURF_LIMITS = {"max_abs": 1e-3}
+# The served rotations and completed clouds against the CPU's: cls's limit on
+# the largest difference of an entry.
+CLOUD_LIMITS = {"max_abs": 1e-3}
 # Gradients that are zero up to rounding in these models: the k projections'
 # biases (a shift of k cancels in the attention's normalisation), the q
 # projections (no part in the output), and the biases of the Dense layers
@@ -253,11 +351,14 @@ REPSURF_LIMITS = {"max_abs": 1e-3}
 # whose shift every consumer of the normals passes to a train-mode
 # BatchNorm, and the last BatchNorm bias of the group-all stage: its max over
 # 32 centres is positive in every cloud, so the shift passes through the max
-# to the head's train-mode BatchNorm). Only these get an absolute floor.
+# to the head's train-mode BatchNorm; in markov_partseg_fp likewise the
+# BatchNorm bias of conv6, whose max over each cloud's points is broadcast
+# to every point of head1's train-mode BatchNorm). Only these get an
+# absolute floor.
 ROUNDING_ZERO = re.compile(
     r"(\.k\.bias|\.q\.(weight|bias)|\.linear\.bias|^fc[12]\.bias|\.final_class\.bias"
     r"|\.mlp_[lf]0\.bias|\.conv\d+\.bias|surface_constructor\.mlp[12]\.bias"
-    r"|^sa4\.mlps\.bn1\.bias)$")
+    r"|^sa4\.mlps\.bn1\.bias|^conv6\.norm\.bias)$")
 SOURCES = {
     "knn_kernel": ("mpa_tpu_torch/kernels/csrc/knn.cu", "mpa_tpu/ops/pallas/knn_pallas.py:102"),
     "fps_kernel": ("mpa_tpu_torch/kernels/csrc/fps.cu", "mpa_tpu/ops/pallas/fps_pallas.py:70"),
@@ -698,7 +799,7 @@ def path_config(path: str, parity: bool = False):
     cloud size where the path has one of its own."""
     from mpa_tpu_torch.configs import PRESETS
 
-    spec = PATHS[path]
+    spec = path_spec(path)
     cfg = PRESETS[spec["preset"]].with_overrides(seed=SEED, **spec.get("overrides", {}))
     if parity and "parity_points" in spec:
         cfg = cfg.with_overrides(num_points=spec["parity_points"])
@@ -778,10 +879,10 @@ def train_parity(path: str) -> dict:
     from mpa_tpu_torch.cli import train as cli_train
     from mpa_tpu_torch.train import create_train_state
 
-    spec, cfg = PATHS[path], path_config(path, parity=True)
+    spec, cfg = path_spec(path), path_config(path, parity=True)
     arrays = train_arrays(path, cfg)
     head = tuple(a[:spec["parity_batch"]] for a in arrays)
-    model = fresh_model(path, cfg, dropout=0.0)
+    model = fresh_model(path, cfg, **({} if path == "completion" else {"dropout": 0.0}))
     fix_flips(model, spec["parity_batch"])
     results = {}
     for device in (torch.device("cuda"), torch.device("cpu")):
@@ -842,6 +943,7 @@ def train_phase(path: str, tag: str) -> dict:
     for i in range(TRAIN_WARMUP):
         step(state, *batch(i))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     times, losses = [], []
     for i in range(TRAIN_STEPS):
@@ -853,7 +955,8 @@ def train_phase(path: str, tag: str) -> dict:
     for i, (dt, loss) in enumerate(zip(times, losses)):
         log(f"[{tag}] step {i}: B={B} x {points} pts, loss {loss:.4f}, "
             f"{dt * 1e3:.3f} ms, {B / dt:.1f} clouds/s")
-    log(f"[{tag}] launches over {TRAIN_STEPS} steps: {launches}")
+    log(f"[{tag}] launches over {TRAIN_STEPS} steps: {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
     check_launches(tag, launches, spec["per_train_step"], TRAIN_STEPS, "train step")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train losses {losses}")
@@ -915,30 +1018,41 @@ def segmentation_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
     }
 
 
-def semseg_parity() -> dict:
-    """``load_semantic_segmenter`` in window_all on the card against the CPU
-    (plain ops) from the same weights, at the preset's 4096 points, B = 1:
-    ``segmentation_agreement`` and the CPU's seconds."""
+def semseg_parity(path: str = "semseg") -> dict:
+    """``load_semantic_segmenter`` of ``path`` (``semseg``: window_all at the
+    preset's 4096 points; ``s3dis``: exact) on the card against the CPU
+    (plain ops) from the same weights on ``parity_batch`` 4096-point blocks:
+    ``segmentation_agreement``, the CPU's seconds and every launch of the
+    card request (``recorded``)."""
+    from mpa_tpu_torch import kernels
     from mpa_tpu_torch.data import synthetic_semseg
     from mpa_tpu_torch.serve import load_semantic_segmenter
 
-    spec = PATHS["semseg"]
-    kw = dict(seed=SEED, neighbor_mode=spec["overrides"]["neighbor_mode"],
-              num_points=spec["parity_points"])
-    blocks, _ = synthetic_semseg(1, spec["parity_points"], seed=SEED)
+    spec = path_spec(path)
+    points = spec.get("parity_points", spec["points"])
+    kw = dict(seed=SEED, num_points=points,
+              neighbor_mode=spec.get("overrides", {}).get("neighbor_mode", "exact"))
+    blocks, _ = synthetic_semseg(1, points, seed=SEED)
     x = blocks[:spec["parity_batch"]]
-    got = load_semantic_segmenter(spec["preset"], **kw)(x).cpu()
+    kernels.recorded = []
+    try:
+        got = load_semantic_segmenter(spec["preset"], **kw)(x).cpu()
+    finally:
+        recorded, kernels.recorded = kernels.recorded, None
     cpu = load_semantic_segmenter(spec["preset"], device="cpu", **kw)
     t0 = time.perf_counter()
     want = cpu(x)
-    return dict(segmentation_agreement(got, want), cpu_s=time.perf_counter() - t0)
+    return dict(segmentation_agreement(got, want), cpu_s=time.perf_counter() - t0,
+                recorded=recorded)
 
 
-def segmenter_parity(batch: int = PATHS["partseg"]["parity_batch"]) -> dict:
-    """``load_segmenter`` on the card against the CPU (plain ops) from the
-    same weights on ``batch`` synthetic clouds: ``segmentation_agreement``,
-    the CPU's seconds, and the inputs of the card request's
-    ``gather_rows_kernel`` launches."""
+def segmenter_parity(batch: int = PATHS["partseg"]["parity_batch"],
+                     preset: str = "shapenetpart", **overrides) -> dict:
+    """``load_segmenter(preset, **overrides)`` on the card against the CPU
+    (plain ops) from the same weights on ``batch`` synthetic clouds:
+    ``segmentation_agreement``, the CPU's seconds, the inputs of the card
+    request's ``gather_rows_kernel`` launches and all its launches
+    (``recorded``)."""
     from mpa_tpu_torch import kernels
     from mpa_tpu_torch.data import realistic_partseg
     from mpa_tpu_torch.serve import load_segmenter
@@ -946,48 +1060,122 @@ def segmenter_parity(batch: int = PATHS["partseg"]["parity_batch"]) -> dict:
     pts, cats, _ = realistic_partseg(batch, PATHS["partseg"]["points"], seed=SEED)
     kernels.recorded = []
     try:
-        got = load_segmenter("shapenetpart", seed=SEED)(pts, cats).cpu()
+        got = load_segmenter(preset, seed=SEED, **overrides)(pts, cats).cpu()
     finally:
         recorded, kernels.recorded = kernels.recorded, None
-    cpu = load_segmenter("shapenetpart", seed=SEED, device="cpu")
+    cpu = load_segmenter(preset, seed=SEED, device="cpu", **overrides)
     t0 = time.perf_counter()
     want = cpu(pts, cats)
     return dict(segmentation_agreement(got, want), cpu_s=time.perf_counter() - t0,
-                gather=[inp for name, inp in recorded if name == "gather_rows_kernel"])
+                gather=[inp for name, inp in recorded if name == "gather_rows_kernel"],
+                recorded=recorded)
+
+
+def cloud_requests(path: str, n: int) -> np.ndarray:
+    """``n`` request clouds of the pose or completion path: the CLI's eval
+    clouds (seed 1) in their served form, pose's rotated about z, completion's
+    the half with the lowest x."""
+    from mpa_tpu_torch.cli import train as cli_train
+
+    cfg = path_config(path)
+    return cli_train.load_dataset(cfg, n_train=1, n_eval=n)[1][0]
+
+
+def serve_loader(path: str, device=None):
+    """The serving entry point of ``path`` with this script's seed."""
+    from mpa_tpu_torch.serve import (
+        load_classifier, load_completer, load_pose_regressor, load_segmenter,
+        load_semantic_segmenter,
+    )
+
+    spec = PATHS[path]
+    loader = {"partseg": load_segmenter, "partseg_fp": load_segmenter,
+              "semseg": load_semantic_segmenter, "pose": load_pose_regressor,
+              "completion": load_completer}.get(path, load_classifier)
+    return loader(spec["preset"], seed=SEED, device=device, **spec.get("overrides", {}))
+
+
+def cloud_parity(path: str) -> dict:
+    """The pose or completion loader on the card against the CPU (plain ops)
+    from the same weights on ``parity_batch`` request clouds:
+    ``segmentation_agreement`` of the rotations' nine entries or the coarse
+    and fine clouds' points (largest difference over xyz), the CPU's
+    seconds, and every launch of the card request (``recorded``)."""
+    from mpa_tpu_torch import kernels
+
+    x = cloud_requests(path, PATHS[path]["parity_batch"])
+    kernels.recorded = []
+    try:
+        got = serve_loader(path)(x)
+    finally:
+        recorded, kernels.recorded = kernels.recorded, None
+    cpu = serve_loader(path, device="cpu")
+    t0 = time.perf_counter()
+    want = cpu(x)
+    if path == "pose":
+        got, want = got.cpu().reshape(1, -1, 9), want.reshape(1, -1, 9)
+    else:
+        got, want = (torch.cat([t[0], t[1]], 1) for t in ((got[0].cpu(), got[1].cpu()), want))
+    return dict(segmentation_agreement(got, want), cpu_s=time.perf_counter() - t0,
+                recorded=recorded)
+
+
+def check_served_output(path: str, out, B: int, points: int) -> None:
+    """A served answer of ``path``: log-probs of the right shape whose rows
+    sum to 1; rotations (orthonormal, determinant 1); or the coarse and fine
+    clouds, finite."""
+    cfg = path_config(path)
+    if path == "pose":
+        eye = torch.eye(3, device=out.device).expand(B, 3, 3)
+        if tuple(out.shape) != (B, 3, 3) or not torch.isfinite(out).all():
+            raise AssertionError(f"[{path}] bad rotations {tuple(out.shape)}")
+        torch.testing.assert_close(out @ out.transpose(1, 2), eye, rtol=0, atol=1e-4)
+        torch.testing.assert_close(torch.linalg.det(out), eye[:, 0, 0], rtol=0, atol=1e-4)
+        return
+    if path == "completion":
+        coarse, fine = out
+        want = ((B, 256, 3), (B, points + 1024, 3))
+        if (tuple(coarse.shape), tuple(fine.shape)) != want or not (
+                torch.isfinite(coarse).all() and torch.isfinite(fine).all()):
+            raise AssertionError(f"[{path}] bad clouds {tuple(coarse.shape)} {tuple(fine.shape)}")
+        return
+    if path in ("partseg", "partseg_fp", "semseg"):
+        shape = (B, points, cfg.num_parts if path.startswith("partseg") else cfg.num_classes)
+    else:
+        shape = (B, cfg.num_classes)
+    if tuple(out.shape) != shape or not torch.isfinite(out).all():
+        raise AssertionError(f"[{path}] bad output {tuple(out.shape)}")
+    torch.testing.assert_close(out.exp().sum(-1), torch.ones(shape[:-1], device=out.device),
+                               rtol=0, atol=1e-4)
 
 
 def serve_phase(path: str, tag: str) -> dict:
-    """Phases 2, 2c and 2e: the path's serving entry point answers two
-    warm-up and ``REQUESTS`` timed requests on the card; launch counts,
-    finite log-probabilities, and the card against the CPU."""
+    """Phases 2, 2c, 2e, 2g, 2i, 2k and 2m: the path's serving entry point
+    answers two warm-up and ``REQUESTS`` timed requests on the card; launch
+    counts, well-formed answers, and the card against the CPU."""
     from mpa_tpu_torch import kernels
     from mpa_tpu_torch.data import realistic_partseg, surface_clouds, synthetic_semseg
-    from mpa_tpu_torch.serve import load_classifier, load_segmenter, load_semantic_segmenter
 
     spec = PATHS[path]
     B, points = spec["batch"], spec["points"]
+    serve = serve_loader(path)
     if path == "semseg":
-        serve = load_semantic_segmenter(spec["preset"], seed=SEED, **spec["overrides"])
         blocks, _ = synthetic_semseg(1, points, seed=SEED)  # 24 blocks of one room
         requests = [(blocks[i * B:(i + 1) * B],) for i in range(REQUESTS + 1)]
-        out_shape = (B, points, path_config(path).num_classes)
-    elif path == "partseg":
-        serve = load_segmenter(spec["preset"], seed=SEED)
+    elif path in ("partseg", "partseg_fp"):
         pts, cats, _ = realistic_partseg(B * (REQUESTS + 1), points, seed=SEED)
         requests = [(pts[i * B:(i + 1) * B], cats[i * B:(i + 1) * B])
                     for i in range(REQUESTS + 1)]
-        out_shape = (B, points, path_config(path).num_parts)
     elif path == "repsurf":
-        serve = load_classifier(spec["preset"], seed=SEED)
         pts, _ = surface_clouds(B * (REQUESTS + 1), points, seed=SEED)
         requests = [(pts[i * B:(i + 1) * B],) for i in range(REQUESTS + 1)]
-        out_shape = (B, path_config(path).num_classes)
+    elif path in ("pose", "completion"):
+        pts = cloud_requests(path, B * (REQUESTS + 1))
+        requests = [(pts[i * B:(i + 1) * B],) for i in range(REQUESTS + 1)]
     else:
-        serve = load_classifier(spec["preset"], seed=SEED)
         rng = np.random.default_rng(SEED)
         requests = [(rng.standard_normal((B, points, 3)).astype(np.float32),)
                     for _ in range(REQUESTS + 1)]
-        out_shape = (B, path_config(path).num_classes)
     for _ in range(2):  # warm-up: kernel loading, allocator growth
         serve(*requests[0])
     torch.cuda.synchronize()
@@ -1014,24 +1202,23 @@ def serve_phase(path: str, tag: str) -> dict:
     log(f"[{tag}] launches over {REQUESTS} requests: {launches}")
     check_launches(tag, launches, spec["per_forward"], REQUESTS, "request")
     for out in outputs:
-        if tuple(out.shape) != out_shape or not torch.isfinite(out).all():
-            raise AssertionError(f"[{tag}] bad output {tuple(out.shape)}")
-        torch.testing.assert_close(out.exp().sum(-1), torch.ones(out_shape[:-1], device=out.device),
-                                   rtol=0, atol=1e-4)
-    if path in ("partseg", "semseg"):
-        report, limits = ((segmenter_parity(), SEG_LIMITS) if path == "partseg"
-                          else (semseg_parity(), SEMSEG_LIMITS))
+        check_served_output(path, out, B, points)
+    if path in ("partseg", "partseg_fp", "semseg", "pose", "completion"):
+        if path == "semseg":
+            report, limits = semseg_parity(), SEMSEG_LIMITS
+        elif path.startswith("partseg"):
+            report, limits = segmenter_parity(preset=spec["preset"]), SEG_LIMITS
+        else:
+            report, limits = cloud_parity(path), CLOUD_LIMITS
         log(f"[{tag}] cuda vs cpu at B={spec['parity_batch']} x "
             f"{spec.get('parity_points', points)} pts (plain ops, {report['cpu_s']:.1f} s on the "
-            f"host): per point max |dlogp| over the labels: median {report['median_abs']:.3e} "
-            f"(limit {limits['median_abs']:.0e}), 99th percentile {report['p99_abs']:.3e}, max "
-            f"{report['max_abs']:.3e}; argmax agreement {report['argmax_agreement']:.5f} "
-            f"(limit {limits['argmax_agreement']})")
-        if (not report["median_abs"] <= limits["median_abs"]
-                or not report["argmax_agreement"] >= limits["argmax_agreement"]):
-            raise AssertionError(f"[{tag}] cuda and cpu log-probs differ: {report}")
+            f"host): per point max |d| over its entries: median {report['median_abs']:.3e}, "
+            f"99th percentile {report['p99_abs']:.3e}, max {report['max_abs']:.3e}; argmax "
+            f"agreement {report['argmax_agreement']:.5f} (limits {limits})")
+        if not within(report, limits):
+            raise AssertionError(f"[{tag}] cuda and cpu answers differ: {report}")
     else:
-        cpu = load_classifier(spec["preset"], seed=SEED, device="cpu")
+        cpu = serve_loader(path, device="cpu")
         t0 = time.perf_counter()
         want = cpu(*requests[1])
         t_cpu = time.perf_counter() - t0
@@ -1044,6 +1231,13 @@ def serve_phase(path: str, tag: str) -> dict:
             raise AssertionError(f"[{tag}] cuda and cpu log-probs differ by {diff}")
     return {"launches": launches, "recorded": recorded,
             "latency_ms": [t * 1e3 for t in latencies]}
+
+
+def within(report: dict, limits: dict) -> bool:
+    """Every reading of ``limits`` in ``report`` within it: the ``*_abs``
+    ones at most, the others (agreements) at least."""
+    return all(report[k] <= v if k.endswith("_abs") else report[k] >= v
+               for k, v in limits.items())
 
 
 def replay_call(path: str, name: str, inp: dict) -> dict:
@@ -1091,6 +1285,217 @@ def fps_16384_phase() -> list:
     return rows + knn_rows
 
 
+def partseg_window_phase(mode: str, tag: str) -> dict:
+    """Phase 2o: ``load_segmenter(neighbor_mode=mode)`` (``markov_partseg``
+    in a Morton-window mode) answers two warm-up and ``REQUESTS`` timed
+    requests of 32 clouds x 2048 points on the card, its launch counts
+    exactly ``PARTSEG_WINDOW_FORWARD[mode]`` a request; well-formed
+    log-probs; the card against the CPU at B = 4 within ``SEG_LIMITS``;
+    every launch of one more request replayed (phase 3, tagged
+    ``partseg_MODE``)."""
+    from mpa_tpu_torch import kernels
+    from mpa_tpu_torch.data import realistic_partseg
+    from mpa_tpu_torch.serve import load_segmenter
+
+    spec = PATHS["partseg"]
+    B, points = spec["batch"], spec["points"]
+    serve = load_segmenter(spec["preset"], seed=SEED, neighbor_mode=mode)
+    pts, cats, _ = realistic_partseg(B * (REQUESTS + 1), points, seed=SEED)
+    requests = [(pts[i * B:(i + 1) * B], cats[i * B:(i + 1) * B]) for i in range(REQUESTS + 1)]
+    for _ in range(2):
+        serve(*requests[0])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    latencies = []
+    for req in requests[1:]:
+        t0 = time.perf_counter()
+        out = serve(*req)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        check_served_output("partseg", out, B, points)
+    launches = dict(kernels.LAUNCHES)
+    kernels.recorded = []
+    serve(*requests[1])
+    recorded, kernels.recorded = kernels.recorded, None
+    for i, lat in enumerate(latencies):
+        log(f"[{tag}] request {i}: B={B} x {points} pts, {lat * 1e3:.3f} ms, "
+            f"{B / lat:.1f} clouds/s")
+    log(f"[{tag}] launches over {REQUESTS} requests: {launches}")
+    check_launches(tag, launches, PARTSEG_WINDOW_FORWARD[mode], REQUESTS, "request")
+    report = segmenter_parity(preset=spec["preset"], neighbor_mode=mode)
+    log(f"[{tag}] cuda vs cpu at B={spec['parity_batch']} x {points} pts (plain ops, "
+        f"{report['cpu_s']:.1f} s on the host): per point max |dlogp|: median "
+        f"{report['median_abs']:.3e}, 99th percentile {report['p99_abs']:.3e}, max "
+        f"{report['max_abs']:.3e}; argmax agreement {report['argmax_agreement']:.5f} "
+        f"(limits {SEG_LIMITS})")
+    if not within(report, SEG_LIMITS):
+        raise AssertionError(f"[{tag}] cuda and cpu log-probs differ: {report}")
+    rows = replay(f"partseg_{mode}", {"recorded": recorded}, {"recorded": []})
+    return {"launches": launches, "latency_ms": [t * 1e3 for t in latencies], "rows": rows}
+
+
+# Phase 6, the S3DIS scene path: rooms of ``[N, 7]`` rows (xyz uniform in
+# the room's box, 2.5 m high, rgb, the label from three height bands):
+# (x extent m, y extent m, points). Areas 1 and 2 train (32 blocks each),
+# Area 5 is the test split (16 blocks) and the room of the scene inference:
+# a million points, about what a real S3DIS room holds.
+S3DIS_ROOMS = {"Area_1_office_1": (4.0, 3.0, 48000), "Area_2_office_1": (3.5, 3.0, 42000),
+               "Area_5_office_1": (8.0, 6.0, 1_000_000)}
+# The card-against-CPU scene: a 1.3 m x 1.3 m room of 4000 points in
+# 1024-point blocks (nine columns; the plain ops take seconds a 4096-point
+# block on the host).
+SCENE_PARITY_ROOM, SCENE_PARITY_POINTS = (1.3, 1.3, 4000), 1024
+
+
+def write_room(path: Path, sx: float, sy: float, n: int, seed: int) -> None:
+    """One S3DIS room file: ``n`` rows of xyz uniform in ``sx`` x ``sy`` x
+    2.5 m, rgb in [0, 255] and the label of three height bands."""
+    r = np.random.default_rng(seed)
+    xyz = r.uniform(0.0, 1.0, (n, 3)) * np.array([sx, sy, 2.5])
+    label = np.digitize(xyz[:, 2], [0.8, 1.7])
+    np.save(path, np.column_stack([xyz, r.uniform(0.0, 255.0, (n, 3)), label]).astype(np.float32))
+
+
+class FirstLaunches(list):
+    """A ``kernels.recorded`` list that keeps only the first ``n`` launches
+    (one train step or one batch of a longer run)."""
+
+    def __init__(self, n: int):
+        super().__init__()
+        self.n = n
+
+    def append(self, item) -> None:
+        if len(self) < self.n:
+            super().append(item)
+
+
+def s3dis_phase(tag: str, work: Path) -> dict:
+    """Phase 6: ``cli.train --preset s3dis_semseg --dataset s3dis`` takes
+    ``RECIPE_STEPS`` steps (B = 16 blocks of 4096 points, exact mode) and
+    its eval on a room tree written here, its launches exactly those steps'
+    and the eval's forwards; ``scene_inference`` over the Area 5 room
+    through ``load_semantic_segmenter`` on the card (4096-point blocks,
+    batches of 8), its launches exactly its batches' forwards, and the
+    same scene with a forward that returns zeros (its host part); the served
+    log-probs of one 4096-point block and one train step at B = 1 on the
+    card against the CPU (plain ops; ``SEMSEG_LIMITS``, the path's
+    ``grad_limit``); the scene of ``SCENE_PARITY_ROOM`` on the card and on
+    the CPU, their per-point labels agreeing within ``SEMSEG_LIMITS``'
+    argmax share; and every launch of the run's first train step and of the
+    scene's first batch replayed (phase 3, tagged ``s3dis``)."""
+    from mpa_tpu_torch import kernels
+    from mpa_tpu_torch.cli import train as cli_train
+    from mpa_tpu_torch.data import s3dis
+    from mpa_tpu_torch.serve import load_semantic_segmenter
+
+    root = work / "s3dis_rooms"
+    root.mkdir()
+    t0 = time.perf_counter()
+    for i, (name, (sx, sy, n)) in enumerate(S3DIS_ROOMS.items()):
+        write_room(root / f"{name}.npy", sx, sy, n, seed=SEED + i)
+    log(f"[{tag}] wrote {len(S3DIS_ROOMS)} rooms ({', '.join(S3DIS_ROOMS)}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    data = ["--preset", "s3dis_semseg", "--dataset", "s3dis", "--data_root", str(root),
+            "--log_dir", str(work / "s3dis_runs"), "--device", "cuda"]
+    kernels.reset_launch_counts()
+    kernels.recorded = FirstLaunches(sum(S3DIS_PATH["per_train_step"].values()))
+    try:
+        _, out = cli_train.run(cli_train.parse_args(
+            data + ["--max_steps", str(RECIPE_STEPS), "--seed", str(SEED)]))
+        torch.cuda.synchronize()
+    finally:
+        step_recorded, kernels.recorded = kernels.recorded, None
+    train_launches = dict(kernels.LAUNCHES)
+    cfg = cli_train.config_from_args(cli_train.parse_args(data))
+    n_test = cli_train.S3DIS_BLOCKS[1] * len(s3dis.list_rooms(str(root), split="test"))
+    batches = -(-n_test // cfg.batch_size)
+    want = {k: RECIPE_STEPS * S3DIS_PATH["per_train_step"].get(k, 0)
+            + batches * S3DIS_PATH["per_forward"].get(k, 0) for k in kernels.KERNELS}
+    log(f"[{tag}] cli.train: {out['steps']} steps at B={cfg.batch_size} x {cfg.num_points} "
+        f"pts, losses {out['losses']}, step ms {out['step_ms']}; eval block-mIoU "
+        f"{out['block_miou']:.4f}, point acc {out['point_acc']:.4f} over {n_test} blocks; "
+        f"launches {train_launches}")
+    check_launches(f"{tag} train", train_launches, want, 1, "run")
+    if out["steps"] != RECIPE_STEPS or not np.isfinite(out["losses"]).all():
+        raise AssertionError(f"[{tag}] cli.train: {out}")
+
+    # The whole Area 5 room through the served segmenter on the card.
+    xyzrgb, labels = s3dis.load_room(str(root / "Area_5_office_1.npy"))
+    seg = load_semantic_segmenter(seed=SEED)
+    n_points, n_blocks = len(xyzrgb), sum(1 for _ in s3dis.sliding_blocks(xyzrgb, cfg.num_points))
+    kernels.reset_launch_counts()
+    kernels.recorded = FirstLaunches(sum(S3DIS_PATH["per_forward"].values()))
+    t0 = time.perf_counter()
+    try:
+        pred = s3dis.scene_inference(lambda x: seg(x).cpu().numpy(), xyzrgb, cfg.num_points,
+                                     batch_size=8)
+    finally:
+        batch_recorded, kernels.recorded = kernels.recorded, None
+    scene_s = time.perf_counter() - t0
+    scene_launches = dict(kernels.LAUNCHES)
+    check_launches(f"{tag} scene", scene_launches, S3DIS_PATH["per_forward"], -(-n_blocks // 8),
+                   "batch")
+    # Its host part: the same scene with a forward that returns zeros.
+    t0 = time.perf_counter()
+    s3dis.scene_inference(lambda x: np.zeros((len(x), cfg.num_points, cfg.num_classes),
+                                             np.float32), xyzrgb, cfg.num_points, batch_size=8)
+    host_s = time.perf_counter() - t0
+    miou, acc, _ = s3dis.semseg_iou(pred, labels, cfg.num_classes)
+    if pred.shape != labels.shape or pred.min() < 0 or pred.max() >= cfg.num_classes:
+        raise AssertionError(f"[{tag}] scene labels {pred.shape} in [{pred.min()}, {pred.max()}]")
+    log(f"[{tag}] scene inference of Area_5_office_1 ({n_points} points, {n_blocks} blocks "
+        f"of {cfg.num_points}, batches of 8): {scene_s:.3f} s, {n_points / scene_s:.1f} "
+        f"room points/s ({host_s:.3f} s with a forward that returns zeros: the host's "
+        f"part); mIoU {miou:.4f}, acc {acc:.4f} (random weights); launches {scene_launches}")
+
+    # The card's scene against the CPU's on a small room.
+    sx, sy, n = SCENE_PARITY_ROOM
+    write_room(work / "scene_parity.npy", sx, sy, n, seed=SEED + 10)
+    xyzrgb, _ = s3dis.load_room(str(work / "scene_parity.npy"))
+    kw = dict(seed=SEED, num_points=SCENE_PARITY_POINTS)
+    gpu, cpu = load_semantic_segmenter(**kw), load_semantic_segmenter(device="cpu", **kw)
+    card = s3dis.scene_inference(lambda x: gpu(x).cpu().numpy(), xyzrgb, SCENE_PARITY_POINTS)
+    t0 = time.perf_counter()
+    want = s3dis.scene_inference(lambda x: cpu(x).numpy(), xyzrgb, SCENE_PARITY_POINTS)
+    agree = float(np.mean(card == want))
+    log(f"[{tag}] scene card vs cpu ({n} points in {SCENE_PARITY_POINTS}-point blocks, plain ops "
+        f"{time.perf_counter() - t0:.1f} s on the host): label agreement {agree:.5f} "
+        f"({int((card != want).sum())} points differ; limit {SEMSEG_LIMITS['argmax_agreement']})")
+    if agree < SEMSEG_LIMITS["argmax_agreement"]:
+        raise AssertionError(f"[{tag}] the card's scene labels differ from the CPU's")
+
+    # The exact model at the path's own 4096 points on the card against the CPU.
+    report = semseg_parity("s3dis")
+    log(f"[{tag}] served cuda vs cpu at B={S3DIS_PATH['parity_batch']} x "
+        f"{S3DIS_PATH['points']} pts, exact (plain ops, {report['cpu_s']:.1f} s on the host): "
+        f"per point max |dlogp|: median {report['median_abs']:.3e}, 99th percentile "
+        f"{report['p99_abs']:.3e}, max {report['max_abs']:.3e}; argmax agreement "
+        f"{report['argmax_agreement']:.5f} (limits {SEMSEG_LIMITS})")
+    if not within(report, SEMSEG_LIMITS):
+        raise AssertionError(f"[{tag}] cuda and cpu log-probs differ: {report}")
+    parity = train_parity("s3dis")
+    log(f"[{tag}] cuda vs cpu, one step at B={S3DIS_PATH['parity_batch']} x "
+        f"{S3DIS_PATH['points']} pts ({parity['cuda_s'] * 1e3:.1f} ms on the card, "
+        f"{parity['cpu_s']:.1f} s on the host): loss |d| {parity['loss_diff']:.3e} (limit 1e-4); "
+        f"gradient error in units of grad_error_units (limit {S3DIS_PATH['grad_limit']}), "
+        "largest: " + ", ".join(f"{n} {u:.3f}" for n, u in parity["grad_units"][:3])
+        + f"; worst statistic {parity['stat'][0]} rel {parity['stat'][1]:.3e} (limit 1e-4)")
+    check_launches(f"{tag} parity step", parity["launches"], S3DIS_PATH["per_train_step"], 1,
+                   "train step")
+    if (not parity["loss_diff"] <= 1e-4 or parity["grad_units"][0][1] > S3DIS_PATH["grad_limit"]
+            or parity["stat"][1] > 1e-4):
+        raise AssertionError(f"[{tag}] the CUDA train step differs from the CPU step")
+
+    # Every launch of the run's first train step and of the scene's first batch.
+    if len(step_recorded) != step_recorded.n or len(batch_recorded) != batch_recorded.n:
+        raise AssertionError(f"[{tag}] recorded {len(step_recorded)} and {len(batch_recorded)} "
+                             f"launches, want {step_recorded.n} and {batch_recorded.n}")
+    rows = replay("s3dis", {"recorded": list(batch_recorded)}, {"recorded": list(step_recorded)})
+    return {"train": train_launches, "scene": scene_launches, "step_ms": out["step_ms"],
+            "scene_s": scene_s, "scene_host_s": host_s, "scene_points": n_points,
+            "label_agreement": agree, "rows": rows}
+
+
 def replay(path: str, served: dict, trained: dict) -> list:
     """Phase 3 for one model: every recorded launch against its plain
     version (a train step's gathers tagged ``PATH_train``), the kNN distance
@@ -1135,8 +1540,9 @@ def summarise(name: str, rows: list, counts: dict) -> dict:
     timed requests (FPS and the exact kNNs of the 16384-point window request,
     a train step's gathers, the kNN distance gradient's gathers).
     ``launches`` is the count in the timed run of that path the times are
-    per (3 requests or 5 steps); ``launches_by_path`` has all eight timed
-    runs."""
+    per (3 requests or 5 steps); ``launches_by_path`` has every counted
+    run: each path's served requests and train steps, the window-mode
+    requests, phase 5's and phase 6's runs."""
     backward = name in BACKWARD
     main = ("semseg" if name.startswith("windowed_")
             else "repsurf" if name == "ball_query_kernel" else "partseg")
@@ -1482,25 +1888,32 @@ def repsurf_parity(batch: int = PATHS["repsurf"]["parity_batch"]) -> dict:
 
 def parity_readings(path: str) -> dict:
     """``--parity PATH``: the path's card-against-CPU readings (``partseg``,
-    ``semseg`` or ``repsurf``), replays of its newest kernels and of the
-    card step's scatter-adds, each check's failure caught and reported."""
+    ``semseg``, ``repsurf``, ``partseg_fp``, ``pose`` or ``completion``),
+    replays of its newest kernels (for the last three: every launch of the
+    served request) and of the card step's scatter-adds, each check's
+    failure caught and reported."""
     from mpa_tpu_torch import kernels
 
     out = {}
     seg, limits = {"partseg": (segmenter_parity, SEG_LIMITS),
                    "semseg": (semseg_parity, SEMSEG_LIMITS),
-                   "repsurf": (repsurf_parity, REPSURF_LIMITS)}[path]
+                   "repsurf": (repsurf_parity, REPSURF_LIMITS),
+                   "partseg_fp": (lambda: segmenter_parity(preset="shapenetpart_fp"), SEG_LIMITS),
+                   "pose": (lambda: cloud_parity("pose"), CLOUD_LIMITS),
+                   "completion": (lambda: cloud_parity("completion"), CLOUD_LIMITS)}[path]
     seg = seg()
     out["served"] = {k: seg[k] for k in ("median_abs", "p99_abs", "max_abs", "argmax_agreement")}
-    out["served_within_limits"] = all(
-        seg[k] <= v if k.endswith("_abs") else seg[k] >= v for k, v in limits.items())
+    out["served_within_limits"] = within(seg, limits)
     kernels.recorded = []
     parity = train_parity(path)
     recorded, kernels.recorded = kernels.recorded, None
     out["train"] = {"loss_diff": parity["loss_diff"], "grad_units": parity["grad_units"][:3],
                     "stat": parity["stat"]}
     scatter_adds = [inp for name, inp in recorded if name == "scatter_add_rows_kernel"]
-    if path == "repsurf":
+    if path in ("partseg_fp", "pose", "completion"):
+        checks = [(f"{len(seg['recorded'])} replays of the request", lambda: [
+            check_call(name, inp) for name, inp in seg["recorded"]])]
+    elif path == "repsurf":
         checks = [(f"ball query replay {i}", lambda inp=inp: check_call("ball_query_kernel", inp))
                   for i, inp in enumerate(seg["ball_query"])]
     elif path == "partseg":
@@ -1568,7 +1981,7 @@ def planted_faults(only: str = "all") -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parity", nargs="?", const="partseg",
-                    choices=["partseg", "semseg", "repsurf"],
+                    choices=["partseg", "semseg", "repsurf", "partseg_fp", "pose", "completion"],
                     help="only that path's card-against-CPU readings, as JSON")
     ap.add_argument("--planted-faults", nargs="?", const="all",
                     choices=["all", "partseg", "semseg", "repsurf"],
@@ -1637,6 +2050,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += fps_16384_phase()
 
+    # -- 2i-2n, 3: markov_partseg_fp, markov_pose, markov_completion ------------
+    for path, (s_tag, t_tag) in {"partseg_fp": ("2i", "2j"), "pose": ("2k", "2l"),
+                                 "completion": ("2m", "2n")}.items():
+        served[path] = serve_phase(path, f"{s_tag} {path} served")
+        trained[path] = train_phase(path, f"{t_tag} {path} trained")
+        rows += replay(path, served[path], trained[path])
+        del served[path]["recorded"], trained[path]["recorded"]
+        torch.cuda.empty_cache()
+
+    # -- 2o, 3: markov_partseg served in the window modes --------------------------
+    windowed = {mode: partseg_window_phase(mode, f"2o partseg {mode} served")
+                for mode in PARTSEG_WINDOW_FORWARD}
+    for mode, w in windowed.items():
+        rows += w.pop("rows")
+    torch.cuda.empty_cache()
+
     floor = launch_floor()
     log(f"[3 floor] empty_kernel (one block of one thread) in the same CUDA-graph harness: "
         f"{floor:.4f} ms a launch")
@@ -1646,10 +2075,18 @@ def main() -> int:
         recipe = {path: recipe_phase(path, f"5 {path} recipe", Path(work)) for path in RECIPE}
     torch.cuda.empty_cache()
 
+    # -- 6: S3DIS rooms through cli.train and the sliding scene inference ------------
+    with tempfile.TemporaryDirectory() as work:
+        scene = s3dis_phase("6 s3dis", Path(work))
+    rows += scene.pop("rows")
+    torch.cuda.empty_cache()
+
     counts = {f"{path}_serve": served[path]["launches"] for path in PATHS}
     counts.update({f"{path}_train": trained[path]["launches"] for path in PATHS})
     counts.update({f"{path}_recipe_{run}": recipe[path][run] for path in RECIPE
                    for run in ("train", "eval")})
+    counts.update({f"partseg_{mode}_serve": w["launches"] for mode, w in windowed.items()})
+    counts.update({f"s3dis_{run}": scene[run] for run in ("train", "scene")})
     summary = [summarise(name, rows, counts) for name in kernels.KERNELS]
     log("[4 kernels] times are per request for the forward kernels and per train step for "
         "the backward kernels: the sum over its launches of each; top level: the kernel's "
@@ -1659,10 +2096,20 @@ def main() -> int:
         "repsurf_ssg_2x at B=64 x 1024 points")
     for path, spec in PATHS.items():
         lat, step = served[path]["latency_ms"], trained[path]["step_ms"]
-        log(f"[4 {path}] request ms {lat}, median {statistics.median(lat):.3f} ms, "
+        log(f"[4 {path}] ({card}) request ms {lat}, median {statistics.median(lat):.3f} ms, "
             f"{spec['batch'] / statistics.median(lat) * 1e3:.1f} clouds/s")
-        log(f"[4 {path}] train step ms {step}, median {statistics.median(step):.3f} ms, "
+        log(f"[4 {path}] ({card}) train step ms {step}, median {statistics.median(step):.3f} ms, "
             f"{spec['batch'] / statistics.median(step) * 1e3:.1f} clouds/s")
+    for mode, w in windowed.items():
+        lat = w["latency_ms"]
+        log(f"[4 partseg_{mode}] ({card}) request ms {lat}, median "
+            f"{statistics.median(lat):.3f} ms, "
+            f"{PATHS['partseg']['batch'] / statistics.median(lat) * 1e3:.1f} clouds/s")
+    log(f"[6 s3dis] ({card}) cli.train step ms {scene['step_ms']}, median "
+        f"{statistics.median(scene['step_ms']):.3f} ms; scene inference {scene['scene_s']:.3f} s "
+        f"for {scene['scene_points']} points ({scene['scene_host_s']:.3f} s of it host work); "
+        f"card vs cpu label agreement "
+        f"{scene['label_agreement']:.5f}")
     for path, r in recipe.items():
         log(f"[5 {path}] recipe ({card}): eval {r['clouds_s']:.1f} clouds/s, train step ms "
             f"{r['step_ms']}, median {statistics.median(r['step_ms']):.3f} ms")

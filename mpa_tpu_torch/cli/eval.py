@@ -8,16 +8,19 @@ Usage:
       --data_root R --checkpoint C --num_repeat 50 --num_votes 10
   python -m mpa_tpu_torch.cli.eval --preset shapenetpart --dataset shapenetpart --data_root R \
       --checkpoint C
+  python -m mpa_tpu_torch.cli.eval --preset shapenetpart_fp --dataset shapenetpart --data_root R \
+      --checkpoint C
 
 Classification (tool/test_classification.py:114-162): ``num_repeat`` times,
 a ``num_votes``-vote pass over the test split, fresh vote scales for every
 batch and repeat (vote 0 clean, later votes scale xyz per cloud and axis by
 0.95-1.05, the pool the mean of the log-probs); the best repeat's vote
 accuracy, with its single-pass and class-average accuracy. Part
-segmentation (tool/test_partseg.py:70-221): one vote pass, the argmax over
-each shape's category parts, then per-category and instance mIoU, point
-accuracy and per-part accuracy, in the reference's ``eval.txt`` lines
-(written to ``{log_dir}/eval_{preset}_{dataset}/eval.txt`` too).
+segmentation (``shapenetpart`` and ``shapenetpart_fp``)
+(tool/test_partseg.py:70-221): one vote pass, the argmax over each shape's
+category parts, then per-category and instance mIoU, point accuracy and
+per-part accuracy, in the reference's ``eval.txt`` lines (written to
+``{log_dir}/eval_{preset}_{dataset}/eval.txt`` too).
 ``--replicate_argmax_quirk`` reproduces tool/test_partseg.py:158, whose
 category-local argmax is compared with global labels, for replays of the
 published numbers only.
@@ -154,7 +157,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                                "log_dir") if getattr(args, k) is not None}
     cfg = PRESETS[args.preset].with_overrides(**overrides)
     if cfg.task not in ("cls", "partseg"):
-        raise SystemExit(f"cli.eval serves the cls and partseg presets, not {args.preset}")
+        raise ValueError(f"cli.eval has the cls and part-seg protocols, as mpa_tpu's has; "
+                         f"{args.preset!r} is a {cfg.task!r} preset (its metric is cli.train's "
+                         "eval)")
     device = resolve_device(args.device)
     _, test_arrays = load_dataset(cfg)
     state = eval_state(cfg, device)

@@ -1,6 +1,6 @@
 """Training CLI (counterpart of ``mpa_tpu/cli/train.py``): classification,
-part segmentation and semantic segmentation, on synthetic clouds or on a
-real dataset.
+part segmentation, semantic segmentation, pose regression and shape
+completion, on synthetic clouds or on a real dataset.
 
 Usage:
   python -m mpa_tpu_torch.cli.train --preset scanobjectnn_cls --dataset synthetic --max_steps 5
@@ -11,13 +11,18 @@ Usage:
       --dry_data_check
   python -m mpa_tpu_torch.cli.train --preset s3dis_semseg --num_points 16384 --batch_size 2 \
       --neighbor_mode window_all --max_steps 5
+  python -m mpa_tpu_torch.cli.train --preset s3dis_semseg --dataset s3dis --data_root R
+  python -m mpa_tpu_torch.cli.train --preset pose_modelnet40 --dataset modelnet40 --data_root R
+  python -m mpa_tpu_torch.cli.train --preset completion --max_steps 5
   python -m mpa_tpu_torch.cli.train --device cpu --batch_size 4 --max_steps 2
 
 Trains the preset's model with the preset's optimizer and schedule and logs
 each step's loss and clouds/s. Part segmentation scales (0.8-1.25) and
 shifts (+-0.1) every training batch on the device; other tasks do so only
-with ``--aug_scale`` / ``--aug_shift``. Those draws depend on the seed and
-the state's step alone, so a resumed run draws what an unbroken one would.
+with ``--aug_scale`` / ``--aug_shift``. Pose composes every training batch
+with a fresh z-rotation per cloud, applied to the cloud and its target
+rotation alike. Those draws depend on the seed and the state's step alone,
+so a resumed run draws what an unbroken one would.
 
 Each epoch from ``--min_val_epoch`` on, one cut short by ``--max_steps``
 too, ends with an eval pass, and the best state by its metric is kept in
@@ -30,24 +35,35 @@ classification votes ``num_votes`` passes (``train/votes.py``) and reports
 the pool's instance accuracy (vote-acc, the checkpoint's metric), one
 pass's (single-acc) and the pool's class-average accuracy; part
 segmentation the instance and class mIoU of the category-masked argmax;
-semantic segmentation the block mIoU and point accuracy.
+semantic segmentation the block mIoU and point accuracy; pose the mean
+geodesic error in degrees, completion the Chamfer distance of the fine
+cloud, each the mean of the eval batches' means (the checkpoint keeps the
+least).
 
 Datasets: ``synthetic`` (classification ``synthetic_clouds(512, seed=0)``
 and 128 eval clouds of seed 1; part segmentation ``realistic_partseg`` 256
 and 64, composed primitives in the ShapeNetPart label layout; semantic
 segmentation ``synthetic_semseg`` blocks, 8 rooms of 24, seed 0, and 2
-rooms, seed 100), ``scanobjectnn`` (h5, clouds at their 2048 points, as
-``mpa_tpu`` takes them), ``modelnet40`` (text tree, the first
-``num_points`` rows, normalised) and ``shapenetpart`` (resampled to
-``num_points``). ``--dry_data_check`` loads every split through the same
-loaders, checks shapes, dtypes and label ranges (part-seg labels inside
-their category's block), prints one JSON line and exits 0 or 1 without
-touching a device. Runs on ``cuda`` unless ``--device cpu`` is given.
+rooms, seed 100; pose ``realistic_clouds`` 512 and 128 in their canonical
+frame, seeds 0 and 1; completion ``synthetic_clouds`` 512 and 128),
+``scanobjectnn`` (h5, clouds at their 2048 points, as ``mpa_tpu`` takes
+them), ``modelnet40`` (text tree, the first ``num_points`` rows,
+normalised; for cls, pose and completion), ``shapenetpart`` (resampled to
+``num_points``) and ``s3dis`` (``Area_*.npy`` rooms, 32 blocks drawn from
+each training room, 16 from each Area 5 room). Pose rotates each cloud
+about z by an angle drawn from ``default_rng(0)`` (train) or ``(1)``
+(eval), the rotation its target; completion keeps the half of each cloud
+with the lowest x as the input and the whole cloud as the target.
+``--dry_data_check`` loads every split through the same loaders, checks
+shapes, dtypes and label ranges (part-seg labels inside their category's
+block), prints one JSON line and exits 0 or 1 without touching a
+device. Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -58,9 +74,8 @@ import numpy as np
 import torch
 
 from mpa_tpu_torch.configs import PRESETS, TrainConfig, model_kwargs
-from mpa_tpu_torch.data import augment
+from mpa_tpu_torch.data import augment, s3dis
 from mpa_tpu_torch.data.modelnet import load_modelnet
-from mpa_tpu_torch.data.s3dis import semseg_iou
 from mpa_tpu_torch.data.scanobjectnn import load_scanobjectnn
 from mpa_tpu_torch.data.shapenetpart import (
     NUM_CATEGORIES,
@@ -69,9 +84,15 @@ from mpa_tpu_torch.data.shapenetpart import (
     load_split,
     to_categorical,
 )
-from mpa_tpu_torch.data.synthetic import realistic_partseg, synthetic_clouds, synthetic_semseg
-from mpa_tpu_torch.models import get_model
+from mpa_tpu_torch.data.synthetic import (
+    realistic_clouds,
+    realistic_partseg,
+    synthetic_clouds,
+    synthetic_semseg,
+)
+from mpa_tpu_torch.models import get_model, rotation_geodesic_loss
 from mpa_tpu_torch.train.checkpoint import BestCheckpointer
+from mpa_tpu_torch.train.losses import chamfer_distance
 from mpa_tpu_torch.train.loop import TRAIN_STEPS, TrainState, create_train_state, make_eval_step
 from mpa_tpu_torch.train.metrics import (
     category_masked_argmax,
@@ -85,16 +106,25 @@ from mpa_tpu_torch.utils.init import init_like_flax
 
 # (train clouds, eval clouds) of the synthetic dataset, per task; for
 # semantic segmentation, blocks (24 to a synthetic room).
-DATASET_SIZES = {"cls": (512, 128), "partseg": (256, 64), "semseg": (192, 48)}
+DATASET_SIZES = {"cls": (512, 128), "partseg": (256, 64), "semseg": (192, 48),
+                 "pose": (512, 128), "completion": (512, 128)}
 BLOCKS_PER_ROOM = 24
+# Blocks drawn from each S3DIS room: (training room, test room).
+S3DIS_BLOCKS = (32, 16)
 # The datasets each task reads.
 DATASETS = {"cls": ("synthetic", "scanobjectnn", "modelnet40"),
-            "partseg": ("synthetic", "shapenetpart"), "semseg": ("synthetic",)}
-# The eval metric whose maximum the checkpoint keeps.
-CHECKPOINT_METRIC = {"cls": "instance_acc", "partseg": "ins_miou", "semseg": "block_miou"}
+            "partseg": ("synthetic", "shapenetpart"), "semseg": ("synthetic", "s3dis"),
+            "pose": ("synthetic", "modelnet40"), "completion": ("synthetic", "modelnet40")}
+# The eval metric the checkpoint keeps the best of, and its sign: the
+# checkpoint keeps the maximum of sign * metric (``mpa_tpu`` returns the
+# negatives of pose's and completion's errors for it).
+CHECKPOINT_METRIC = {"cls": ("instance_acc", 1), "partseg": ("ins_miou", 1),
+                     "semseg": ("block_miou", 1), "pose": ("geodesic_error_deg", -1),
+                     "completion": ("chamfer", -1)}
 # Random streams of a run, each seeded from (seed, stream, step) by
-# ``stream_generator`` (``mpa_tpu`` folds 2 and 99 into its root key for them).
-AUG_STREAM, VOTE_STREAM = 2, 99
+# ``stream_generator`` (``mpa_tpu`` folds 2, 4 and 99 into its root key for
+# them).
+AUG_STREAM, POSE_STREAM, VOTE_STREAM = 2, 4, 99
 
 
 def stream_generator(seed: int, stream: int, step: int, device: torch.device) -> torch.Generator:
@@ -118,16 +148,78 @@ def batches(
         yield tuple(a[idx] for a in arrays)
 
 
+def pose_arrays(points: np.ndarray, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Each cloud rotated about z by an angle drawn from ``default_rng(seed)``
+    (``mpa_tpu/cli/train.py::_pose_arrays``): (rotated xyz ``[B, N, 3]``,
+    the rotations ``[B, 3, 3]``), float32."""
+    r = np.random.default_rng(seed)
+    angles = r.uniform(0, 2 * np.pi, len(points))
+    c, s = np.cos(angles), np.sin(angles)
+    zeros, ones = np.zeros_like(c), np.ones_like(c)
+    rot = np.stack([c, -s, zeros, s, c, zeros, zeros, zeros, ones], -1).reshape(
+        -1, 3, 3).astype(np.float32)
+    rotated = np.einsum("bij,bnj->bni", rot, points[..., :3])
+    return rotated.astype(np.float32), rot
+
+
+def completion_arrays(points: np.ndarray, keep_ratio: float = 0.5
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """(partial, full) pairs (``mpa_tpu/cli/train.py::_completion_arrays``):
+    the ``keep_ratio`` share of each cloud's points with the lowest x, every
+    channel, and the whole cloud's xyz, float32."""
+    n_keep = int(points.shape[1] * keep_ratio)
+    order = np.argsort(points[..., 0], axis=1)  # crop along x
+    partial = np.take_along_axis(points, order[:, :n_keep, None], axis=1)
+    return partial.astype(np.float32), points[..., :3].astype(np.float32)
+
+
+def s3dis_blocks(cfg: TrainConfig, split: str, blocks_per_room: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """``blocks_per_room`` blocks of ``cfg.num_points`` points from every room
+    of ``split`` under ``cfg.data_root``, each room's drawn from
+    ``default_rng(0)`` (``sample_blocks``' default), in room order."""
+    rooms = s3dis.list_rooms(cfg.data_root, split=split)
+    if not rooms:
+        raise ValueError(f"no {split} rooms (Area_*.npy) under {cfg.data_root}")
+    feats, labels = [], []
+    for room in rooms:
+        xyzrgb, lab = s3dis.load_room(room)
+        bx, by = s3dis.sample_blocks(xyzrgb, lab, blocks_per_room, cfg.num_points)
+        feats.append(bx)
+        labels.append(by)
+    return np.concatenate(feats), np.concatenate(labels)
+
+
 def load_dataset(cfg: TrainConfig, n_train: Optional[int] = None, n_eval: Optional[int] = None):
     """``(train arrays, eval arrays)`` of ``cfg.dataset`` for ``cfg.task``:
     ``(points, labels)`` for classification, ``(points, category, per-point
     labels)`` for part segmentation, ``(blocks, per-point labels)`` for
-    semantic segmentation. The synthetic cloud counts default to
-    ``DATASET_SIZES``; a real split is cut to ``n_train`` / ``n_eval``
-    clouds when they are given."""
+    semantic segmentation, ``(rotated points, rotations)`` for pose and
+    ``(partial, full)`` for completion. The synthetic cloud counts default
+    to ``DATASET_SIZES``; a real split is cut to ``n_train`` / ``n_eval``
+    clouds when they are given (pose and completion cut the clouds before
+    they are rotated or cropped)."""
     if cfg.dataset not in DATASETS[cfg.task]:
         raise ValueError(f"dataset {cfg.dataset!r} has no {cfg.task} data; "
                          f"choose from {DATASETS[cfg.task]}")
+    if cfg.task in ("pose", "completion"):
+        if cfg.dataset == "synthetic":
+            n_train = n_train or DATASET_SIZES[cfg.task][0]
+            n_eval = n_eval or DATASET_SIZES[cfg.task][1]
+            # Pose needs clouds in their class's frame: a target rotation on
+            # top of an unknown base rotation could not be recovered.
+            clouds = (functools.partial(realistic_clouds, canonical_pose=True)
+                      if cfg.task == "pose" else synthetic_clouds)
+            train = clouds(n_train, cfg.num_points, cfg.num_classes, seed=0)[0]
+            test = clouds(n_eval, cfg.num_points, cfg.num_classes, seed=1)[0]
+        else:
+            if not cfg.data_root:
+                raise ValueError(f"dataset {cfg.dataset!r} needs --data_root")
+            train = load_modelnet(cfg.data_root, "train", 40, cfg.num_points)[0][:n_train]
+            test = load_modelnet(cfg.data_root, "test", 40, cfg.num_points)[0][:n_eval]
+        if cfg.task == "pose":
+            return pose_arrays(train, 0), pose_arrays(test, 1)
+        return completion_arrays(train), completion_arrays(test)
     if cfg.dataset == "synthetic":
         n_train = n_train or DATASET_SIZES[cfg.task][0]
         n_eval = n_eval or DATASET_SIZES[cfg.task][1]
@@ -145,7 +237,10 @@ def load_dataset(cfg: TrainConfig, n_train: Optional[int] = None, n_eval: Option
     if not cfg.data_root:
         raise ValueError(f"dataset {cfg.dataset!r} needs --data_root")
     root = cfg.data_root
-    if cfg.dataset == "scanobjectnn":
+    if cfg.dataset == "s3dis":
+        train = s3dis_blocks(cfg, "train", S3DIS_BLOCKS[0])
+        test = s3dis_blocks(cfg, "test", S3DIS_BLOCKS[1])
+    elif cfg.dataset == "scanobjectnn":
         train, test = load_scanobjectnn(root, "training"), load_scanobjectnn(root, "test")
     elif cfg.dataset == "modelnet40":
         train = load_modelnet(root, "train", 40, cfg.num_points)[:2]
@@ -174,6 +269,23 @@ def augmentation(cfg: TrainConfig) -> Tuple[bool, bool]:
     ``cfg.aug_shift``."""
     partseg = cfg.task == "partseg"
     return cfg.aug_scale or partseg, cfg.aug_shift or partseg
+
+
+def pose_resample(cfg: TrainConfig, points: torch.Tensor, rotations: torch.Tensor, step: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pose batch of step ``step`` (``mpa_tpu/cli/train.py:470-491``):
+    a z-rotation per cloud, its angle uniform in ``[0, 2 pi)`` from
+    ``stream_generator(cfg.seed, POSE_STREAM, step)``, applied to the points
+    and composed with the target rotations, so that the model never sees one
+    cloud with one fixed target."""
+    generator = stream_generator(cfg.seed, POSE_STREAM, step, points.device)
+    theta = torch.rand((points.shape[0],), generator=generator, device=points.device) * (
+        2.0 * np.pi)
+    c, s = torch.cos(theta), torch.sin(theta)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    r2 = torch.stack([c, -s, z, s, c, z, z, z, o], -1).reshape(-1, 3, 3)
+    return (torch.einsum("bij,bnj->bni", r2, points),
+            torch.einsum("bij,bjk->bik", r2, rotations))
 
 
 def augment_batch(cfg: TrainConfig, points: torch.Tensor, step: int) -> torch.Tensor:
@@ -214,12 +326,39 @@ def vote_pass(cfg: TrainConfig, state: TrainState, arrays, device: torch.device,
     return np.concatenate(pools), np.concatenate(singles)
 
 
+def batch_means(cfg: TrainConfig, state: TrainState, test_arrays, device: torch.device,
+                metric) -> float:
+    """The unweighted mean over the eval batches (the last one ragged) of
+    ``metric(model output, targets)``, each batch's a mean over its clouds,
+    as ``mpa_tpu`` averages pose's and completion's errors."""
+    eval_step = make_eval_step()
+    values = []
+    with torch.inference_mode():
+        for batch in batches(test_arrays, cfg.batch_size, drop_last=False):
+            inputs, targets = make_inputs(cfg, batch, device)
+            values.append(float(metric(eval_step(state, inputs), targets)))
+    return float(np.mean(values))
+
+
 def evaluate(cfg: TrainConfig, state: TrainState, test_arrays, device: torch.device) -> dict:
     """One eval over the eval clouds: ``instance_acc`` (of the
     ``cfg.num_votes``-vote pool), ``single_acc`` and ``class_acc`` for
     classification, ``ins_miou`` / ``class_miou`` of one pass for part
     segmentation, ``block_miou`` / ``point_acc`` of one pass for semantic
-    segmentation. Every eval of a run draws the same vote scales."""
+    segmentation, ``geodesic_error_deg`` for pose, ``chamfer`` (of the fine
+    cloud) for completion. Every eval of a run draws the same vote
+    scales."""
+    if cfg.task == "pose":
+        err = batch_means(cfg, state, test_arrays, device, rotation_geodesic_loss) * 180.0 / np.pi
+        print(f"eval after {state.step} steps: mean geodesic error {err:.2f} deg over "
+              f"{len(test_arrays[0])} clouds", flush=True)
+        return {"geodesic_error_deg": err}
+    if cfg.task == "completion":
+        cd = batch_means(cfg, state, test_arrays, device,
+                         lambda out, full: chamfer_distance(out[1], full))
+        print(f"eval after {state.step} steps: chamfer {cd:.5f} over {len(test_arrays[0])} "
+              "clouds", flush=True)
+        return {"chamfer": cd}
     votes = cfg.num_votes if cfg.task == "cls" else 1
     pool, single = vote_pass(cfg, state, test_arrays, device, votes,
                              stream_generator(cfg.seed, VOTE_STREAM, 0, device))
@@ -234,8 +373,8 @@ def evaluate(cfg: TrainConfig, state: TrainState, test_arrays, device: torch.dev
               f"{len(target)} clouds", flush=True)
         return {"instance_acc": acc, "single_acc": single_acc, "class_acc": cls_acc}
     if cfg.task == "semseg":
-        miou, acc, _ = semseg_iou(pool.argmax(-1).reshape(-1), target.reshape(-1),
-                                  cfg.num_classes)
+        miou, acc, _ = s3dis.semseg_iou(pool.argmax(-1).reshape(-1), target.reshape(-1),
+                                        cfg.num_classes)
         print(f"eval after {state.step} steps: block-mIoU {miou:.4f}, point acc {acc:.4f} "
               f"over {len(target)} blocks", flush=True)
         return {"block_miou": miou, "point_acc": acc}
@@ -280,6 +419,9 @@ def dry_data_check(cfg: TrainConfig, n_train: Optional[int] = None,
                 if bad:
                     problems.append(f"{split}: {bad} point labels outside their cloud's "
                                     "category part block (SEG_PARTS)")
+        elif cfg.task in ("pose", "completion"):
+            if not np.isfinite(arrays[1]).all():
+                problems.append(f"{split}: non-finite targets")
         else:
             labels = arrays[1]
             if labels.min() < 0 or labels.max() >= cfg.num_classes:
@@ -303,7 +445,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", default="scanobjectnn_cls", choices=sorted(PRESETS))
     ap.add_argument("--dataset", default=None,
-                    choices=["synthetic", "scanobjectnn", "modelnet40", "shapenetpart"],
+                    choices=["synthetic", "scanobjectnn", "modelnet40", "shapenetpart", "s3dis"],
                     help="default: the preset's (synthetic)")
     ap.add_argument("--data_root", default=None, help="the real dataset's directory")
     ap.add_argument("--dry_data_check", action="store_true",
@@ -314,11 +456,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--batch_size", type=int, default=None, help="default: the preset's")
     ap.add_argument("--num_points", type=int, default=None, help="default: the preset's")
     ap.add_argument("--train_clouds", type=int, default=None,
-                    help="synthetic default: 512 (cls), 256 (partseg), 192 blocks (semseg); "
-                         "a real split: all")
+                    help="synthetic default: 512 (cls, pose, completion), 256 (partseg), "
+                         "192 blocks (semseg); a real split: all")
     ap.add_argument("--eval_clouds", type=int, default=None,
-                    help="synthetic default: 128 (cls), 64 (partseg), 48 blocks (semseg); "
-                         "a real split: all")
+                    help="synthetic default: 128 (cls, pose, completion), 64 (partseg), "
+                         "48 blocks (semseg); a real split: all")
     ap.add_argument("--neighbor_mode", default=None, choices=["exact", "window", "window_all"],
                     help="segmentation neighbour mode; default: the preset's (exact)")
     ap.add_argument("--aug_scale", action="store_true", help="scale every train batch")
@@ -375,6 +517,8 @@ def run(args: argparse.Namespace) -> Tuple[TrainState, dict]:
             inputs, labels = make_inputs(cfg, batch, device)
             t0 = time.perf_counter()
             raw = inputs[0] if cfg.task == "partseg" else inputs
+            if cfg.task == "pose":
+                raw, labels = pose_resample(cfg, raw, labels, state.step)
             points = augment_batch(cfg, raw, state.step)
             inputs = (points, inputs[1]) if cfg.task == "partseg" else points
             loss = float(train_step(state, inputs, labels))  # waits for the step to finish
@@ -390,9 +534,9 @@ def run(args: argparse.Namespace) -> Tuple[TrainState, dict]:
                 break
         if epoch >= cfg.min_val_epoch:
             metrics = evaluate(cfg, state, test_arrays, device)
-            if ckpt.save_if_best(state, metrics[CHECKPOINT_METRIC[cfg.task]]):
-                print(f"new best {CHECKPOINT_METRIC[cfg.task]} "
-                      f"{ckpt.best_metric:.4f} -> {ckpt.path}", flush=True)
+            key, sign = CHECKPOINT_METRIC[cfg.task]
+            if ckpt.save_if_best(state, sign * metrics[key]):
+                print(f"new best {key} {sign * ckpt.best_metric:.4f} -> {ckpt.path}", flush=True)
         if args.max_steps and steps >= args.max_steps:
             break
     return state, {"steps": steps, "losses": losses, "step_ms": step_ms,

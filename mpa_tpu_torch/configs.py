@@ -1,6 +1,6 @@
 """Training configuration and presets (the fields of
 ``mpa_tpu/utils/config.py::TrainConfig`` that the ported paths read, and
-the presets of ``mpa_tpu/configs/presets.py`` that the port runs).
+the presets of ``mpa_tpu/configs/presets.py``, all eight of them).
 
 A preset trains on ``synthetic`` clouds unless ``dataset`` names a real one
 (``cli.train --dataset ... --data_root ...``); ``mpa_tpu``'s presets name
@@ -14,14 +14,15 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    task: str = "cls"  # 'cls' | 'partseg' | 'semseg'
+    task: str = "cls"  # 'cls' | 'partseg' | 'semseg' | 'pose' | 'completion'
     model: str = "markov_cls"
     num_classes: int = 15
     num_parts: int = 50  # part-seg: global part labels
     num_categories: int = 16  # part-seg: shape categories
     num_points: int = 1024
     batch_size: int = 64
-    # 'synthetic' | 'scanobjectnn' | 'modelnet40' | 'shapenetpart' (cli/train.py load_dataset)
+    # 'synthetic' | 'scanobjectnn' | 'modelnet40' | 'shapenetpart' | 's3dis'
+    # (cli/train.py load_dataset)
     dataset: str = "synthetic"
     data_root: Optional[str] = None
     # segmentation: 'exact' (reference semantics) | 'window' (Morton-window
@@ -59,8 +60,10 @@ class TrainConfig:
 def model_kwargs(cfg: TrainConfig) -> dict:
     """The constructor arguments of ``cfg.model`` that ``cfg`` fixes. A
     segmentation ladder halves the cloud four times (1024/512/256/128 at the
-    part-seg preset's 2048 points, 2048/1024/512/256 at the semseg preset's
-    4096), as ``mpa_tpu/cli/train.py`` scales it."""
+    part-seg presets' 2048 points, 2048/1024/512/256 at the semseg preset's
+    4096), as ``mpa_tpu/cli/train.py`` scales it for every part-seg model:
+    ``markov_partseg_fp`` too, whose own default ladder has five levels.
+    Pose and completion take their models' defaults."""
     if cfg.task in ("partseg", "semseg"):
         kw = dict(npoints=tuple(cfg.num_points // 2 ** (i + 1) for i in range(4)),
                   neighbor_mode=cfg.neighbor_mode, fps_min_band=cfg.fps_min_band,
@@ -70,6 +73,8 @@ def model_kwargs(cfg: TrainConfig) -> dict:
         return dict(num_parts=cfg.num_parts, num_categories=cfg.num_categories, **kw)
     if cfg.task == "cls":
         return dict(num_classes=cfg.num_classes)
+    if cfg.task in ("pose", "completion"):
+        return {}
     raise ValueError(f"unknown task {cfg.task}")
 
 
@@ -108,6 +113,15 @@ PRESETS = {
         scheduler="cos", eta_min=1e-3, epochs=300, seed=2800,
         aug_scale=True, aug_shift=True,
     ),
+    # The alternative part-seg model, its feature-propagation decoder
+    # (markov_partseg_fp), under the shapenetpart recipe.
+    "shapenetpart_fp": TrainConfig(
+        task="partseg", model="markov_partseg_fp", num_parts=50, num_categories=16,
+        num_points=2048, batch_size=32,
+        optimizer="sgd", learning_rate=0.1, weight_decay=1e-4, momentum=0.9,
+        scheduler="cos", eta_min=1e-3, epochs=300, seed=2800,
+        aug_scale=True, aug_shift=True,
+    ),
     # S3DIS semantic segmentation, 4096-point blocks with 9 features, 13
     # classes: batch 16, SGD 0.1 / momentum 0.9 / wd 1e-4, cosine to 1e-3
     # over 100 epochs, seed 2800. The large-scene window modes are
@@ -116,5 +130,20 @@ PRESETS = {
         task="semseg", model="markov_semseg", num_classes=13, num_points=4096,
         batch_size=16, optimizer="sgd", learning_rate=0.1, weight_decay=1e-4, momentum=0.9,
         scheduler="cos", eta_min=1e-3, epochs=100, seed=2800,
+    ),
+    # Pose regression over the cls encoder (a 6D rotation, the geodesic
+    # loss), 1024-point clouds: batch 64, adam-l2 1e-3 / wd 1e-4, cosine to
+    # 1e-5 over 200 epochs, seed 2800.
+    "pose_modelnet40": TrainConfig(
+        task="pose", model="markov_pose", num_points=1024, batch_size=64,
+        optimizer="adam-l2", learning_rate=1e-3, weight_decay=1e-4,
+        scheduler="cos", eta_min=1e-5, epochs=200, seed=2800,
+    ),
+    # Shape completion (coarse FC decoder, folding refinement; Chamfer loss)
+    # of half-clouds cut from 1024-point clouds: the pose recipe.
+    "completion": TrainConfig(
+        task="completion", model="markov_completion", num_points=1024, batch_size=64,
+        optimizer="adam-l2", learning_rate=1e-3, weight_decay=1e-4,
+        scheduler="cos", eta_min=1e-5, epochs=200, seed=2800,
     ),
 }

@@ -11,8 +11,17 @@ from mpa_tpu_torch.data.shapenetpart import (
     pc_normalize,
     to_categorical,
 )
-from mpa_tpu_torch.data.s3dis import block_features, sample_blocks, semseg_iou
+from mpa_tpu_torch.data.s3dis import (
+    block_features,
+    list_rooms,
+    load_room,
+    sample_blocks,
+    scene_inference,
+    semseg_iou,
+    sliding_blocks,
+)
 from mpa_tpu_torch.data.synthetic import (
+    realistic_clouds,
     realistic_partseg,
     surface_clouds,
     synthetic_clouds,
@@ -20,7 +29,8 @@ from mpa_tpu_torch.data.synthetic import (
     synthetic_semseg,
 )
 
-__all__ = ["SEG_PARTS", "ShapeNetPartDataset", "augment", "block_features", "load_modelnet",
-           "load_scanobjectnn", "load_split", "native_available", "pc_normalize",
-           "realistic_partseg", "sample_blocks", "semseg_iou", "surface_clouds",
+__all__ = ["SEG_PARTS", "ShapeNetPartDataset", "augment", "block_features", "list_rooms",
+           "load_modelnet", "load_room", "load_scanobjectnn", "load_split", "native_available",
+           "pc_normalize", "realistic_clouds", "realistic_partseg", "sample_blocks",
+           "scene_inference", "semseg_iou", "sliding_blocks", "surface_clouds",
            "synthetic_clouds", "synthetic_partseg", "synthetic_semseg", "to_categorical"]

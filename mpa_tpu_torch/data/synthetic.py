@@ -1,5 +1,6 @@
 """Synthetic clouds (numpy copies of ``mpa_tpu/data/synthetic.py``'s
-``synthetic_clouds``, ``realistic_partseg`` and ``synthetic_partseg``, and of
+``synthetic_clouds``, ``realistic_clouds``, ``realistic_partseg`` and
+``synthetic_partseg``, and of
 the synthetic S3DIS rooms of ``mpa_tpu/cli/train.py``, so the same seed gives
 the same clouds in both packages)."""
 
@@ -152,23 +153,37 @@ def realistic_partseg(
     return pts, cats.astype(np.int64), labels
 
 
-def surface_clouds(
-    num: int, num_points: int = 1024, num_classes: int = 15, seed: int = 0
+def realistic_clouds(
+    num: int,
+    num_points: int = 1024,
+    num_classes: int = 15,
+    seed: int = 0,
+    canonical_pose: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Classification clouds on object surfaces normalised to the unit
-    sphere, as ScanObjectNN's scanned objects are: class c is a fixed layout of three surface primitives, each cloud drawn
-    on it with a random z-rotation, scale and jitter, centred and scaled to
-    unit radius (``_compose_cloud``). A small ball around a surface point
-    holds its neighbours on the surface, where ``synthetic_clouds``, filled
-    volumes, leave most radius-0.1 balls with their centre alone. Returns
-    ``(points [num, num_points, 3] float32, labels [num] int64)``."""
+    """Composed-primitive classification clouds: class c is a fixed layout of
+    three surface primitives, each cloud drawn on it with a random
+    z-rotation (none with ``canonical_pose``, which keeps every cloud in its
+    class's frame, as the pose task needs), scale and jitter, centred and
+    scaled to unit radius (``_compose_cloud``). Returns ``(points [num,
+    num_points, 3] float32, labels [num] int64)``."""
     specs = [_class_spec(1000 + c, 3) for c in range(num_classes)]
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, num_classes, size=(num,))
     pts = np.empty((num, num_points, 3), dtype=np.float32)
     for i, c in enumerate(labels):
-        pts[i] = _compose_cloud(rng, specs[c], num_points)[0]
+        pts[i] = _compose_cloud(rng, specs[c], num_points, base_rotation=not canonical_pose)[0]
     return pts, labels.astype(np.int64)
+
+
+def surface_clouds(
+    num: int, num_points: int = 1024, num_classes: int = 15, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Classification clouds on object surfaces normalised to the unit
+    sphere, as ScanObjectNN's scanned objects are: ``realistic_clouds``. A
+    small ball around a surface point holds its neighbours on the surface,
+    where ``synthetic_clouds``, filled volumes, leave most radius-0.1 balls
+    with their centre alone."""
+    return realistic_clouds(num, num_points, num_classes, seed)
 
 
 def synthetic_partseg(

@@ -8,6 +8,7 @@ from mpa_tpu_torch.nn.local_trans import LocalTrans
 from mpa_tpu_torch.nn.local_merge import LocalMerge
 from mpa_tpu_torch.nn.keephigh import KeepHighResolutionEncoder
 from mpa_tpu_torch.nn.fuse import Fuse, compose_fps_chain
+from mpa_tpu_torch.nn.feature_propagation import PointNetFeaturePropagation
 from mpa_tpu_torch.nn.keephigh_partseg import KeepHighResolutionPartSeg
 from mpa_tpu_torch.nn.umbrella_constructor import UmbrellaSurfaceConstructor
 from mpa_tpu_torch.nn.surface_abstraction import SurfaceAbstractionCD
@@ -20,6 +21,7 @@ __all__ = [
     "KeepHighResolutionEncoder",
     "Fuse",
     "compose_fps_chain",
+    "PointNetFeaturePropagation",
     "KeepHighResolutionPartSeg",
     "UmbrellaSurfaceConstructor",
     "SurfaceAbstractionCD",

@@ -16,6 +16,7 @@ from mpa_tpu_torch.ops.gather import index_points, resort_points
 from mpa_tpu_torch.ops.ball_query import ball_query
 from mpa_tpu_torch.ops.attention import transition_attention
 from mpa_tpu_torch.ops.scatter import scatter_mean_upsample
+from mpa_tpu_torch.ops.interp import three_nn_interpolate
 from mpa_tpu_torch.ops.morton import morton_code, morton_order
 from mpa_tpu_torch.ops.sampling import subsample_points
 from mpa_tpu_torch.ops.window import (
@@ -35,6 +36,7 @@ __all__ = [
     "ball_query",
     "transition_attention",
     "scatter_mean_upsample",
+    "three_nn_interpolate",
     "banded_farthest_point_sample",
     "pick_fps_bands",
     "morton_code",

@@ -5,9 +5,14 @@ weights carried over from ``mpa_tpu`` variables or initialised from a seed,
 and returns a callable ``points [B, N, 3] -> log-probs [B, num_classes]``
 that runs in eval mode under ``torch.inference_mode()``. ``load_segmenter``
 does the same for a part-seg preset: ``(points [B, N, 3], category [B]) ->
-per-point log-probs [B, N, num_parts]``, and ``load_semantic_segmenter`` for
+per-point log-probs [B, N, num_parts]`` (``shapenetpart_fp`` too, and the
+window modes through ``neighbor_mode``), ``load_semantic_segmenter`` for
 a semantic-segmentation preset: ``blocks [B, N, 9] -> per-point log-probs
-[B, N, num_classes]``.
+[B, N, num_classes]``, ``load_pose_regressor`` for ``pose_modelnet40``:
+``points [B, N, 3] -> rotations [B, 3, 3]``, and ``load_completer`` for
+``completion``: ``partial [B, N, 3] -> (coarse [B, 256, 3], fine [B, N +
+1024, 3])``. ``mpa_tpu`` serves every model through ``serve/export.py``;
+these are its counterparts.
 """
 
 from __future__ import annotations
@@ -132,11 +137,18 @@ def load_segmenter(
     *,
     device: DeviceLike = None,
     seed: int = 0,
+    **overrides,
 ) -> Segmenter:
-    """Build the preset's part segmenter on ``device`` (default ``cuda``);
-    arguments as :func:`load_classifier`. The clouds it is called on must
-    have the preset's ``num_points`` (the FPS ladder is fixed)."""
-    return Segmenter(*_load(preset, "partseg", variables, device, seed))
+    """Build the preset's part segmenter (``shapenetpart``: ``markov_partseg``,
+    ``shapenetpart_fp``: ``markov_partseg_fp``) on ``device`` (default
+    ``cuda``); ``preset``, ``variables``, ``device`` and ``seed`` as
+    :func:`load_classifier`. ``overrides`` replace fields of the preset
+    before the model is built: ``num_points`` (the FPS ladder halves it four
+    times; the clouds must have that many points) and, for
+    ``markov_partseg``, ``neighbor_mode`` (``"exact"``, ``"window"`` or
+    ``"window_all"``), so the Morton-window segmenter is
+    ``load_segmenter(neighbor_mode="window")``."""
+    return Segmenter(*_load(preset, "partseg", variables, device, seed, **overrides))
 
 
 def load_semantic_segmenter(
@@ -156,3 +168,32 @@ def load_semantic_segmenter(
     16384-point ``window_all`` configuration is
     ``load_semantic_segmenter(num_points=16384, neighbor_mode="window_all")``."""
     return SemanticSegmenter(*_load(preset, "semseg", variables, device, seed, **overrides))
+
+
+def load_pose_regressor(
+    preset: str = "pose_modelnet40",
+    variables: Optional[Mapping] = None,
+    *,
+    device: DeviceLike = None,
+    seed: int = 0,
+) -> Classifier:
+    """Build the preset's pose regressor (``markov_pose``) on ``device``
+    (default ``cuda``); arguments as :func:`load_classifier`. Call it on
+    ``[B, N, 3]`` points (tensor or numpy) for ``[B, 3, 3]`` rotation
+    matrices."""
+    return Classifier(*_load(preset, "pose", variables, device, seed))
+
+
+def load_completer(
+    preset: str = "completion",
+    variables: Optional[Mapping] = None,
+    *,
+    device: DeviceLike = None,
+    seed: int = 0,
+) -> Classifier:
+    """Build the preset's completion model (``markov_completion``) on
+    ``device`` (default ``cuda``); arguments as :func:`load_classifier`. Call
+    it on a partial cloud ``[B, N, 3]`` (tensor or numpy) of at least the
+    ladder's first 512 points for ``(coarse [B, M, 3], fine [B, M * r + N,
+    3])``."""
+    return Classifier(*_load(preset, "completion", variables, device, seed))

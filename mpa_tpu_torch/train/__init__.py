@@ -2,7 +2,13 @@
 test-time augmentation and the best-metric checkpointer."""
 
 from mpa_tpu_torch.train.checkpoint import BestCheckpointer
-from mpa_tpu_torch.train.losses import cls_loss, smooth_cls_loss, smooth_seg_loss
+from mpa_tpu_torch.train.losses import (
+    chamfer_distance,
+    cls_loss,
+    completion_loss,
+    smooth_cls_loss,
+    smooth_seg_loss,
+)
 from mpa_tpu_torch.train.loop import (
     TRAIN_STEPS,
     TrainState,
@@ -10,7 +16,9 @@ from mpa_tpu_torch.train.loop import (
     make_cls_train_step,
     make_eval_step,
     make_optimizer,
+    make_completion_train_step,
     make_partseg_train_step,
+    make_pose_train_step,
     make_schedule,
     make_semseg_train_step,
     make_train_step,
@@ -31,17 +39,21 @@ __all__ = [
     "TRAIN_STEPS",
     "TrainState",
     "category_masked_argmax",
+    "chamfer_distance",
     "class_avg_point_accuracy",
     "class_average_accuracy",
     "cls_loss",
+    "completion_loss",
     "cosine_schedule",
     "create_train_state",
     "draw_vote_scales",
     "instance_accuracy",
     "make_cls_train_step",
+    "make_completion_train_step",
     "make_eval_step",
     "make_optimizer",
     "make_partseg_train_step",
+    "make_pose_train_step",
     "make_schedule",
     "make_semseg_train_step",
     "make_train_step",

@@ -27,7 +27,8 @@ import torch
 from torch import nn
 
 from mpa_tpu_torch.configs import TrainConfig
-from mpa_tpu_torch.train.losses import smooth_cls_loss, smooth_seg_loss
+from mpa_tpu_torch.models.markov_pose import rotation_geodesic_loss
+from mpa_tpu_torch.train.losses import completion_loss, smooth_cls_loss, smooth_seg_loss
 from mpa_tpu_torch.train.schedules import Schedule, cosine_schedule, step_decay_schedule
 
 
@@ -138,16 +139,33 @@ def make_semseg_train_step(cfg: TrainConfig, steps_per_epoch: int):
     return _seg_train_step(cfg, steps_per_epoch)
 
 
+def make_pose_train_step(cfg: TrainConfig, steps_per_epoch: int):
+    """The pose step of ``cfg`` (``pose_modelnet40``: adam-l2 1e-3, wd 1e-4,
+    cosine to 1e-5, head dropout 0.1 from the state's generator): the mean
+    geodesic angle. Call it as ``step(state, points [B, N, 3], rotations
+    [B, 3, 3])``."""
+    return make_train_step(rotation_geodesic_loss, make_schedule(cfg), steps_per_epoch)
+
+
+def make_completion_train_step(cfg: TrainConfig, steps_per_epoch: int):
+    """The completion step of ``cfg`` (``completion``: the pose recipe): the
+    coarse and the fine cloud's Chamfer distance to the full one. Call it as
+    ``step(state, partial [B, N, 3], full [B, M, 3])``."""
+    return make_train_step(completion_loss, make_schedule(cfg), steps_per_epoch)
+
+
 # The train step of each task, as ``TRAIN_STEPS[cfg.task](cfg, steps_per_epoch)``.
 TRAIN_STEPS = {"cls": make_cls_train_step, "partseg": make_partseg_train_step,
-               "semseg": make_semseg_train_step}
+               "semseg": make_semseg_train_step, "pose": make_pose_train_step,
+               "completion": make_completion_train_step}
 
 
 def make_eval_step():
-    """Build ``eval_step(state, points) -> log-probs`` (eval mode, no grad);
+    """Build ``eval_step(state, points) -> the model's output`` (eval mode,
+    no grad): log-probs, pose's rotations, completion's ``(coarse, fine)``;
     ``points`` as in :func:`make_train_step`."""
 
-    def eval_step(state: TrainState, points: torch.Tensor) -> torch.Tensor:
+    def eval_step(state: TrainState, points: torch.Tensor):
         state.model.eval()
         with torch.inference_mode():
             return state.model(points)

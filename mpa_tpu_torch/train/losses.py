@@ -5,7 +5,8 @@
 over log-probabilities, the off-class mass ``smoothing / (n_class - 1)``;
 ``cls_loss`` is the plain NLL (``ClsLoss``); ``smooth_seg_loss`` is the same
 smoothed NLL over flattened per-point log-probabilities (part-seg
-``get_loss``).
+``get_loss``); ``chamfer_distance`` and ``completion_loss`` are the
+completion model's objective.
 """
 
 from __future__ import annotations
@@ -35,3 +36,26 @@ def smooth_seg_loss(
     """Per-point label-smoothed NLL. log_probs ``[B, N, P]``, labels ``[B, N]``."""
     B, N, P = log_probs.shape
     return smooth_cls_loss(log_probs.reshape(B * N, P), labels.reshape(B * N), smoothing)
+
+
+def chamfer_distance(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Symmetric squared Chamfer distance between clouds ``[B, N, 3]`` and
+    ``[B, M, 3]``: the mean over ``pred``'s points of the squared distance
+    to the nearest ``target`` point, plus the same the other way round.
+    The ``[B, N, M]`` distances are values here, not a neighbour order: the
+    expanded form ``|a|^2 + |b|^2 - 2 a.b`` (one matmul, clamped at 0) in
+    the inputs' dtype, at least float32, as ``mpa_tpu`` accumulates them."""
+    dtype = torch.promote_types(torch.float32, pred.dtype)
+    a, b = pred.to(dtype), target.to(dtype)
+    cross = torch.matmul(a, b.transpose(-1, -2))
+    d = (a * a).sum(-1)[..., :, None] + (b * b).sum(-1)[..., None, :] - 2.0 * cross
+    d = torch.clamp_min(d, 0.0)
+    return torch.mean(torch.amin(d, dim=-1)) + torch.mean(torch.amin(d, dim=-2))
+
+
+def completion_loss(out, target: torch.Tensor) -> torch.Tensor:
+    """The two-stage completion objective: the unweighted sum of the coarse
+    and the fine cloud's Chamfer distance to the full cloud; ``out`` is the
+    model's ``(coarse, fine)``."""
+    coarse, fine = out
+    return chamfer_distance(coarse, target) + chamfer_distance(fine, target)

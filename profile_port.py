@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Where a serving request's or a train step's time goes, on the card.
 
-    python3 profile_port.py [--model cls|partseg|semseg|repsurf] [--batch B] [--requests 5] [--trace t.json]
-    python3 profile_port.py [--model cls|partseg|semseg|repsurf] --train [--batch B] [--requests 5]
+    python3 profile_port.py [--model MODEL] [--batch B] [--requests 5] [--trace t.json]
+    python3 profile_port.py [--model MODEL] --train [--batch B] [--requests 5]
 
 Loads the model's preset of the PyTorch port on ``cuda`` (``scanobjectnn_cls``
 at 1024 points, batch 64; ``shapenetpart`` at 2048 points, batch 32;
 ``s3dis_semseg`` in the ``window_all`` mode at 16384 points, batch 2; or
 ``scanobjectnn_2x``, ``repsurf_ssg_2x`` at 1024 points, batch 64; random
-weights, seed 0), answers two warm-up requests, then traces ``--requests``
+weights, seed 0; MODEL one of cls, partseg, semseg, repsurf, or
+``partseg_fp``, ``pose``, ``completion``: ``shapenetpart_fp`` at 2048
+points, batch 32, ``pose_modelnet40`` at 1024 and ``completion`` on
+512-point partial clouds, batch 64, on the training CLI's eval clouds),
+answers two warm-up requests, then traces ``--requests``
 requests of ``--batch`` clouds with ``torch.profiler`` and prints: the host
 wall time per request, the device's busy share of that wall time (the union
 of kernel intervals), and device time per request grouped by kind (the port's
@@ -65,7 +69,8 @@ PORT_KERNELS = ("windowed_knn_kernel", "windowed_attention_fwd_kernel",
                 "transition_attention_fwd_kernel", "scatter_add_rows_kernel",
                 "transition_attention_bwd_kernel", "scatter_mean_kernel", "ball_query_kernel")
 PRESETS = {"cls": "scanobjectnn_cls", "partseg": "shapenetpart", "semseg": "s3dis_semseg",
-           "repsurf": "scanobjectnn_2x"}
+           "repsurf": "scanobjectnn_2x", "partseg_fp": "shapenetpart_fp",
+           "pose": "pose_modelnet40", "completion": "completion"}
 # Preset fields each model is profiled with, beyond the preset's own.
 OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="window_all")}
 
@@ -82,6 +87,8 @@ REQUEST_ONLY = ("fps_kernel", "windowed_knn_kernel", "transition_attention_fwd_k
 
 
 def kind(name: str) -> str:
+    if "fps_slice_kernel" in name:  # fps_kernel's sliced form (feature clouds)
+        return "fps_kernel"
     for k in PORT_KERNELS:
         if k in name:
             return k
@@ -95,9 +102,14 @@ def make_requests(model: str, batch: int, points: int):
     """``run(i)`` answers the i-th request of ``batch`` clouds: random ones
     for the classifier, ``surface_clouds`` for repsurf (its balls hold
     neighbours on the surface), ``realistic_partseg`` ones with their categories for the
-    segmenter, ``synthetic_semseg`` blocks for semseg."""
+    segmenters, ``synthetic_semseg`` blocks for semseg, the training CLI's
+    eval clouds for pose and completion (one batch, answered again)."""
+    from mpa_tpu_torch.cli import train as cli_train
     from mpa_tpu_torch.data import realistic_partseg, surface_clouds, synthetic_semseg
-    from mpa_tpu_torch.serve import load_classifier, load_segmenter, load_semantic_segmenter
+    from mpa_tpu_torch.serve import (
+        load_classifier, load_completer, load_pose_regressor, load_segmenter,
+        load_semantic_segmenter,
+    )
 
     rng = np.random.default_rng(0)
     reqs = {}
@@ -113,7 +125,14 @@ def make_requests(model: str, batch: int, points: int):
 
         def make(i):
             return (torch.from_numpy(surface_clouds(batch, points, seed=i)[0]).cuda(),)
-    elif model == "partseg":
+    elif model in ("pose", "completion"):
+        serve = (load_pose_regressor if model == "pose" else load_completer)(PRESETS[model], seed=0)
+        clouds = torch.from_numpy(cli_train.load_dataset(load_cfg(model), n_train=1,
+                                                         n_eval=batch)[1][0]).cuda()
+
+        def make(i):
+            return (clouds,)
+    elif model in ("partseg", "partseg_fp"):
         serve = load_segmenter(PRESETS[model], seed=0)
 
         def make(i):
@@ -395,6 +414,8 @@ def main() -> int:
         return kernels_main(args)
     cfg = load_cfg(args.model)
     batch, points = args.batch or cfg.batch_size, cfg.num_points
+    if args.model == "completion":
+        points //= 2  # the partial clouds: the half of each with the lowest x
     run = (make_train_steps(args.model, batch) if args.train
            else make_requests(args.model, batch, points))
     for i in range(2):
