@@ -143,6 +143,28 @@ S3DIS rooms through ``cli.train`` and the sliding scene inference (phase
    step at B = 1 x 4096 within ``S3DIS_PATH``'s ``grad_limit``, card
    against CPU; and every launch of ``cli.train``'s first step and of the
    scene's first batch replayed as in phase 3 (tagged ``s3dis``);
+7. data parallelism and the trainer's surface (run after phase 6): (a) two
+   spawned ranks on the one card (``gloo``: NCCL refuses two ranks on one
+   device), each with half of a ``scanobjectnn_cls`` batch of 64 x 1024,
+   against one process on the whole batch with the plain ops on the CPU,
+   two steps (SGD at the preset's rate, dropout 0) from the same weights:
+   the first step's loss within 1e-4, its averaged gradients within the
+   path's ``grad_limit`` units and its BatchNorm running means and biased
+   variances within 1e-4 relative; after the second, the parameters, the
+   running statistics and the loss within ``DP_LIMITS`` of the reference's
+   own motion from the initial weights (and from step 1's loss); the ranks
+   bit-equal, each rank's launches exactly two cls train steps'; (b) ``cli.train --init xavier`` three steps under a one-rank
+   NCCL group joined from torchrun's environment, its launches exactly the
+   steps' and its eval's, its first step's launches replayed as in phase 3
+   (tagged ``ddp``); (c) a reference-layout ``best_model.pth``
+   (``reference_checkpoint``) through ``cli.train --import_torch`` (lr 0:
+   the parameters stay the imported ones, bit for bit) and ``cli.eval
+   --import_torch``, the imported model's served log-probs on the card
+   against the CPU's within ``CLOUD_LIMITS`` and against the CPU in float64
+   within ``IMPORT_F64_LIMIT``; (d) one train step each of cls
+   (its encoder's ``fps_random_start`` set), part-seg and part-seg in ``window_all`` with keyed
+   FPS starts drawn on the card, every ``fps_kernel`` launch replayed with
+   its starts (tagged ``keyed_*``);
 4. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -344,6 +366,9 @@ REPSURF_LIMITS = {"max_abs": 1e-3}
 # The served rotations and completed clouds against the CPU's: cls's limit on
 # the largest difference of an entry.
 CLOUD_LIMITS = {"max_abs": 1e-3}
+# Phase 7c: the imported model's served log-probs on the card against the
+# CPU in float64 (read 7.549e-07, where the CPU in float32 reads 5.039e-04).
+IMPORT_F64_LIMIT = 1e-5
 # Gradients that are zero up to rounding in these models: the k projections'
 # biases (a shift of k cancels in the attention's normalisation), the q
 # projections (no part in the output), and the biases of the Dense layers
@@ -1412,7 +1437,8 @@ def s3dis_phase(tag: str, work: Path) -> dict:
     want = {k: RECIPE_STEPS * S3DIS_PATH["per_train_step"].get(k, 0)
             + batches * S3DIS_PATH["per_forward"].get(k, 0) for k in kernels.KERNELS}
     log(f"[{tag}] cli.train: {out['steps']} steps at B={cfg.batch_size} x {cfg.num_points} "
-        f"pts, losses {out['losses']}, step ms {out['step_ms']}; eval block-mIoU "
+        f"pts, losses {out['losses']}, epoch seconds {out['epoch_seconds']}, clouds/s "
+        f"{out['clouds_per_s']}; eval block-mIoU "
         f"{out['block_miou']:.4f}, point acc {out['point_acc']:.4f} over {n_test} blocks; "
         f"launches {train_launches}")
     check_launches(f"{tag} train", train_launches, want, 1, "run")
@@ -1491,7 +1517,8 @@ def s3dis_phase(tag: str, work: Path) -> dict:
         raise AssertionError(f"[{tag}] recorded {len(step_recorded)} and {len(batch_recorded)} "
                              f"launches, want {step_recorded.n} and {batch_recorded.n}")
     rows = replay("s3dis", {"recorded": list(batch_recorded)}, {"recorded": list(step_recorded)})
-    return {"train": train_launches, "scene": scene_launches, "step_ms": out["step_ms"],
+    return {"train": train_launches, "scene": scene_launches,
+            "epoch_seconds": out["epoch_seconds"], "clouds_per_s": out["clouds_per_s"],
             "scene_s": scene_s, "scene_host_s": host_s, "scene_points": n_points,
             "label_agreement": agree, "rows": rows}
 
@@ -1689,7 +1716,8 @@ def recipe_phase(path: str, tag: str, work: Path) -> dict:
     want = {k: RECIPE_STEPS * spec["per_train_step"].get(k, 0)
             + votes * batches * spec["per_forward"].get(k, 0) for k in kernels.KERNELS}
     log(f"[{tag}] cli.train ({'native' if native_available() else 'numpy'} text parser): "
-        f"{out['steps']} steps, losses {out['losses']}, step ms {out['step_ms']}, "
+        f"{out['steps']} steps, losses {out['losses']}, epoch seconds {out['epoch_seconds']}, "
+        f"clouds/s {out['clouds_per_s']}, "
         f"augmented mean |d| of the first batch {out['aug_delta']}; launches {train_launches}")
     check_launches(f"{tag} train", train_launches, want, 1, "run")
     if out["steps"] != RECIPE_STEPS or not np.isfinite(out["losses"]).all():
@@ -1770,14 +1798,15 @@ def recipe_phase(path: str, tag: str, work: Path) -> dict:
 
     clouds_s = RECIPE_VOTES * res["clouds"] / statistics.median(res["pass_seconds"])
     log(f"[{tag}] eval {clouds_s:.1f} clouds/s ({RECIPE_VOTES} votes x {res['clouds']} clouds "
-        f"over the median of the pass seconds {res['pass_seconds']}); train step ms "
-        f"{out['step_ms']}")
+        f"over the median of the pass seconds {res['pass_seconds']}); train epoch seconds "
+        f"{out['epoch_seconds']}, clouds/s {out['clouds_per_s']}")
     return {"train": train_launches, "eval": launches, "clouds_s": clouds_s,
-            "step_ms": out["step_ms"]}
+            "epoch_seconds": out["epoch_seconds"], "clouds_per_s": out["clouds_per_s"]}
 
 
-# One-line faults for ``--planted-faults``: (path whose --parity readings
-# the copy gives, file, text, replacement); "none" gives every path's.
+# Faults for ``--planted-faults``, a line or two each: (path whose --parity
+# readings the copy gives, file, text, replacement); "none" gives every
+# path's.
 PLANTED_FAULTS = {
     "none": None,
     "first claimant of every slot dropped": (
@@ -1828,6 +1857,21 @@ PLANTED_FAULTS = {
         "partseg", "mpa_tpu_torch/kernels/csrc/gather.cu",
         "if (i < total) o[i] = v[k];",
         "if (i < total && (i / wv + 1) % E != 0) o[i] = v[k];"),
+    "data parallel: gradients summed over the ranks, not averaged": (
+        "dp", "mpa_tpu_torch/parallel/mesh.py",
+        "    flat /= size\n",
+        "    flat /= 1\n"),
+    "data parallel: step 2's gradients halved": (
+        "dp", "mpa_tpu_torch/parallel/mesh.py",
+        "    flat /= size\n",
+        "    average_gradients.calls = getattr(average_gradients, 'calls', 0) + 1\n"
+        "    flat /= size * average_gradients.calls\n"),
+    "data parallel: step 2's all-reduce missed": (
+        "dp", "mpa_tpu_torch/parallel/mesh.py",
+        "    dist.all_reduce(flat, group=group)\n",
+        "    average_gradients.calls = getattr(average_gradients, 'calls', 0) + 1\n"
+        "    if average_gradients.calls == 1:\n"
+        "        dist.all_reduce(flat, group=group)\n"),
 }
 
 
@@ -1891,9 +1935,14 @@ def parity_readings(path: str) -> dict:
     ``semseg``, ``repsurf``, ``partseg_fp``, ``pose`` or ``completion``),
     replays of its newest kernels (for the last three: every launch of the
     served request) and of the card step's scatter-adds, each check's
-    failure caught and reported."""
+    failure caught and reported; for ``dp``, phase 7a's readings
+    (``dp_readings``) and the names of the limits they exceed."""
     from mpa_tpu_torch import kernels
 
+    if path == "dp":
+        with tempfile.TemporaryDirectory() as tmp:
+            readings, failures, _ = dp_readings(Path(tmp))
+        return {**readings, "failures": failures}
     out = {}
     seg, limits = {"partseg": (segmenter_parity, SEG_LIMITS),
                    "semseg": (semseg_parity, SEMSEG_LIMITS),
@@ -1949,9 +1998,9 @@ def planted_faults(only: str = "all") -> None:
     that one line changed runs ``chip_smoke.py --parity`` for the fault's
     path (the copy without a fault for each such path); prints each copy's
     readings. The limits of ``SEG_LIMITS``, ``SEMSEG_LIMITS``,
-    ``REPSURF_LIMITS`` and ``grad_limit`` lie between a correct copy's
-    readings and the faulty ones'."""
-    parity_paths = ["partseg", "semseg", "repsurf"]
+    ``REPSURF_LIMITS``, ``grad_limit`` and ``DP_LIMITS`` lie between a
+    correct copy's readings and the faulty ones'."""
+    parity_paths = ["partseg", "semseg", "repsurf", "dp"]
     if only != "all":
         parity_paths = [only]
     with tempfile.TemporaryDirectory() as tmp:
@@ -1959,8 +2008,10 @@ def planted_faults(only: str = "all") -> None:
             if fault is not None and fault[0] not in parity_paths:
                 continue
             root = Path(tmp) / re.sub(r"\W+", "_", name)
+            # the built library too: a fault in a kernel source changes the
+            # sources' hash, and the copy builds its own
             shutil.copytree(REPO / "mpa_tpu_torch", root / "mpa_tpu_torch",
-                            ignore=shutil.ignore_patterns("_build", "__pycache__"))
+                            ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy(REPO / "chip_smoke.py", root / "chip_smoke.py")
             paths = parity_paths
             if fault is not None:
@@ -1978,13 +2029,417 @@ def planted_faults(only: str = "all") -> None:
                     f"{last or proc.stderr[-400:]}")
 
 
+# Phase 7: data parallelism and the trainer's surface on the card. Two ranks
+# share the one card (NCCL refuses two ranks on one device, so they meet
+# over gloo), each with half of the cls batch; one process takes the whole.
+# Both take SGD at the preset's rate: Adam's first step is lr times the
+# sign of each gradient entry, so the entries whose gradient is zero up to
+# rounding (3% of them after two steps at B = 8 on the CPU) would move by
+# +-lr on one side only, which says nothing about the data parallelism.
+DP_RANKS, DP_STEPS = 2, 2
+
+
+def dp_config():
+    return path_config("cls").with_overrides(optimizer="sgd")
+
+
+def reference_checkpoint(task: str, model: torch.nn.Module, seed: int = SEED) -> dict:
+    """A state dict in the reference's layout for ``model`` (``'cls'``: a
+    port ``MarkovClassifier``, ``'partseg'``: a ``MarkovPartSeg``): every key
+    of ``torch_import.reference_keys`` at the port tensor's shape, drawn
+    from ``default_rng(seed)`` (Linear weights at ``1/sqrt(fan_in)``, running
+    variances in ``[0.5, 1.5)``), and the keys a reference checkpoint holds
+    that the model does not read: the LayerNorm ``norm1`` beside each
+    BatchNorm ``norm2``, the BatchNorm counters and a ``normal_Trans`` in
+    each LocalMerge."""
+    from mpa_tpu_torch.utils.torch_import import reference_keys
+
+    rng = np.random.default_rng(seed)
+    own = model.state_dict()
+    sd = {}
+    for key, ref in reference_keys(task, model).items():
+        shape = tuple(own[key].shape)
+        if ref.endswith("running_var"):
+            value = rng.uniform(0.5, 1.5, shape)
+            sd[ref[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(7)
+        elif ref.endswith("weight") and len(shape) == 2:
+            value = rng.standard_normal(shape) / np.sqrt(shape[1])
+        elif ref.endswith("weight"):
+            value = rng.uniform(0.5, 1.5, shape)
+        else:
+            value = 0.1 * rng.standard_normal(shape)
+        sd[ref] = torch.from_numpy(value.astype(np.float32))
+        if ".norm2." in ref and ref.endswith(".weight"):
+            site = ref[:-len("norm2.weight")]
+            sd[site + "norm1.weight"] = torch.ones(shape)
+            sd[site + "norm1.bias"] = torch.zeros(shape)
+        if ".xyz_Trans.k.weight" in ref:
+            merge = ref[:ref.index("xyz_Trans.")]
+            sd[merge + "normal_Trans.k.weight"] = torch.zeros(4, 3)
+    return sd
+
+
+def dp_steps(weights: str, rank: int, ranks: int, device: torch.device) -> dict:
+    """``DP_STEPS`` steps of the cls path (``scanobjectnn_cls`` with SGD,
+    ``dp_config``, dropout 0) from ``weights`` on ``device``, over the first
+    global batches of its training set: this rank's rows through the
+    data-parallel step when ``ranks > 1`` (a group is joined), the whole
+    batch through the plain step otherwise. Returns each step's loss,
+    (averaged) gradients and the state after it, and the kernel launches."""
+    from mpa_tpu_torch import kernels, parallel
+    from mpa_tpu_torch.cli import train as cli_train
+    from mpa_tpu_torch.data.pipeline import host_shard
+    from mpa_tpu_torch.train import TRAIN_STEPS, create_train_state
+
+    spec, cfg = PATHS["cls"], dp_config()
+    B = spec["batch"]
+    model = fresh_model("cls", dropout=0.0)
+    model.load_state_dict(torch.load(weights, weights_only=True))
+    state = create_train_state(model, cfg, device)
+    arrays = train_arrays("cls", cfg)
+    if ranks > 1:
+        parallel.replicate(parallel.sync_batchnorm(state.model))
+        step = parallel.make_data_parallel_train_step(cfg, len(arrays[0]) // B)
+    else:
+        step = TRAIN_STEPS[cfg.task](cfg, len(arrays[0]) // B)
+    kernels.reset_launch_counts()
+    losses, grads, states = [], [], []
+    for i in range(DP_STEPS):
+        batch = host_shard(tuple(a[i * B:(i + 1) * B] for a in arrays), B, rank, ranks)
+        losses.append(float(step(state, *cli_train.make_inputs(cfg, batch, device))))
+        # copies: on the CPU, .cpu() would hand back the live tensors
+        grads.append({n: p.grad.detach().to("cpu", copy=True)
+                      for n, p in state.model.named_parameters()})
+        states.append({k: v.detach().to("cpu", copy=True)
+                       for k, v in state.model.state_dict().items()})
+    return {"losses": losses, "grads": grads, "states": states,
+            "launches": dict(kernels.LAUNCHES)}
+
+
+def dp_rank_main(rank: int, init_file: str, weights: str, out: str) -> None:
+    """One rank of phase 7a, in a spawned process on ``cuda:0``."""
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+
+    from mpa_tpu_torch import parallel
+
+    parallel.init("gloo", device=torch.device("cuda", 0), init_method=f"file://{init_file}",
+                  rank=rank, world_size=DP_RANKS, timeout_s=300)
+    try:
+        torch.save(dp_steps(weights, rank, DP_RANKS, torch.device("cuda", 0)), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+# Phase 7a's limits. Step 1: the loss (absolute), the averaged gradients in
+# ``grad_limit`` units, the running statistics (relative, as
+# ``train_parity``'s). After the last step, each measured against the
+# reference's own motion, so that the limit scales with the update: the
+# parameters' largest distance from the reference over the reference's
+# largest move from the initial weights (``param_rel``), the same in L2 over
+# all parameters (``param_rel_l2``: a near-tie flip moves a few entries, a
+# fault in the update all of them), the running statistics' largest
+# distance over their largest move, and the loss's distance over the
+# reference loss's move from step 1. PERF.md §6 has the sound and the
+# planted-fault readings beside them.
+DP_LIMITS = {"loss1_abs": 1e-4, "stat1_rel": 1e-4, "param_rel": 0.18, "param_rel_l2": 0.18,
+             "stat_rel": 0.01, "loss_rel": 0.1}
+
+
+def _largest_move(a: dict, b: dict, names) -> tuple:
+    """``(name, max |a[n] - b[n]|)`` of the name where it is largest."""
+    return max(((n, float((a[n] - b[n]).abs().max())) for n in names), key=lambda kv: kv[1])
+
+
+def dp_readings(work: Path) -> tuple:
+    """Phase 7a's run and readings: two gloo ranks on the one card, B = 32
+    each, against one process on the whole batch of 64 x 1024 with the plain
+    ops on the CPU, the reference ``train_parity`` holds the card to.
+    Returns ``(readings, failures, launches of each rank)``: every reading
+    is taken before any is held, so a planted fault's are all printed."""
+    import multiprocessing
+
+    weights = str(work / "dp_init.pt")
+    init = fresh_model("cls", dropout=0.0).state_dict()
+    torch.save(init, weights)
+    ctx = multiprocessing.get_context("spawn")
+    outs = [str(work / f"dp_rank{r}.pt") for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=dp_rank_main, args=(r, str(work / "dp_rendezvous"), weights,
+                                                     outs[r])) for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(timeout=30)
+    if hung or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"[7a dp] ranks exited {[p.exitcode for p in procs]}"
+                             f"{' (hung)' if hung else ''}")
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(o, weights_only=False) for o in outs]
+    t0 = time.perf_counter()
+    want = dp_steps(weights, 0, 1, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    first, last = got[0]["states"][0], got[0]["states"][-1]
+    want_first, want_last = want["states"][0], want["states"][-1]
+    params = [n for n, _ in fresh_model("cls").named_parameters()]
+    running = [n for n in want_last if "running" in n]
+    units = grad_error_units(got[0]["grads"][0], want["grads"][0])[0]
+    stats = {n: float((first[n] - want_first[n]).norm()
+                      / (want_first[n].norm() + 1e-3 * want_first[n].numel() ** 0.5))
+             for n in running}
+    stat1 = max(stats.items(), key=lambda kv: kv[1])
+    param_off, param_move = _largest_move(last, want_last, params), _largest_move(
+        want_last, init, params)
+    param_l2 = (sum(float((last[n] - want_last[n]).double().square().sum()) for n in params)
+                / sum(float((want_last[n] - init[n]).double().square().sum()) for n in params)
+                ) ** 0.5
+    stat_off, stat_move = _largest_move(last, want_last, running), _largest_move(
+        want_last, init, running)
+    loss_off = abs(got[0]["losses"][-1] - want["losses"][-1])
+    loss_move = abs(want["losses"][-1] - want["losses"][0])
+    ranks_apart = max(float((a[n] - b[n]).abs().max())
+                      for a, b in zip(got[0]["states"], got[1]["states"]) for n in a)
+    r = {"losses": got[0]["losses"], "want_losses": want["losses"],
+         "loss1_abs": abs(got[0]["losses"][0] - want["losses"][0]),
+         "grad_units": units, "stat1_rel": stat1,
+         "param_off": param_off, "param_move": param_move,
+         "param_rel": param_off[1] / param_move[1], "param_rel_l2": param_l2,
+         "stat_off": stat_off, "stat_move": stat_move, "stat_rel": stat_off[1] / stat_move[1],
+         "loss_off": loss_off, "loss_move": loss_move, "loss_rel": loss_off / loss_move,
+         "ranks_apart": ranks_apart, "ranks_s": ranks_s, "cpu_s": cpu_s}
+    failures = [k for k in ("loss1_abs", "param_rel", "param_rel_l2", "stat_rel", "loss_rel")
+                if r[k] > DP_LIMITS[k]]
+    if units[1] > PATHS["cls"]["grad_limit"]:
+        failures.append("grad_units")
+    if stat1[1] > DP_LIMITS["stat1_rel"]:
+        failures.append("stat1_rel")
+    if ranks_apart != 0.0:
+        failures.append("ranks_apart")
+    return r, failures, [res["launches"] for res in got]
+
+
+def dp_phase(tag: str, work: Path) -> dict:
+    """7a (``dp_readings``), held: step 1's loss, averaged gradients and
+    running statistics (means and biased variances) against the one
+    process's; after step ``DP_STEPS`` the parameters, the running
+    statistics and the loss, each within ``DP_LIMITS`` of the reference's
+    own motion (in float32 the first step's rounding flips near-tie
+    selections, feature kNN and max over K, in the second, CPU against CPU
+    too, so step 2 reads as far off as its rounding takes it; in float64
+    two ranks and one process agree within 1e-15,
+    ``tests/test_torch_port_parallel.py``). The ranks hold bit-equal
+    states, and each rank's launches are exactly ``DP_STEPS`` cls train
+    steps'."""
+    spec = PATHS["cls"]
+    r, failures, launches = dp_readings(work)
+    log(f"[{tag}] {DP_RANKS} gloo ranks on cuda:0, B={spec['batch']} x {spec['points']} "
+        f"split in halves, {DP_STEPS} SGD steps ({r['ranks_s']:.1f} s with the processes' "
+        f"start), against one process on the CPU ({r['cpu_s']:.1f} s): losses {r['losses']} "
+        f"vs {r['want_losses']}; step 1: loss |d| {r['loss1_abs']:.3e} (limit "
+        f"{DP_LIMITS['loss1_abs']}), gradient units {r['grad_units'][0]} "
+        f"{r['grad_units'][1]:.3f} (limit {spec['grad_limit']}), worst statistic "
+        f"{r['stat1_rel'][0]} rel {r['stat1_rel'][1]:.3e} (limit {DP_LIMITS['stat1_rel']}); "
+        f"after step {DP_STEPS}: parameters {r['param_off'][0]} {r['param_off'][1]:.3e} off "
+        f"over a move of {r['param_move'][1]:.3e} ({r['param_move'][0]}) = "
+        f"{r['param_rel']:.4f} (limit {DP_LIMITS['param_rel']}), in L2 {r['param_rel_l2']:.4f} "
+        f"(limit {DP_LIMITS['param_rel_l2']}), statistics "
+        f"{r['stat_off'][0]} {r['stat_off'][1]:.3e} over {r['stat_move'][1]:.3e} "
+        f"({r['stat_move'][0]}) = {r['stat_rel']:.4f} (limit {DP_LIMITS['stat_rel']}), loss "
+        f"{r['loss_off']:.3e} over {r['loss_move']:.3e} = {r['loss_rel']:.4f} (limit "
+        f"{DP_LIMITS['loss_rel']}); ranks apart {r['ranks_apart']:.3e}; launches a rank "
+        f"{launches[0]}")
+    for rank, counts in enumerate(launches):
+        check_launches(f"{tag} rank {rank}", counts, spec["per_train_step"], DP_STEPS,
+                       "train step")
+    if failures:
+        raise AssertionError(f"[{tag}] two ranks differ from one process: {failures}")
+    return {f"dp_rank{rank}_train": counts for rank, counts in enumerate(launches)}
+
+
+def ddp_cli_phase(tag: str, work: Path) -> tuple:
+    """7b: ``cli.train --init xavier`` three steps under a one-rank NCCL
+    group that it joins from torchrun's environment (set here, taken away
+    after), its launches exactly three steps' and its eval's, the first
+    step's replayed (tag ``ddp``)."""
+    import os
+
+    import torch.distributed as dist
+
+    from mpa_tpu_torch import kernels
+    from mpa_tpu_torch.cli import train as cli_train
+
+    spec = PATHS["cls"]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    kernels.reset_launch_counts()
+    kernels.recorded = FirstLaunches(sum(spec["per_train_step"].values()))
+    try:
+        _, out = cli_train.run(cli_train.parse_args(
+            ["--preset", spec["preset"], "--device", "cuda", "--max_steps", "3", "--seed",
+             str(SEED), "--init", "xavier", "--eval_clouds", str(spec["batch"]),
+             "--log_dir", str(work / "ddp_runs")]))
+        torch.cuda.synchronize()
+    finally:
+        recorded, kernels.recorded = kernels.recorded, None
+        for k in env:
+            os.environ.pop(k, None)
+    launches = dict(kernels.LAUNCHES)
+    if dist.is_initialized():
+        raise AssertionError(f"[{tag}] cli.train left its process group behind")
+    want = {k: 3 * spec["per_train_step"].get(k, 0) + 3 * spec["per_forward"].get(k, 0)
+            for k in kernels.KERNELS}  # three steps, one eval batch of three votes
+    log(f"[{tag}] cli.train under a 1-rank NCCL group, --init xavier: {out['steps']} steps, "
+        f"losses {out['losses']}, epoch seconds {out['epoch_seconds']}, clouds/s "
+        f"{out['clouds_per_s']}; launches {launches}")
+    check_launches(f"{tag} train", launches, want, 1, "run")
+    if out["steps"] != 3 or not np.isfinite(out["losses"]).all() or "instance_acc" not in out:
+        raise AssertionError(f"[{tag}] cli.train: {out}")
+    if not (work / "ddp_runs" / f"{spec['preset']}_synthetic" / "train_metrics.jsonl").exists():
+        raise AssertionError(f"[{tag}] no train_metrics.jsonl")
+    rows = [replay_call("ddp", name, inp) for name, inp in recorded]
+    return launches, rows
+
+
+def import_phase(tag: str, work: Path) -> dict:
+    """7c: a reference-layout ``best_model.pth`` (``reference_checkpoint``)
+    at the cls path's full width through ``cli.train --import_torch`` (lr 0,
+    so the trained parameters stay the imported ones: bit-equal) and
+    ``cli.eval --import_torch``; the imported model's served log-probs on
+    the card against the CPU's within ``CLOUD_LIMITS`` and against the CPU
+    in float64 within ``IMPORT_F64_LIMIT`` (the float32 CPU's distance from
+    float64 is read beside it), and the log-probs' scale."""
+    from mpa_tpu_torch import kernels
+    from mpa_tpu_torch.cli import eval as cli_eval
+    from mpa_tpu_torch.cli import train as cli_train
+    from mpa_tpu_torch.train import make_eval_step
+    from mpa_tpu_torch.utils.torch_import import import_reference_checkpoint
+
+    spec, cfg = PATHS["cls"], path_config("cls")
+    pth = work / "best_model.pth"
+    torch.save({"epoch": 7, "model_state_dict": reference_checkpoint("cls", fresh_model("cls"))},
+               pth)
+    kernels.reset_launch_counts()
+    state, out = cli_train.run(cli_train.parse_args(
+        ["--preset", spec["preset"], "--device", "cuda", "--max_steps", "2", "--seed",
+         str(SEED), "--import_torch", str(pth), "--learning_rate", "0", "--eval_clouds",
+         str(spec["batch"]), "--log_dir", str(work / "import_runs")]))
+    launches = dict(kernels.LAUNCHES)
+    imported = fresh_model("cls")
+    import_reference_checkpoint(str(pth), "cls", imported)
+    trained = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    same = all(torch.equal(trained[n], p) for n, p in imported.named_parameters())
+    res = cli_eval.main(["--preset", spec["preset"], "--device", "cuda", "--import_torch",
+                         str(pth), "--num_votes", "1", "--batch_size", str(spec["batch"]),
+                         "--log_dir", str(work / "import_runs")])
+    x = torch.from_numpy(train_arrays("cls", cfg)[0][:spec["parity_batch"]])
+    eval_step = make_eval_step()
+    outs = {}
+    for name, device, dtype in (("cuda", torch.device("cuda"), torch.float32),
+                                ("cpu", torch.device("cpu"), torch.float32),
+                                ("cpu64", torch.device("cpu"), torch.float64)):
+        st = cli_eval.eval_state(cfg, device)
+        import_reference_checkpoint(str(pth), "cls", st.model)
+        st.model.to(dtype)
+        outs[name] = eval_step(st, x.to(device, dtype)).cpu().double()
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    err64 = {k: (outs[k] - outs["cpu64"]).abs().max().item() for k in ("cuda", "cpu")}
+    scale = outs["cpu64"].abs().max().item()
+    log(f"[{tag}] cli.train --import_torch (lr 0, {out['steps']} steps): parameters "
+        f"{'bit-equal to' if same else 'differ from'} the imported ones; cli.eval "
+        f"--import_torch vote-acc {res['vote_acc']:.4f} over {res['clouds']} clouds; served "
+        f"card vs cpu at B={spec['parity_batch']}: max |dlogp| {err:.3e} (limit "
+        f"{CLOUD_LIMITS['max_abs']}); against the CPU in float64: card {err64['cuda']:.3e} "
+        f"(limit {IMPORT_F64_LIMIT}), cpu float32 {err64['cpu']:.3e}; log-prob scale max "
+        f"|logp| {scale:.3e}, so card vs cpu {err / scale:.3e} of it")
+    if (not same or err > CLOUD_LIMITS["max_abs"] or err64["cuda"] > IMPORT_F64_LIMIT
+            or not np.isfinite(out["losses"]).all()):
+        raise AssertionError(f"[{tag}] the imported weights did not carry through")
+    return launches
+
+
+def keyed_phase(tag: str) -> tuple:
+    """7d: one train step each of cls (its encoder's ``fps_random_start``
+    set) and part-seg, exact and in ``window_all``, with keyed FPS starts
+    drawn on the card from ``TrainState.fps_generator``; every ``fps_kernel`` launch replayed
+    against ``fps_plain`` with its starts (``[B]``, the banded ones folded
+    to ``[B * n_bands]``), the cls and exact part-seg steps' launches exactly
+    ``per_train_step``'s."""
+    from mpa_tpu_torch import kernels
+    from mpa_tpu_torch.cli import train as cli_train
+    from mpa_tpu_torch.train import create_train_state
+
+    cuda, rows, counts = torch.device("cuda"), [], {}
+    cases = {"cls": ("cls", {}), "partseg": ("partseg", {}),
+             "partseg_window_all": ("partseg", dict(neighbor_mode="window_all"))}
+    for case, (path, over) in cases.items():
+        spec = PATHS[path]
+        cfg = path_config(path).with_overrides(**over)
+        arrays = train_arrays(path, cfg)
+        model = fresh_model(path, cfg)
+        if path == "cls":
+            model.keep_high.fps_random_start = True
+        state = create_train_state(model, cfg, cuda)
+        state.fps_generator = torch.Generator(device=cuda).manual_seed(SEED)
+        step = make_step(path, len(arrays[0]) // spec["batch"])
+        inputs, labels = cli_train.make_inputs(
+            cfg, tuple(a[:spec["batch"]] for a in arrays), cuda)
+        kernels.reset_launch_counts()
+        kernels.recorded = []
+        try:
+            loss = float(step(state, inputs, labels))
+        finally:
+            recorded, kernels.recorded = kernels.recorded, None
+        counts[f"keyed_{case}"] = dict(kernels.LAUNCHES)
+        if case != "partseg_window_all":
+            check_launches(f"{tag} {case}", counts[f"keyed_{case}"], spec["per_train_step"], 1,
+                           "train step")
+        fps = [inp for name, inp in recorded if name == "fps_kernel"]
+        starts = [inp["start"] for inp in fps]
+        if len(fps) != spec["per_forward"]["fps_kernel"] or not all(
+                torch.is_tensor(s) and s.device.type == "cuda" for s in starts):
+            raise AssertionError(f"[{tag}] {case}: FPS launches without keyed starts")
+        if not any(int(s.max()) > 0 for s in starts):
+            raise AssertionError(f"[{tag}] {case}: every start is 0")
+        log(f"[{tag}] {case} step with keyed starts: loss {loss:.4f}, start shapes "
+            f"{[tuple(s.shape) for s in starts]}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"[{tag}] {case}: loss {loss}")
+        rows += [replay_call(f"keyed_{case}", "fps_kernel", inp) for inp in fps]
+        del state
+    return counts, rows
+
+
+def phase7(work: Path) -> tuple:
+    """Phase 7 (module doc): the launch counts of each run, the replays."""
+    counts = dp_phase("7a dp", work)
+    counts["ddp_cli"], rows = ddp_cli_phase("7b ddp", work)
+    counts["import_cli"] = import_phase("7c import", work)
+    keyed_counts, keyed_rows = keyed_phase("7d keyed")
+    counts.update(keyed_counts)
+    return counts, rows + keyed_rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parity", nargs="?", const="partseg",
-                    choices=["partseg", "semseg", "repsurf", "partseg_fp", "pose", "completion"],
+                    choices=["partseg", "semseg", "repsurf", "partseg_fp", "pose", "completion",
+                             "dp"],
                     help="only that path's card-against-CPU readings, as JSON")
     ap.add_argument("--planted-faults", nargs="?", const="all",
-                    choices=["all", "partseg", "semseg", "repsurf"],
+                    choices=["all", "partseg", "semseg", "repsurf", "dp"],
                     help="the --parity readings of copies with one fault planted in each "
                          "(of that path's faults only, if given)")
     args = ap.parse_args()
@@ -2002,6 +2457,7 @@ def main() -> int:
 
     if args.planted_faults:
         log(f"[planted] {card_line()}")
+        build.build()  # once, for every copy whose kernel sources are the checkout's
         planted_faults(args.planted_faults)
         return 0
     if args.parity:
@@ -2081,12 +2537,19 @@ def main() -> int:
     rows += scene.pop("rows")
     torch.cuda.empty_cache()
 
+    # -- 7: data parallelism, the trainer's flags, reference weights, keyed FPS ---
+    with tempfile.TemporaryDirectory() as work:
+        dp_counts, dp_rows = phase7(Path(work))
+    rows += dp_rows
+    torch.cuda.empty_cache()
+
     counts = {f"{path}_serve": served[path]["launches"] for path in PATHS}
     counts.update({f"{path}_train": trained[path]["launches"] for path in PATHS})
     counts.update({f"{path}_recipe_{run}": recipe[path][run] for path in RECIPE
                    for run in ("train", "eval")})
     counts.update({f"partseg_{mode}_serve": w["launches"] for mode, w in windowed.items()})
     counts.update({f"s3dis_{run}": scene[run] for run in ("train", "scene")})
+    counts.update(dp_counts)
     summary = [summarise(name, rows, counts) for name in kernels.KERNELS]
     log("[4 kernels] times are per request for the forward kernels and per train step for "
         "the backward kernels: the sum over its launches of each; top level: the kernel's "
@@ -2105,14 +2568,14 @@ def main() -> int:
         log(f"[4 partseg_{mode}] ({card}) request ms {lat}, median "
             f"{statistics.median(lat):.3f} ms, "
             f"{PATHS['partseg']['batch'] / statistics.median(lat) * 1e3:.1f} clouds/s")
-    log(f"[6 s3dis] ({card}) cli.train step ms {scene['step_ms']}, median "
-        f"{statistics.median(scene['step_ms']):.3f} ms; scene inference {scene['scene_s']:.3f} s "
+    log(f"[6 s3dis] ({card}) cli.train epoch seconds {scene['epoch_seconds']}, clouds/s "
+        f"{scene['clouds_per_s']}; scene inference {scene['scene_s']:.3f} s "
         f"for {scene['scene_points']} points ({scene['scene_host_s']:.3f} s of it host work); "
         f"card vs cpu label agreement "
         f"{scene['label_agreement']:.5f}")
     for path, r in recipe.items():
-        log(f"[5 {path}] recipe ({card}): eval {r['clouds_s']:.1f} clouds/s, train step ms "
-            f"{r['step_ms']}, median {statistics.median(r['step_ms']):.3f} ms")
+        log(f"[5 {path}] recipe ({card}): eval {r['clouds_s']:.1f} clouds/s, train "
+            f"epoch seconds {r['epoch_seconds']}, {r['clouds_per_s']} clouds/s")
     print(card, flush=True)  # the card, exactly as nvidia-smi reports it
     log(f"[4 total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": summary}), flush=True)

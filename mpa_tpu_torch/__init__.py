@@ -11,9 +11,11 @@ find:
 - task models                                                -> mpa_tpu_torch.models
 - inference entry points                                     -> mpa_tpu_torch.serve
 - losses, schedules, train / eval steps, metrics             -> mpa_tpu_torch.train
-- synthetic datasets                                         -> mpa_tpu_torch.data
-- presets                                                    -> mpa_tpu_torch.configs
-- training CLI                                               -> mpa_tpu_torch.cli.train
+- datasets, augmentations, the prefetching input pipeline    -> mpa_tpu_torch.data
+- data parallelism (process group, cross-replica BatchNorm)  -> mpa_tpu_torch.parallel
+- the training config, its flags, presets                    -> mpa_tpu_torch.configs
+- seeding and --init, logging, profiling, reference import   -> mpa_tpu_torch.utils
+- training and eval CLIs                                     -> mpa_tpu_torch.cli
 
 Conventions, as in ``mpa_tpu``: channel-last ``[B, N, C]`` tensors and int32
 indices at every public function. Entry points run on ``cuda`` unless the

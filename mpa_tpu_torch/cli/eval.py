@@ -25,10 +25,15 @@ per-part accuracy, in the reference's ``eval.txt`` lines (written to
 category-local argmax is compared with global labels, for replays of the
 published numbers only.
 
+Every field of ``TrainConfig`` is a flag over the preset, as in
+``cli.train`` (``configs.resolve_config``, then the task-default model).
 ``--checkpoint`` is a directory of ``cli.train``'s checkpoints; its weights
 and BatchNorm statistics go into an eval state whose optimizer is lr-0 SGD.
-Without it a fresh init from the preset's seed is evaluated, and the run
-says so. The eval runs on ``cuda`` unless ``--device cpu`` is given.
+``--import_torch`` reads a reference ``best_model.pth`` instead
+(``utils/torch_import.py``; weights only unless ``--trust_torch_pickle``).
+Without either a fresh init from the preset's seed is evaluated, and the run
+says so. The lines go to the console and to ``eval.log`` beside
+``eval.txt``. The eval runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -36,13 +41,21 @@ from __future__ import annotations
 import argparse
 import os
 import statistics
+import sys
 import time
 from typing import List, Optional, Sequence
 
 import torch
 
 from mpa_tpu_torch.cli.train import load_dataset, vote_pass
-from mpa_tpu_torch.configs import PRESETS, TrainConfig, model_kwargs
+from mpa_tpu_torch.configs import (
+    PRESETS,
+    TrainConfig,
+    add_config_flags,
+    model_kwargs,
+    resolve_config,
+    resolve_task_model,
+)
 from mpa_tpu_torch.data.shapenetpart import CATEGORIES, SEG_PARTS
 from mpa_tpu_torch.models import get_model
 from mpa_tpu_torch.train.checkpoint import BestCheckpointer
@@ -57,6 +70,8 @@ from mpa_tpu_torch.train.metrics import (
 )
 from mpa_tpu_torch.utils.device import resolve_device
 from mpa_tpu_torch.utils.init import init_like_flax
+from mpa_tpu_torch.utils.logging import ExperimentLogger, make_logger
+from mpa_tpu_torch.utils.torch_import import import_reference_checkpoint
 
 # Seeds of the vote scales: repeat r of the cls eval draws from
 # ``CLS_VOTE_SEED + r``, the part-seg eval from ``PARTSEG_VOTE_SEED``
@@ -65,24 +80,29 @@ CLS_VOTE_SEED, PARTSEG_VOTE_SEED = 1000, 7
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The flags of ``argv`` (default ``sys.argv[1:]``), with the resolved
+    ``TrainConfig`` as ``.config``."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--preset", default="scanobjectnn_cls", choices=sorted(PRESETS))
-    ap.add_argument("--dataset", default=None,
-                    choices=["synthetic", "scanobjectnn", "modelnet40", "shapenetpart"],
-                    help="default: the preset's (synthetic)")
-    ap.add_argument("--data_root", default=None, help="the real dataset's directory")
+    add_config_flags(ap, TrainConfig())
+    ap.add_argument("--preset", default="scanobjectnn_cls", choices=sorted(PRESETS),
+                    help="the config the flags given override")
     ap.add_argument("--checkpoint", default=None,
                     help="checkpoint directory of cli.train (default: a fresh init)")
+    ap.add_argument("--import_torch", default=None,
+                    help="a reference best_model.pth to evaluate (cls or part-seg model)")
+    ap.add_argument("--trust_torch_pickle", action="store_true",
+                    help="load --import_torch with full unpickling, which runs any code the "
+                         "file holds; default: the weights-only loader")
     ap.add_argument("--num_repeat", type=int, default=1,
                     help="cls: vote passes whose best is reported (50 for the published number)")
-    ap.add_argument("--num_votes", type=int, default=None, help="default: the preset's (3)")
-    ap.add_argument("--batch_size", type=int, default=None, help="default: the preset's")
     ap.add_argument("--replicate_argmax_quirk", action="store_true",
                     help="part-seg: the reference's category-local argmax compared with global "
                          "labels (tool/test_partseg.py:158); not a correct evaluation")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--log_dir", default=None, help="default: the preset's (runs)")
-    return ap.parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = ap.parse_args(argv)
+    args.config = resolve_task_model(resolve_config(ap, args, argv))
+    return args
 
 
 def eval_state(cfg: TrainConfig, device: torch.device) -> TrainState:
@@ -94,13 +114,16 @@ def eval_state(cfg: TrainConfig, device: torch.device) -> TrainState:
     return TrainState(model, make_optimizer("sgd", model.parameters(), 0.0))
 
 
-def _write_report(cfg: TrainConfig, preset: str, lines: List[str]) -> None:
-    out = os.path.join(cfg.log_dir, f"eval_{preset}_{cfg.dataset}")
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "eval.txt"), "w") as f:
+def eval_dir(cfg: TrainConfig, preset: str) -> str:
+    return os.path.join(cfg.log_dir, f"eval_{preset}_{cfg.dataset}")
+
+
+def _write_report(cfg: TrainConfig, preset: str, lines: List[str],
+                  log: ExperimentLogger) -> None:
+    with open(os.path.join(eval_dir(cfg, preset), "eval.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
     for line in lines:
-        print(line, flush=True)
+        log.info(line)
 
 
 def eval_cls(cfg: TrainConfig, state: TrainState, test_arrays, device: torch.device,
@@ -153,32 +176,36 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ``point_acc``, ``class_acc``), the wall seconds of each vote pass
     (``pass_seconds``) and the clouds evaluated."""
     args = parse_args(argv)
-    overrides = {k: getattr(args, k) for k in ("dataset", "data_root", "num_votes", "batch_size",
-                                               "log_dir") if getattr(args, k) is not None}
-    cfg = PRESETS[args.preset].with_overrides(**overrides)
+    cfg = args.config
     if cfg.task not in ("cls", "partseg"):
         raise ValueError(f"cli.eval has the cls and part-seg protocols, as mpa_tpu's has; "
                          f"{args.preset!r} is a {cfg.task!r} preset (its metric is cli.train's "
                          "eval)")
     device = resolve_device(args.device)
-    _, test_arrays = load_dataset(cfg)
-    state = eval_state(cfg, device)
-    if args.checkpoint:
-        restored = BestCheckpointer(args.checkpoint).restore(state, restore_optimizer=False)
-        if restored is None:
-            raise SystemExit(f"no checkpoint under {args.checkpoint}")
-        print(f"loaded {args.checkpoint} (step {state.step}, train-best metric "
-              f"{restored[1]:.4f})", flush=True)
-    else:
-        print("no --checkpoint given: evaluating a fresh init", flush=True)
-    if cfg.task == "cls":
-        out = eval_cls(cfg, state, test_arrays, device, args.num_repeat)
-    else:
-        out = eval_partseg(cfg, state, test_arrays, device, args.replicate_argmax_quirk)
-    _write_report(cfg, args.preset, out.pop("lines"))
-    out["clouds"] = len(test_arrays[0])
-    print(f"{cfg.num_votes} votes x {out['clouds']} clouds a pass; pass seconds "
-          f"{out['pass_seconds']}, median {statistics.median(out['pass_seconds']):.3f}", flush=True)
+    with make_logger(eval_dir(cfg, args.preset), "eval") as log:
+        _, test_arrays = load_dataset(cfg)
+        state = eval_state(cfg, device)
+        if args.import_torch:
+            report = import_reference_checkpoint(args.import_torch, cfg.task, state.model,
+                                                 allow_pickle=args.trust_torch_pickle)
+            log.info(f"imported torch checkpoint {args.import_torch} "
+                     f"({len(report['skipped_torch_keys'])} dead/aux keys skipped)")
+        elif args.checkpoint:
+            restored = BestCheckpointer(args.checkpoint).restore(state, restore_optimizer=False)
+            if restored is None:
+                raise SystemExit(f"no checkpoint under {args.checkpoint}")
+            log.info(f"loaded {args.checkpoint} (step {state.step}, train-best metric "
+                     f"{restored[1]:.4f})")
+        else:
+            log.info("no --checkpoint given: evaluating a fresh init")
+        if cfg.task == "cls":
+            out = eval_cls(cfg, state, test_arrays, device, args.num_repeat)
+        else:
+            out = eval_partseg(cfg, state, test_arrays, device, args.replicate_argmax_quirk)
+        _write_report(cfg, args.preset, out.pop("lines"), log)
+        out["clouds"] = len(test_arrays[0])
+        log.info(f"{cfg.num_votes} votes x {out['clouds']} clouds a pass; pass seconds "
+                 f"{out['pass_seconds']}, median {statistics.median(out['pass_seconds']):.3f}")
     return out
 
 

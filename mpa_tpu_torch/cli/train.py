@@ -15,9 +15,38 @@ Usage:
   python -m mpa_tpu_torch.cli.train --preset pose_modelnet40 --dataset modelnet40 --data_root R
   python -m mpa_tpu_torch.cli.train --preset completion --max_steps 5
   python -m mpa_tpu_torch.cli.train --device cpu --batch_size 4 --max_steps 2
+  python -m mpa_tpu_torch.cli.train --task partseg --scheduler cos --eta_min 1e-3 --init xavier
+  python -m mpa_tpu_torch.cli.train --preset shapenetpart --import_torch best_model.pth
+  torchrun --nproc_per_node 4 -m mpa_tpu_torch.cli.train --preset shapenetpart --batch_size 128
 
-Trains the preset's model with the preset's optimizer and schedule and logs
-each step's loss and clouds/s. Part segmentation scales (0.8-1.25) and
+Every field of ``TrainConfig`` is a flag (``configs.add_config_flags``): the
+preset (default ``scanobjectnn_cls``, whose values are ``TrainConfig``'s
+defaults) is the base and only the flags given override it, abbreviations
+included; a task other than cls with the cls model takes its task's model
+(``configs.resolve_task_model``). ``--init xavier|kaiming|zero`` re-draws the
+weights after the model is built (``utils/init.py``), then
+``--import_torch`` reads a reference ``best_model.pth`` into the cls or
+part-seg model (``utils/torch_import.py``; weights only unless
+``--trust_torch_pickle``).
+
+Trains the preset's model with the preset's optimizer and schedule. The
+batches come through ``data/pipeline.py::prefetch_to_device`` (a thread
+builds and pins the next host batches while the card runs a step), each
+step's loss stays on the device, and the losses are read once the epoch
+ends, with the epoch's seconds and clouds/s. Everything goes to the console
+and to ``{log_dir}/{preset}_{dataset}/train.log``, the epochs' and evals'
+numbers to ``train_metrics.jsonl`` there (``utils/logging.py``).
+
+Under torchrun (``WORLD_SIZE`` in the environment) the run is data-parallel
+(``mpa_tpu_torch/parallel``): one process a rank on ``cuda:LOCAL_RANK``
+(NCCL) or on the CPU (gloo); ``--batch_size`` is the global batch, every
+rank iterates the same shuffled batches and keeps its rows, BatchNorm
+reduces over the global batch and the gradients are averaged before the
+optimizer. The augmentation and pose's rotations are drawn for the global
+batch, so they equal a one-process run's; each rank draws its dropout masks
+from ``seed + rank``. Only rank 0 evaluates, logs and writes checkpoints.
+
+Part segmentation scales (0.8-1.25) and
 shifts (+-0.1) every training batch on the device; other tasks do so only
 with ``--aug_scale`` / ``--aug_shift``. Pose composes every training batch
 with a fresh z-rotation per cloud, applied to the cloud and its target
@@ -63,18 +92,29 @@ device. Runs on ``cuda`` unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
 import sys
 import time
-from typing import Iterator, Optional, Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from mpa_tpu_torch.configs import PRESETS, TrainConfig, model_kwargs
+from mpa_tpu_torch import parallel
+from mpa_tpu_torch.configs import (
+    PRESETS,
+    TrainConfig,
+    add_config_flags,
+    model_kwargs,
+    resolve_config,
+    resolve_task_model,
+)
 from mpa_tpu_torch.data import augment, s3dis
+from mpa_tpu_torch.data.pipeline import batch_iterator, host_shard, prefetch_to_device
 from mpa_tpu_torch.data.modelnet import load_modelnet
 from mpa_tpu_torch.data.scanobjectnn import load_scanobjectnn
 from mpa_tpu_torch.data.shapenetpart import (
@@ -102,7 +142,10 @@ from mpa_tpu_torch.train.metrics import (
 )
 from mpa_tpu_torch.train.votes import vote_predict
 from mpa_tpu_torch.utils.device import resolve_device
-from mpa_tpu_torch.utils.init import init_like_flax
+from mpa_tpu_torch.utils.init import apply_weight_init, init_like_flax
+from mpa_tpu_torch.utils.logging import ExperimentLogger, make_logger
+from mpa_tpu_torch.utils.profiling import count_params
+from mpa_tpu_torch.utils.torch_import import import_reference_checkpoint
 
 # (train clouds, eval clouds) of the synthetic dataset, per task; for
 # semantic segmentation, blocks (24 to a synthetic room).
@@ -123,8 +166,8 @@ CHECKPOINT_METRIC = {"cls": ("instance_acc", 1), "partseg": ("ins_miou", 1),
                      "completion": ("chamfer", -1)}
 # Random streams of a run, each seeded from (seed, stream, step) by
 # ``stream_generator`` (``mpa_tpu`` folds 2, 4 and 99 into its root key for
-# them).
-AUG_STREAM, POSE_STREAM, VOTE_STREAM = 2, 4, 99
+# the first three, and 2 again for --init's draws).
+AUG_STREAM, POSE_STREAM, VOTE_STREAM, INIT_STREAM = 2, 4, 99, 3
 
 
 def stream_generator(seed: int, stream: int, step: int, device: torch.device) -> torch.Generator:
@@ -132,20 +175,6 @@ def stream_generator(seed: int, stream: int, step: int, device: torch.device) ->
     step)`` alone."""
     state = np.random.SeedSequence([seed, stream, step]).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
-
-
-def batches(
-    arrays: Tuple[np.ndarray, ...], batch_size: int,
-    rng: Optional[np.random.Generator] = None, drop_last: bool = True,
-) -> Iterator[Tuple[np.ndarray, ...]]:
-    """``rng=None`` keeps the order (eval); ``drop_last=False`` keeps the
-    ragged tail batch."""
-    n = len(arrays[0])
-    order = rng.permutation(n) if rng is not None else np.arange(n)
-    stop = n - n % batch_size if drop_last else n
-    for i in range(0, stop, batch_size):
-        idx = order[i : i + batch_size]
-        yield tuple(a[idx] for a in arrays)
 
 
 def pose_arrays(points: np.ndarray, seed: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -204,7 +233,7 @@ def load_dataset(cfg: TrainConfig, n_train: Optional[int] = None, n_eval: Option
                          f"choose from {DATASETS[cfg.task]}")
     if cfg.task in ("pose", "completion"):
         if cfg.dataset == "synthetic":
-            n_train = n_train or DATASET_SIZES[cfg.task][0]
+            n_train = n_train or cfg.synthetic_train_clouds
             n_eval = n_eval or DATASET_SIZES[cfg.task][1]
             # Pose needs clouds in their class's frame: a target rotation on
             # top of an unknown base rotation could not be recovered.
@@ -252,15 +281,24 @@ def load_dataset(cfg: TrainConfig, n_train: Optional[int] = None, n_eval: Option
             tuple(a[:n_eval] for a in test) if n_eval else test)
 
 
-def make_inputs(cfg: TrainConfig, batch: Tuple[np.ndarray, ...], device: torch.device):
-    """One host batch -> ``(model inputs, labels)`` on ``device``."""
+def host_batch(cfg: TrainConfig, batch: Tuple[np.ndarray, ...]):
+    """One host batch as the model takes it, on the host: ``((points,
+    category one-hot), labels)`` for part segmentation, ``(inputs,
+    targets)`` otherwise."""
     if cfg.task == "partseg":
         pts, cats, segs = batch
-        onehot = to_categorical(cats, cfg.num_categories)
-        return ((torch.from_numpy(pts).to(device), torch.from_numpy(onehot).to(device)),
-                torch.from_numpy(segs).to(device))
-    pts, labels = batch
-    return torch.from_numpy(pts).to(device), torch.from_numpy(labels).to(device)
+        return (pts, to_categorical(cats, cfg.num_categories)), segs
+    return tuple(batch)
+
+
+def make_inputs(cfg: TrainConfig, batch: Tuple[np.ndarray, ...], device: torch.device):
+    """One host batch -> ``(model inputs, labels)`` on ``device``."""
+    inputs, labels = host_batch(cfg, batch)
+    if cfg.task == "partseg":
+        inputs = tuple(torch.from_numpy(a).to(device) for a in inputs)
+    else:
+        inputs = torch.from_numpy(inputs).to(device)
+    return inputs, torch.from_numpy(labels).to(device)
 
 
 def augmentation(cfg: TrainConfig) -> Tuple[bool, bool]:
@@ -271,16 +309,25 @@ def augmentation(cfg: TrainConfig) -> Tuple[bool, bool]:
     return cfg.aug_scale or partseg, cfg.aug_shift or partseg
 
 
-def pose_resample(cfg: TrainConfig, points: torch.Tensor, rotations: torch.Tensor, step: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _rows(shard: Tuple[int, int], batch: int) -> Tuple[int, slice]:
+    """``(global batch, this rank's rows of it)`` for ``shard = (rank,
+    ranks)`` and a rank's ``batch`` clouds."""
+    rank, ranks = shard
+    return ranks * batch, slice(rank * batch, (rank + 1) * batch)
+
+
+def pose_resample(cfg: TrainConfig, points: torch.Tensor, rotations: torch.Tensor, step: int,
+                  shard: Tuple[int, int] = (0, 1)) -> Tuple[torch.Tensor, torch.Tensor]:
     """The pose batch of step ``step`` (``mpa_tpu/cli/train.py:470-491``):
     a z-rotation per cloud, its angle uniform in ``[0, 2 pi)`` from
     ``stream_generator(cfg.seed, POSE_STREAM, step)``, applied to the points
     and composed with the target rotations, so that the model never sees one
-    cloud with one fixed target."""
+    cloud with one fixed target. With ``shard = (rank, ranks)`` the angles
+    are drawn for the global batch and the rank's rows are taken, so every
+    angle is a one-process run's."""
+    n, rows = _rows(shard, points.shape[0])
     generator = stream_generator(cfg.seed, POSE_STREAM, step, points.device)
-    theta = torch.rand((points.shape[0],), generator=generator, device=points.device) * (
-        2.0 * np.pi)
+    theta = torch.rand((n,), generator=generator, device=points.device)[rows] * (2.0 * np.pi)
     c, s = torch.cos(theta), torch.sin(theta)
     z, o = torch.zeros_like(c), torch.ones_like(c)
     r2 = torch.stack([c, -s, z, s, c, z, z, z, o], -1).reshape(-1, 3, 3)
@@ -288,21 +335,31 @@ def pose_resample(cfg: TrainConfig, points: torch.Tensor, rotations: torch.Tenso
             torch.einsum("bij,bjk->bik", r2, rotations))
 
 
-def augment_batch(cfg: TrainConfig, points: torch.Tensor, step: int) -> torch.Tensor:
+def augment_batch(cfg: TrainConfig, points: torch.Tensor, step: int,
+                  shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """The train augmentation of step ``step`` on the points' device
     (``mpa_tpu/cli/train.py:455-467``): a per-cloud scale in ``[0.8, 1.25)``,
     then a shift in ``[-0.1, 0.1)`` of every channel, as
     :func:`augmentation` says, drawn from ``stream_generator(cfg.seed,
-    AUG_STREAM, step)``."""
+    AUG_STREAM, step)``; with ``shard``, drawn for the global batch and
+    sliced to the rank's rows, as in :func:`pose_resample`."""
     scale, shift = augmentation(cfg)
     if not (scale or shift):
         return points
+    n, rows = _rows(shard, points.shape[0])
     generator = stream_generator(cfg.seed, AUG_STREAM, step, points.device)
     if scale:
-        points = augment.random_scale(points, generator)
+        points = augment.scale_points(points, augment.draw_scales(generator, n, points)[rows])
     if shift:
-        points = augment.random_shift(points, generator)
+        points = augment.shift_points(points, augment.draw_shifts(generator, n, points)[rows])
     return points
+
+
+def _say(log: Optional[ExperimentLogger], msg: str) -> None:
+    if log is None:
+        print(msg, flush=True)
+    else:
+        log.info(msg)
 
 
 def vote_pass(cfg: TrainConfig, state: TrainState, arrays, device: torch.device,
@@ -313,7 +370,7 @@ def vote_pass(cfg: TrainConfig, state: TrainState, arrays, device: torch.device,
     eval_step = make_eval_step()
     pools, singles = [], []
     with torch.inference_mode():
-        for batch in batches(arrays, cfg.batch_size, drop_last=False):
+        for batch in batch_iterator(arrays, cfg.batch_size, drop_last=False):
             inputs, _ = make_inputs(cfg, batch, device)
             if cfg.task == "partseg":
                 points, onehot = inputs
@@ -334,30 +391,31 @@ def batch_means(cfg: TrainConfig, state: TrainState, test_arrays, device: torch.
     eval_step = make_eval_step()
     values = []
     with torch.inference_mode():
-        for batch in batches(test_arrays, cfg.batch_size, drop_last=False):
+        for batch in batch_iterator(test_arrays, cfg.batch_size, drop_last=False):
             inputs, targets = make_inputs(cfg, batch, device)
             values.append(float(metric(eval_step(state, inputs), targets)))
     return float(np.mean(values))
 
 
-def evaluate(cfg: TrainConfig, state: TrainState, test_arrays, device: torch.device) -> dict:
+def evaluate(cfg: TrainConfig, state: TrainState, test_arrays, device: torch.device,
+             log: Optional[ExperimentLogger] = None) -> dict:
     """One eval over the eval clouds: ``instance_acc`` (of the
     ``cfg.num_votes``-vote pool), ``single_acc`` and ``class_acc`` for
     classification, ``ins_miou`` / ``class_miou`` of one pass for part
     segmentation, ``block_miou`` / ``point_acc`` of one pass for semantic
     segmentation, ``geodesic_error_deg`` for pose, ``chamfer`` (of the fine
     cloud) for completion. Every eval of a run draws the same vote
-    scales."""
+    scales. The result goes to ``log`` (the console without one)."""
     if cfg.task == "pose":
         err = batch_means(cfg, state, test_arrays, device, rotation_geodesic_loss) * 180.0 / np.pi
-        print(f"eval after {state.step} steps: mean geodesic error {err:.2f} deg over "
-              f"{len(test_arrays[0])} clouds", flush=True)
+        _say(log, f"eval after {state.step} steps: mean geodesic error {err:.2f} deg over "
+             f"{len(test_arrays[0])} clouds")
         return {"geodesic_error_deg": err}
     if cfg.task == "completion":
         cd = batch_means(cfg, state, test_arrays, device,
                          lambda out, full: chamfer_distance(out[1], full))
-        print(f"eval after {state.step} steps: chamfer {cd:.5f} over {len(test_arrays[0])} "
-              "clouds", flush=True)
+        _say(log, f"eval after {state.step} steps: chamfer {cd:.5f} over {len(test_arrays[0])} "
+             "clouds")
         return {"chamfer": cd}
     votes = cfg.num_votes if cfg.task == "cls" else 1
     pool, single = vote_pass(cfg, state, test_arrays, device, votes,
@@ -368,21 +426,21 @@ def evaluate(cfg: TrainConfig, state: TrainState, test_arrays, device: torch.dev
         acc = instance_accuracy(pred, target)
         single_acc = instance_accuracy(single.argmax(-1), target)
         cls_acc = class_average_accuracy(pred, target, cfg.num_classes)
-        print(f"eval after {state.step} steps ({votes} votes): vote-acc (instance acc) "
-              f"{acc:.4f}, single-acc {single_acc:.4f}, class-acc {cls_acc:.4f} over "
-              f"{len(target)} clouds", flush=True)
+        _say(log, f"eval after {state.step} steps ({votes} votes): vote-acc (instance acc) "
+             f"{acc:.4f}, single-acc {single_acc:.4f}, class-acc {cls_acc:.4f} over "
+             f"{len(target)} clouds")
         return {"instance_acc": acc, "single_acc": single_acc, "class_acc": cls_acc}
     if cfg.task == "semseg":
         miou, acc, _ = s3dis.semseg_iou(pool.argmax(-1).reshape(-1), target.reshape(-1),
                                         cfg.num_classes)
-        print(f"eval after {state.step} steps: block-mIoU {miou:.4f}, point acc {acc:.4f} "
-              f"over {len(target)} blocks", flush=True)
+        _say(log, f"eval after {state.step} steps: block-mIoU {miou:.4f}, point acc {acc:.4f} "
+             f"over {len(target)} blocks")
         return {"block_miou": miou, "point_acc": acc}
     cats = test_arrays[1]
     preds = list(category_masked_argmax(pool, cats, SEG_PARTS))
     ins, cls_m, _ = part_iou_metrics(preds, list(target), list(cats), SEG_PARTS)
-    print(f"eval after {state.step} steps: ins-mIoU {ins:.4f}, class-mIoU {cls_m:.4f} "
-          f"over {len(target)} clouds", flush=True)
+    _say(log, f"eval after {state.step} steps: ins-mIoU {ins:.4f}, class-mIoU {cls_m:.4f} "
+         f"over {len(target)} clouds")
     return {"ins_miou": ins, "class_miou": cls_m}
 
 
@@ -441,105 +499,168 @@ def dry_data_check(cfg: TrainConfig, n_train: Optional[int] = None,
     return 0 if report["ok"] else 1
 
 
-def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--preset", default="scanobjectnn_cls", choices=sorted(PRESETS))
-    ap.add_argument("--dataset", default=None,
-                    choices=["synthetic", "scanobjectnn", "modelnet40", "shapenetpart", "s3dis"],
-                    help="default: the preset's (synthetic)")
-    ap.add_argument("--data_root", default=None, help="the real dataset's directory")
+    add_config_flags(ap, TrainConfig())
+    ap.add_argument("--preset", default="scanobjectnn_cls", choices=sorted(PRESETS),
+                    help="the config the flags given override")
     ap.add_argument("--dry_data_check", action="store_true",
                     help="check the data through the loaders, print one JSON line, exit 0 or 1")
-    ap.add_argument("--log_dir", default=None, help="default: the preset's (runs)")
     ap.add_argument("--max_steps", type=int, default=0,
                     help="stop after this many steps of this run (0: all epochs)")
-    ap.add_argument("--batch_size", type=int, default=None, help="default: the preset's")
-    ap.add_argument("--num_points", type=int, default=None, help="default: the preset's")
     ap.add_argument("--train_clouds", type=int, default=None,
-                    help="synthetic default: 512 (cls, pose, completion), 256 (partseg), "
-                         "192 blocks (semseg); a real split: all")
+                    help="synthetic default: 512 (cls; pose and completion: "
+                         "--synthetic_train_clouds), 256 (partseg), 192 blocks (semseg); "
+                         "a real split: all")
     ap.add_argument("--eval_clouds", type=int, default=None,
                     help="synthetic default: 128 (cls, pose, completion), 64 (partseg), "
                          "48 blocks (semseg); a real split: all")
-    ap.add_argument("--neighbor_mode", default=None, choices=["exact", "window", "window_all"],
-                    help="segmentation neighbour mode; default: the preset's (exact)")
-    ap.add_argument("--aug_scale", action="store_true", help="scale every train batch")
-    ap.add_argument("--aug_shift", action="store_true", help="shift every train batch")
-    ap.add_argument("--num_votes", type=int, default=None,
-                    help="vote passes of the cls eval; default: the preset's (3)")
-    ap.add_argument("--min_val_epoch", type=int, default=None,
-                    help="first epoch that ends with an eval; default: the preset's (0)")
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--seed", type=int, default=None, help="default: the preset's")
-    return ap.parse_args(argv)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; cuda:LOCAL_RANK under torchrun) or cpu")
+    ap.add_argument("--import_torch", default=None,
+                    help="a reference best_model.pth to start from (cls or part-seg model)")
+    ap.add_argument("--trust_torch_pickle", action="store_true",
+                    help="load --import_torch with full unpickling, which runs any code the "
+                         "file holds; default: the weights-only loader")
+    return ap
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The flags of ``argv`` (default ``sys.argv[1:]``), with the resolved
+    ``TrainConfig`` as ``.config``."""
+    ap = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = ap.parse_args(argv)
+    args.config = resolve_task_model(resolve_config(ap, args, argv))
+    return args
 
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
-    overrides = {k: getattr(args, k) for k in (
-        "batch_size", "num_points", "seed", "neighbor_mode", "dataset", "data_root", "log_dir",
-        "num_votes", "min_val_epoch") if getattr(args, k) is not None}
-    overrides.update({k: True for k in ("aug_scale", "aug_shift") if getattr(args, k)})
-    return PRESETS[args.preset].with_overrides(**overrides)
+    return args.config
 
 
 def checkpoint_dir(cfg: TrainConfig, preset: str) -> str:
     return os.path.join(cfg.log_dir, f"{preset}_{cfg.dataset}", "checkpoints")
 
 
-def run(args: argparse.Namespace) -> Tuple[TrainState, dict]:
-    """Train as ``args`` say; returns the final state and ``{"steps" (of
-    this run), "losses", "step_ms", "aug_delta"}`` plus the last eval's
-    metrics; ``aug_delta`` is the mean ``|augmented - raw|`` of the run's
-    first batch (None when the run does not augment)."""
-    cfg = config_from_args(args)
-    device = resolve_device(args.device)
-    print(f"config: {cfg}", flush=True)
-
-    train_arrays, test_arrays = load_dataset(cfg, args.train_clouds, args.eval_clouds)
-    steps_per_epoch = max(1, len(train_arrays[0]) // cfg.batch_size)
-
+def build_state(cfg: TrainConfig, device: torch.device, log: ExperimentLogger,
+                import_torch: Optional[str] = None, trust_pickle: bool = False) -> TrainState:
+    """The config's model with flax's initialisation from ``cfg.seed``, then
+    ``cfg.init``'s re-initialisation, then the reference checkpoint
+    ``import_torch`` (``mpa_tpu/cli/train.py:391-416``'s order), on
+    ``device`` with its optimizer."""
     model = get_model(cfg.model, **model_kwargs(cfg))
     init_like_flax(model, torch.Generator().manual_seed(cfg.seed))
-    state = create_train_state(model, cfg, device)
-    train_step = TRAIN_STEPS[cfg.task](cfg, steps_per_epoch)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"model {cfg.model}: {n_params / 1e6:.2f}M params on {device}; "
-          f"{steps_per_epoch} steps per epoch", flush=True)
-    ckpt = BestCheckpointer(checkpoint_dir(cfg, args.preset))
-    if ckpt.restore(state) is not None:
-        print(f"resumed from {ckpt.path} at step {state.step} (best {ckpt.best_metric:.4f}); "
-              "the steps below count this run's", flush=True)
+    if cfg.init:
+        apply_weight_init(model, cfg.init, stream_generator(cfg.seed, INIT_STREAM, 0,
+                                                            torch.device("cpu")))
+        log.info(f"re-initialised the weights with --init {cfg.init}")
+    if import_torch:
+        task = "partseg" if cfg.task == "partseg" else "cls"
+        report = import_reference_checkpoint(import_torch, task, model, allow_pickle=trust_pickle)
+        log.info(f"imported torch checkpoint {import_torch} "
+                 f"({len(report['skipped_torch_keys'])} dead/aux keys skipped)")
+    return create_train_state(model, cfg, device)
 
-    data_rng = np.random.default_rng(cfg.seed)
-    losses, step_ms, aug_delta, metrics, steps = [], [], None, {}, 0
-    for epoch in range(cfg.epochs):
-        for batch in batches(train_arrays, cfg.batch_size, data_rng):
-            inputs, labels = make_inputs(cfg, batch, device)
+
+def _join_torchrun(device: torch.device) -> Tuple[torch.device, bool]:
+    """Under torchrun (``WORLD_SIZE`` set, no group yet) join the process
+    group: ``(this rank's device, True)``; else ``(device, False)``."""
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return device, False
+    return parallel.init(device=device if device.type == "cpu" else None), True
+
+
+def run(args: argparse.Namespace) -> Tuple[TrainState, dict]:
+    """Train as ``args`` say; returns the final state and ``{"steps" (of
+    this run), "losses" (one a step, read at each epoch's end),
+    "epoch_seconds", "clouds_per_s" (one an epoch, of the global batch),
+    "aug_delta"}`` plus the last eval's metrics; ``aug_delta`` is the mean
+    ``|augmented - raw|`` of the run's first batch (None when the run does
+    not augment). Under a process group (torchrun, or one the caller
+    joined) the run is data-parallel, and ranks other than 0 return no
+    eval metrics."""
+    cfg = config_from_args(args)
+    device, joined = _join_torchrun(resolve_device(args.device))
+    try:
+        return _train(cfg, args, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(cfg: TrainConfig, args: argparse.Namespace, device: torch.device
+           ) -> Tuple[TrainState, dict]:
+    rank, ranks = parallel.world()
+    data_parallel = dist.is_initialized()
+    run_dir = os.path.join(cfg.log_dir, f"{args.preset}_{cfg.dataset}")
+    with make_logger(run_dir if rank == 0 else None) as log:
+        log.info(f"config: {cfg}")
+        train_arrays, test_arrays = load_dataset(cfg, args.train_clouds, args.eval_clouds)
+        steps_per_epoch = max(1, len(train_arrays[0]) // cfg.batch_size)
+        state = build_state(cfg, device, log, args.import_torch, args.trust_torch_pickle)
+        if data_parallel:
+            state.generator.manual_seed(cfg.seed + rank)  # the rank's dropout masks
+            parallel.replicate(parallel.sync_batchnorm(state.model))
+            train_step = parallel.make_data_parallel_train_step(cfg, steps_per_epoch)
+        else:
+            train_step = TRAIN_STEPS[cfg.task](cfg, steps_per_epoch)
+        log.info(f"model {cfg.model}: {count_params(state.model) / 1e6:.2f}M params on {device}"
+                 f"{f', rank {rank} of {ranks}' if data_parallel else ''}; "
+                 f"{steps_per_epoch} steps per epoch")
+        ckpt = BestCheckpointer(checkpoint_dir(cfg, args.preset))
+        if ckpt.restore(state) is not None:
+            log.info(f"resumed from {ckpt.path} at step {state.step} "
+                     f"(best {ckpt.best_metric:.4f}); the steps below count this run's")
+
+        shard = (rank, ranks)
+
+        def to_host(batch):  # on the prefetch thread: the rank's rows, as the model takes them
+            return host_batch(cfg, host_shard(batch, len(batch[0]), rank, ranks))
+
+        data_rng = np.random.default_rng(cfg.seed)
+        losses, seconds, rates, aug_delta, metrics, steps = [], [], [], None, {}, 0
+        for epoch in range(cfg.epochs):
             t0 = time.perf_counter()
-            raw = inputs[0] if cfg.task == "partseg" else inputs
-            if cfg.task == "pose":
-                raw, labels = pose_resample(cfg, raw, labels, state.step)
-            points = augment_batch(cfg, raw, state.step)
-            inputs = (points, inputs[1]) if cfg.task == "partseg" else points
-            loss = float(train_step(state, inputs, labels))  # waits for the step to finish
-            dt = time.perf_counter() - t0
-            losses.append(loss)
-            step_ms.append(dt * 1e3)
-            steps += 1
-            if steps == 1 and any(augmentation(cfg)):
-                aug_delta = (points - raw).abs().mean()  # read once the run ends
-            print(f"step {steps} (epoch {epoch}): loss {loss:.4f}, "
-                  f"{len(batch[0]) / dt:.1f} clouds/s", flush=True)
+            epoch_losses = []
+            feed = prefetch_to_device(batch_iterator(train_arrays, cfg.batch_size, rng=data_rng),
+                                      device, transform=to_host)
+            with contextlib.closing(feed):
+                for inputs, labels in feed:
+                    raw = inputs[0] if cfg.task == "partseg" else inputs
+                    if cfg.task == "pose":
+                        raw, labels = pose_resample(cfg, raw, labels, state.step, shard)
+                    points = augment_batch(cfg, raw, state.step, shard)
+                    inputs = (points, inputs[1]) if cfg.task == "partseg" else points
+                    epoch_losses.append(train_step(state, inputs, labels))  # stays on the card
+                    steps += 1
+                    if steps == 1 and any(augmentation(cfg)):
+                        aug_delta = (points - raw).abs().mean()  # read once the run ends
+                    if args.max_steps and steps >= args.max_steps:
+                        break
+            if epoch_losses:
+                first = steps - len(epoch_losses) + 1
+                values = torch.stack(epoch_losses).cpu().tolist()  # waits for the epoch
+                dt = time.perf_counter() - t0
+                losses += values
+                seconds.append(dt)
+                rates.append(len(values) * cfg.batch_size / dt)
+                for i, loss in enumerate(values):
+                    log.info(f"step {first + i} (epoch {epoch}): loss {loss:.4f}")
+                log.info(f"epoch {epoch}: loss {np.mean(values):.4f} over {len(values)} steps, "
+                         f"{dt:.3f} s, {rates[-1]:.1f} clouds/s")
+                log.metrics(state.step, epoch=epoch, train_loss=float(np.mean(values)),
+                            seconds=dt, clouds_per_s=rates[-1])
+            if epoch >= cfg.min_val_epoch and rank == 0:
+                metrics = evaluate(cfg, state, test_arrays, device, log)
+                log.metrics(state.step, epoch=epoch, **metrics)
+                key, sign = CHECKPOINT_METRIC[cfg.task]
+                if ckpt.save_if_best(state, sign * metrics[key]):
+                    log.info(f"new best {key} {sign * ckpt.best_metric:.4f} -> {ckpt.path}")
             if args.max_steps and steps >= args.max_steps:
                 break
-        if epoch >= cfg.min_val_epoch:
-            metrics = evaluate(cfg, state, test_arrays, device)
-            key, sign = CHECKPOINT_METRIC[cfg.task]
-            if ckpt.save_if_best(state, sign * metrics[key]):
-                print(f"new best {key} {sign * ckpt.best_metric:.4f} -> {ckpt.path}", flush=True)
-        if args.max_steps and steps >= args.max_steps:
-            break
-    return state, {"steps": steps, "losses": losses, "step_ms": step_ms,
+    return state, {"steps": steps, "losses": losses, "epoch_seconds": seconds,
+                   "clouds_per_s": rates,
                    "aug_delta": None if aug_delta is None else float(aug_delta), **metrics}
 
 

@@ -1,6 +1,22 @@
-"""Training configuration and presets (the fields of
-``mpa_tpu/utils/config.py::TrainConfig`` that the ported paths read, and
-the presets of ``mpa_tpu/configs/presets.py``, all eight of them).
+"""Training configuration, its command-line flags and the presets.
+
+``TrainConfig`` has every field of ``mpa_tpu/utils/config.py::TrainConfig``
+with the same name and default, and the port's own ``num_parts`` and
+``num_categories``. ``mesh_axes`` is a no-op here: ``mpa_tpu`` names the
+axes of its device mesh with it, while the port's data-parallel world is
+the ``torch.distributed`` process group (``mpa_tpu_torch/parallel``).
+``steps_per_epoch`` is a no-op too, as in ``mpa_tpu``, which declares it
+and never reads it: ``cli.train`` always derives the schedule's epoch as
+``max(1, n_train // batch_size)``.
+
+:func:`add_config_flags`, :func:`config_from_args`,
+:func:`explicitly_passed` and :func:`resolve_config` behave as
+``mpa_tpu``'s do: every field is a ``--flag`` (but the tuple
+``mesh_axes``), a preset supplies the base and only the flags given on the
+command line override it, prefix abbreviations included. A boolean flag
+takes a value (``--aug_scale true``) or none (``--aug_scale``).
+:func:`resolve_task_model` is ``mpa_tpu/cli/train.py``'s task-default model
+resolution.
 
 A preset trains on ``synthetic`` clouds unless ``dataset`` names a real one
 (``cli.train --dataset ... --data_root ...``); ``mpa_tpu``'s presets name
@@ -8,8 +24,11 @@ their real dataset instead, which no test or smoke run here has."""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import Optional
+import sys
+import typing
+from typing import Optional, Sequence, Set, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,11 +39,6 @@ class TrainConfig:
     num_parts: int = 50  # part-seg: global part labels
     num_categories: int = 16  # part-seg: shape categories
     num_points: int = 1024
-    batch_size: int = 64
-    # 'synthetic' | 'scanobjectnn' | 'modelnet40' | 'shapenetpart' | 's3dis'
-    # (cli/train.py load_dataset)
-    dataset: str = "synthetic"
-    data_root: Optional[str] = None
     # segmentation: 'exact' (reference semantics) | 'window' (Morton-window
     # spatial neighbourhoods) | 'window_all' (feature kNN and FPS banded too)
     neighbor_mode: str = "exact"
@@ -32,6 +46,13 @@ class TrainConfig:
     # points and gives >= fps_min_samples samples (ops/fps.py pick_fps_bands)
     fps_min_band: int = 512
     fps_min_samples: int = 64
+    # 'synthetic' | 'scanobjectnn' | 'modelnet40' | 'shapenetpart' | 's3dis'
+    # (cli/train.py load_dataset)
+    dataset: str = "synthetic"
+    data_root: Optional[str] = None
+    batch_size: int = 64  # the global batch: data-parallel ranks take equal shares
+    # pose / completion: synthetic training clouds (the eval split stays 128)
+    synthetic_train_clouds: int = 512
     # optimisation (reference cls defaults: Adam 1e-3 / wd 1e-4 / StepLR 20x0.7)
     optimizer: str = "adam-l2"  # 'adam-l2' | 'sgd'
     learning_rate: float = 1e-3
@@ -40,7 +61,7 @@ class TrainConfig:
     scheduler: str = "step"  # 'step' (decay_step, decay_gamma) | 'cos' (epochs, eta_min)
     decay_step: int = 20
     decay_gamma: float = 0.7
-    eta_min: float = 0.0
+    eta_min: float = 1e-3
     epochs: int = 300
     label_smoothing: float = 0.1
     # train augmentation: per-cloud scale 0.8-1.25 and shift +-0.1 of every
@@ -50,11 +71,108 @@ class TrainConfig:
     # eval: vote passes of the cls eval (train/votes.py), first epoch evaluated
     num_votes: int = 3
     min_val_epoch: int = 0
+    # weight re-init after the model is built: '' (flax's defaults) |
+    # 'xavier' | 'kaiming' | 'zero' (utils/init.py apply_weight_init)
+    init: str = ""
     seed: int = 2800
-    log_dir: str = "runs"  # checkpoints under {log_dir}/{preset}_{dataset}/checkpoints
+    log_dir: str = "runs"  # logs and checkpoints under {log_dir}/{preset}_{dataset}
+    mesh_axes: Tuple[str, ...] = ("data",)  # no-op: the world is the process group
+    steps_per_epoch: Optional[int] = None  # no-op: cli.train derives it from the data
 
     def with_overrides(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+def _parse_bool(text: str) -> bool:
+    return text.lower() in ("1", "true", "yes")
+
+
+def _field_type(f: dataclasses.Field):
+    """The scalar type of field ``f``: ``Optional[X]`` gives X."""
+    hint = typing.get_type_hints(TrainConfig)[f.name]
+    args = [a for a in typing.get_args(hint) if a is not type(None)]
+    return args[0] if typing.get_origin(hint) is typing.Union else hint
+
+
+def add_config_flags(parser: argparse.ArgumentParser, config: TrainConfig = TrainConfig()
+                     ) -> None:
+    """Register every field of ``config`` as a ``--flag`` whose default is
+    its value; tuple fields (``mesh_axes``) stay code-level."""
+    for f in dataclasses.fields(config):
+        default, typ = getattr(config, f.name), _field_type(f)
+        if typ is bool:
+            parser.add_argument(f"--{f.name}", type=_parse_bool, nargs="?", const=True,
+                                default=default)
+        elif typing.get_origin(typ) is tuple:
+            continue
+        else:
+            parser.add_argument(f"--{f.name}", type=typ, default=default)
+
+
+def config_from_args(args: argparse.Namespace, base: Optional[TrainConfig] = None
+                     ) -> TrainConfig:
+    """``base`` (default ``TrainConfig()``) with every field ``args`` has."""
+    base = base or TrainConfig()
+    return base.with_overrides(**{f.name: getattr(args, f.name)
+                                  for f in dataclasses.fields(base) if hasattr(args, f.name)})
+
+
+def explicitly_passed(parser: argparse.ArgumentParser, argv: Sequence[str]) -> Set[str]:
+    """The dests given on the command line ``argv``: ``argv`` parsed again by
+    a parser with ``parser``'s options whose defaults are all ``SUPPRESS``,
+    so that argparse resolves prefix abbreviations (``--num_point``) as it
+    did for ``parser``."""
+    aux = argparse.ArgumentParser(add_help=False)
+    for action in parser._actions:
+        if not action.option_strings or isinstance(action, argparse._HelpAction):
+            continue
+        if action.nargs == 0:  # store_true / store_false / count
+            aux.add_argument(*action.option_strings, dest=action.dest, action="store_const",
+                             const=True, default=argparse.SUPPRESS)
+        else:
+            aux.add_argument(*action.option_strings, dest=action.dest, nargs=action.nargs,
+                             default=argparse.SUPPRESS)
+    ns, _ = aux.parse_known_args(list(argv))
+    return set(vars(ns))
+
+
+def resolve_config(parser: argparse.ArgumentParser, args: argparse.Namespace,
+                   argv: Optional[Sequence[str]] = None) -> TrainConfig:
+    """The config of ``args``: with ``args.preset``, that preset with only
+    the explicitly passed flags of ``argv`` (default ``sys.argv[1:]``) over
+    it; without, :func:`config_from_args`."""
+    argv = sys.argv[1:] if argv is None else argv
+    if getattr(args, "preset", None):
+        base = PRESETS[args.preset]
+        passed = explicitly_passed(parser, argv)
+        return base.with_overrides(**{f.name: getattr(args, f.name)
+                                      for f in dataclasses.fields(base)
+                                      if f.name in passed and hasattr(args, f.name)})
+    return config_from_args(args)
+
+
+# The model of each task when a config names a task but keeps the cls model
+# (``mpa_tpu/cli/train.py:310-327``).
+TASK_MODELS = {"partseg": "markov_partseg", "semseg": "markov_semseg", "pose": "markov_pose",
+               "completion": "markov_completion"}
+
+
+def resolve_task_model(cfg: TrainConfig) -> TrainConfig:
+    """``mpa_tpu``'s task-default resolution: a config of a task other than
+    cls that still names ``markov_cls`` takes the task's model; part-seg
+    then trains with SGD 0.1 and the cosine schedule, at 2048 points on a
+    real dataset, and semseg has 13 classes on S3DIS, 3 on synthetic
+    blocks."""
+    if cfg.model != "markov_cls" or cfg.task == "cls":
+        return cfg
+    cfg = cfg.with_overrides(model=TASK_MODELS[cfg.task])
+    if cfg.task == "partseg":
+        cfg = cfg.with_overrides(optimizer="sgd", learning_rate=0.1, scheduler="cos",
+                                 num_points=2048 if cfg.dataset != "synthetic"
+                                 else cfg.num_points)
+    if cfg.task == "semseg":
+        cfg = cfg.with_overrides(num_classes=13 if cfg.dataset == "s3dis" else 3)
+    return cfg
 
 
 def model_kwargs(cfg: TrainConfig) -> dict:

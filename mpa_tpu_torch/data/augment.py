@@ -48,19 +48,31 @@ def shift_points(points: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     return points + shift
 
 
+def draw_scales(generator: torch.Generator, n: int, like: torch.Tensor, low: float = 0.8,
+                high: float = 1.25) -> torch.Tensor:
+    """``n`` clouds' scales for :func:`scale_points` (``[n, 1, 1]``)."""
+    return _uniform(generator, (n, 1, 1), like, low, high)
+
+
+def draw_shifts(generator: torch.Generator, n: int, like: torch.Tensor,
+                shift_range: float = 0.1) -> torch.Tensor:
+    """``n`` clouds' shifts for :func:`shift_points` (``[n, 1, C]``, ``C``
+    the channels of ``like``)."""
+    return _uniform(generator, (n, 1, like.shape[-1]), like, -shift_range, shift_range)
+
+
 def random_scale(points: torch.Tensor, generator: torch.Generator, low: float = 0.8,
                  high: float = 1.25) -> torch.Tensor:
     """Per-cloud isotropic scale in ``[low, high)`` (reference
     random_scale_point_cloud)."""
-    return scale_points(points, _uniform(generator, (points.shape[0], 1, 1), points, low, high))
+    return scale_points(points, draw_scales(generator, points.shape[0], points, low, high))
 
 
 def random_shift(points: torch.Tensor, generator: torch.Generator,
                  shift_range: float = 0.1) -> torch.Tensor:
     """Per-cloud translation of every channel in ``[-shift_range,
     shift_range)`` (reference shift_point_cloud)."""
-    B, _, C = points.shape
-    return shift_points(points, _uniform(generator, (B, 1, C), points, -shift_range, shift_range))
+    return shift_points(points, draw_shifts(generator, points.shape[0], points, shift_range))
 
 
 # -- jitter ------------------------------------------------------------------------

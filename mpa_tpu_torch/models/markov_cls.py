@@ -14,6 +14,11 @@ checkpoint: its output is unused, so it changes nothing but its BatchNorm
 statistics, and it runs only in train mode (in eval mode it has no effect;
 XLA drops it there too). Its normal flips come from ``flips`` or, before
 the dropout masks, from the generator.
+
+``fps_generator`` and ``fps_starts`` reach the encoder, whose FPS scales
+take them in train mode when its ``fps_random_start`` is set
+(``nn/keephigh.py``); ``mpa_tpu``'s classifier leaves that switch off, as
+this one builds it.
 """
 
 from __future__ import annotations
@@ -63,18 +68,21 @@ class MarkovClassifier(nn.Module):
     def forward(
         self, points: torch.Tensor, *, generator: Optional[torch.Generator] = None,
         flips: Optional[torch.Tensor] = None,
+        fps_generator: Optional[torch.Generator] = None,
+        fps_starts: Optional[Sequence[torch.Tensor]] = None,
     ) -> torch.Tensor:
         """points: ``[B, N, 3]`` xyz -> ``[B, num_classes]`` log-probs.
 
         ``generator`` (on the points' device) draws the dropout masks; train
         mode with ``dropout > 0`` requires it. With ``use_umbrella`` in train
         mode it draws the umbrella's normal flips first, unless ``flips``
-        (``[B]`` signs) gives them.
+        (``[B]`` signs) gives them. ``fps_generator`` / ``fps_starts``: the
+        encoder's keyed FPS starts (module doc).
         """
         xyz = points[..., :3]
         if self.surface_constructor is not None and self.training:
             self.surface_constructor(xyz, generator=generator, flips=flips)
-        x = self.keep_high(xyz)
+        x = self.keep_high(xyz, fps_generator=fps_generator, fps_starts=fps_starts)
         for fc, bn in ((self.fc1, self.bn1), (self.fc2, self.bn2)):
             x = F.leaky_relu(bn(fc(x)), negative_slope=0.2)
             x = seeded_dropout(x, self.dropout, self.training, generator)

@@ -66,14 +66,17 @@ class MarkovCompletion(nn.Module):
         self.register_buffer("grid", torch.from_numpy(fold_grid(up_ratio)), persistent=False)
 
     def forward(self, points: torch.Tensor, *,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                fps_generator: Optional[torch.Generator] = None,
+                fps_starts: Optional[Sequence[torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """partial cloud ``[B, N, 3]`` -> (coarse ``[B, M, 3]``, fine ``[B,
         M * up_ratio (+ N with include_input), 3]``); the model has no
-        dropout, so ``generator`` is unused."""
+        dropout, so ``generator`` is unused; the FPS keywords pass to the
+        encoder, as ``mpa_tpu``'s pass ``rng`` (``markov_completion.py:54``)."""
         B = points.shape[0]
         M, r = self.num_coarse, self.up_ratio
-        g = self.keep_high(points[..., :3])
+        g = self.keep_high(points[..., :3], fps_generator=fps_generator, fps_starts=fps_starts)
         coarse = self.dec3(self.dec2(self.dec1(g))).reshape(B, M, 3)
         centre = coarse[:, :, None, :].expand(B, M, r, 3)
         grid = self.grid.to(g.dtype)[None, None, :, None].expand(B, M, r, 1)

@@ -8,7 +8,9 @@ per-point features, then the head ``conv8`` (896 -> 512) -> dropout ->
 ``torch.Generator`` the caller passes; torch cannot reproduce JAX's random
 bits, so parity runs use ``dropout=0``. In the window modes
 (``neighbor_mode``) the cloud is Morton-sorted first and the log-probs are
-put back in the input order.
+put back in the input order. In train mode the encoder's FPS takes keyed
+starts when ``fps_generator`` or ``fps_starts`` is given
+(``nn/keephigh_partseg.py``), as ``mpa_tpu``'s takes them from ``rng``.
 """
 
 from __future__ import annotations
@@ -63,6 +65,8 @@ class MarkovPartSeg(nn.Module):
         inputs: Tuple[torch.Tensor, torch.Tensor],
         *,
         generator: Optional[torch.Generator] = None,
+        fps_generator: Optional[torch.Generator] = None,
+        fps_starts: Optional[Sequence[torch.Tensor]] = None,
     ) -> torch.Tensor:
         """inputs = (points ``[B, N, 3]``, label_onehot ``[B, num_categories]``)
         -> per-point log-probs ``[B, N, num_parts]``.
@@ -74,7 +78,8 @@ class MarkovPartSeg(nn.Module):
         xyz, inv_perm = points[..., :3], None
         if self.keep_high.windowed:
             xyz, inv_perm = morton_sort(xyz)
-        x = self.conv8(self.keep_high(xyz, label_onehot))
+        x = self.conv8(self.keep_high(xyz, label_onehot, fps_generator=fps_generator,
+                                      fps_starts=fps_starts))
         x = seeded_dropout(x, self.dropout, self.training, generator)
         x = self.conv10(self.conv9(x))
         return morton_unsort(F.log_softmax(self.conv11(x), dim=-1), inv_perm)

@@ -20,8 +20,10 @@ The ladder has ``len(npoints)`` levels and uses ``channels[:len(npoints) +
 model's default is 5, and no module of an unused level is built. Dropout
 acts in train mode only and draws its mask from the caller's generator.
 Only ``neighbor_mode='exact'`` exists, as in ``mpa_tpu``. FPS starts at
-index 0: ``mpa_tpu``'s train step passes no ``rng`` to the model, and the
-forward here takes none, so a keyed start cannot be asked for.
+index 0 unless, in train mode, the caller gives keyed starts
+(``fps_starts[i]``, ``[B]``) or ``fps_generator`` to draw them from, as
+``mpa_tpu``'s model takes them from ``rng`` (``markov_partseg_fp.py:57-58``;
+its train step passes none).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from mpa_tpu_torch.models.registry import register_model
 from mpa_tpu_torch.nn.feature_propagation import PointNetFeaturePropagation
 from mpa_tpu_torch.nn.linear import LinearUnit, seeded_dropout
 from mpa_tpu_torch.nn.local_merge import LocalMerge
-from mpa_tpu_torch.ops.fps import farthest_point_sample
+from mpa_tpu_torch.ops.fps import farthest_point_sample, keyed_start
 from mpa_tpu_torch.ops.gather import index_points
 
 
@@ -81,6 +83,8 @@ class MarkovPartSegFP(nn.Module):
         inputs: Tuple[torch.Tensor, torch.Tensor],
         *,
         generator: Optional[torch.Generator] = None,
+        fps_generator: Optional[torch.Generator] = None,
+        fps_starts: Optional[Sequence[torch.Tensor]] = None,
     ) -> torch.Tensor:
         """inputs = (points ``[B, N, 3]``, label_onehot ``[B, num_categories]``)
         -> per-point log-probs ``[B, N, num_parts]``. ``generator`` (on the
@@ -95,7 +99,8 @@ class MarkovPartSegFP(nn.Module):
         positions: List[torch.Tensor] = [xyz]
         cur_xyz = xyz
         for i, npoint in enumerate(self.npoints):
-            fps_idx = farthest_point_sample(feats[i], npoint)  # in feature space
+            start = keyed_start(self.training, i, fps_generator, fps_starts, B, feats[i].shape[1])
+            fps_idx = farthest_point_sample(feats[i], npoint, start_idx=start)  # in feature space
             new_xyz = index_points(cur_xyz, fps_idx)
             f, _, _ = getattr(self, f"la{i + 1}")(new_xyz, cur_xyz, feature=feats[i],
                                                   fps_idx=fps_idx)

@@ -72,9 +72,14 @@ class MarkovPose(nn.Module):
         self.fc_rot = nn.Linear(512, 6)
 
     def forward(self, points: torch.Tensor, *,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """points ``[B, N, 3]`` -> rotation matrices ``[B, 3, 3]``."""
-        x = F.leaky_relu(self.bn1(self.fc1(self.keep_high(points[..., :3]))), negative_slope=0.2)
+                generator: Optional[torch.Generator] = None,
+                fps_generator: Optional[torch.Generator] = None,
+                fps_starts: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """points ``[B, N, 3]`` -> rotation matrices ``[B, 3, 3]``; the FPS
+        keywords pass to the encoder, whose keyed starts are off, as
+        ``mpa_tpu``'s pass ``rng`` (``markov_pose.py:64``)."""
+        g = self.keep_high(points[..., :3], fps_generator=fps_generator, fps_starts=fps_starts)
+        x = F.leaky_relu(self.bn1(self.fc1(g)), negative_slope=0.2)
         x = seeded_dropout(x, self.dropout, self.training, generator)
         return rotation_6d_to_matrix(self.fc_rot(x))
 

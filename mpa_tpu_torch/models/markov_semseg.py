@@ -19,7 +19,9 @@ the first state:
 ``neighbor_mode`` selects the Morton-window modes (``nn/window_mode.py``):
 the block is Morton-sorted first and the log-probs are put back in the input
 order. Dropout acts in train mode only and draws its mask from the
-``torch.Generator`` the caller passes.
+``torch.Generator`` the caller passes. In train mode the encoder's FPS takes
+keyed starts when ``fps_generator`` or ``fps_starts`` is given
+(``WindowModes.fps_scale``), as ``mpa_tpu``'s takes them from ``rng``.
 """
 
 from __future__ import annotations
@@ -94,7 +96,9 @@ class MarkovSemSeg(WindowModes, nn.Module):
         self.head3 = nn.Linear(256, num_classes)
 
     def forward(self, points: torch.Tensor, *,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                fps_generator: Optional[torch.Generator] = None,
+                fps_starts: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         """``generator`` (on the points' device) draws the dropout mask; train
         mode with ``dropout > 0`` requires it."""
         B, N, _ = points.shape
@@ -115,7 +119,7 @@ class MarkovSemSeg(WindowModes, nn.Module):
         knn_list: List[Optional[torch.Tensor]] = [idx0] + [None] * top  # scale s into s-1
         cur_xyz = xyz
         for i, npoint in enumerate(self.npoints):
-            fps_idx = self.fps_scale(cur_xyz, npoint)
+            fps_idx = self.fps_scale(cur_xyz, npoint, i, fps_generator, fps_starts)
             new_xyz = index_points(cur_xyz, fps_idx)
             feats[i + 1], knn_list[i + 1], _ = getattr(self, f"la{i + 1}")(
                 new_xyz, cur_xyz, feature=feats[i], fps_idx=fps_idx)

@@ -4,11 +4,18 @@ Counterpart of ``mpa_tpu/nn/keephigh.py::KeepHighResolutionEncoder``: a
 full-resolution first state, then one LocalMerge per ladder entry with FPS
 between them, ``conv3`` / ``conv4``, the max || mean pool over points, and
 ``final_class`` + ``final_bn`` + LeakyReLU(0.2).
+
+``fps_random_start`` (``mpa_tpu``'s keyed FPS starts, the reference's
+``torch.randint``): in train mode every FPS scale starts each cloud at its
+own index, ``fps_starts[i]`` (``[B]``) where the caller gives them, else
+drawn from ``fps_generator`` (``ops/fps.py::keyed_start``, one ``[B]`` draw
+a scale in ladder order). In eval mode, or without the switch, FPS starts at
+index 0, as in ``mpa_tpu``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -16,7 +23,7 @@ from torch import nn
 
 from mpa_tpu_torch.nn.linear import BatchNorm, LinearUnit
 from mpa_tpu_torch.nn.local_merge import LocalMerge
-from mpa_tpu_torch.ops.fps import farthest_point_sample
+from mpa_tpu_torch.ops.fps import farthest_point_sample, keyed_start
 from mpa_tpu_torch.ops.gather import index_points
 
 
@@ -33,8 +40,7 @@ class KeepHighResolutionEncoder(nn.Module):
         super().__init__()
         if len(channels) != len(npoints) + 1 or len(residuals) != len(channels):
             raise ValueError("channels and residuals need one entry more than npoints")
-        if fps_random_start:
-            raise NotImplementedError("keyed FPS starts are training-only and not ported yet")
+        self.fps_random_start = fps_random_start
         self.npoints = tuple(npoints)
         self.la0 = LocalMerge(None, channels[0], num_neighbors, residuals[0])
         for i in range(len(self.npoints)):
@@ -45,12 +51,19 @@ class KeepHighResolutionEncoder(nn.Module):
         self.final_class = nn.Linear(2 * out_features, out_features)
         self.final_bn = BatchNorm(out_features)
 
-    def forward(self, xyz: torch.Tensor) -> torch.Tensor:
-        """xyz: ``[B, N, 3]`` -> global feature ``[B, out_features]``."""
+    def forward(self, xyz: torch.Tensor, *, fps_generator: Optional[torch.Generator] = None,
+                fps_starts: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """xyz: ``[B, N, 3]`` -> global feature ``[B, out_features]``; the
+        keyword arguments give the keyed FPS starts (module doc)."""
+        keyed = self.fps_random_start and self.training
+        if keyed and fps_starts is None and fps_generator is None:
+            raise ValueError("fps_random_start in train mode needs fps_generator or fps_starts")
         feats, _, _ = self.la0(xyz, xyz)
         cur_xyz = xyz
         for i, npoint in enumerate(self.npoints):
-            fps_idx = farthest_point_sample(cur_xyz, npoint)
+            start = keyed_start(keyed, i, fps_generator, fps_starts, cur_xyz.shape[0],
+                                cur_xyz.shape[1])
+            fps_idx = farthest_point_sample(cur_xyz, npoint, start_idx=start)
             new_xyz = index_points(cur_xyz, fps_idx)
             feats, _, _ = getattr(self, f"la{i + 1}")(
                 new_xyz, cur_xyz, feature=feats, fps_idx=fps_idx

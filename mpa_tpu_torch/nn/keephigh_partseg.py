@@ -17,8 +17,12 @@ Counterpart of ``mpa_tpu/nn/keephigh_partseg.py::KeepHighResolutionPartSeg``:
 
 ``neighbor_mode`` selects the Morton-window modes (``nn/window_mode.py``);
 the caller Morton-sorts the cloud (``MarkovPartSeg`` does), and the scales
-stay sorted because the FPS subsets are sorted. Mixed precision and a keyed
-FPS start are not ported yet and raise.
+stay sorted because the FPS subsets are sorted. In train mode the encoder's
+FPS scales take keyed starts when the caller gives them, as ``mpa_tpu``
+does with ``rng`` (``keephigh_partseg.py:76-77``): ``fps_starts[i]``
+(``[B]``, or ``[B, n_bands]`` band-local ones at a banded ``window_all``
+scale), or starts drawn from ``fps_generator`` (``draw_starts``, in ladder
+order). Mixed precision is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -55,15 +59,12 @@ class KeepHighResolutionPartSeg(WindowModes, nn.Module):
         neighbor_mode: str = "exact",
         fps_min_band: int = 512,
         fps_min_samples: int = 64,
-        fps_random_start: bool = False,
     ):
         super().__init__()
         if len(channels) != len(npoints) + 1 or len(residuals) != len(channels):
             raise ValueError("channels and residuals need one entry more than npoints")
         if dtype is not None:
             raise NotImplementedError("mixed precision (dtype) is not ported yet")
-        if fps_random_start:
-            raise NotImplementedError("keyed FPS starts are training-only and not ported yet")
         self.neighbor_mode = check_mode("neighbor_mode", neighbor_mode, NEIGHBOR_MODES)
         self.fps_min_band, self.fps_min_samples = fps_min_band, fps_min_samples
         self.npoints = tuple(npoints)
@@ -85,9 +86,12 @@ class KeepHighResolutionPartSeg(WindowModes, nn.Module):
         self.conv5 = LinearUnit(ch[0], point_channels)
         self.out_channels = point_channels + sum(ch) + label_channels
 
-    def forward(self, xyz: torch.Tensor, label_onehot: torch.Tensor) -> torch.Tensor:
+    def forward(self, xyz: torch.Tensor, label_onehot: torch.Tensor, *,
+                fps_generator: Optional[torch.Generator] = None,
+                fps_starts: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         """xyz ``[B, N, 3]``, label_onehot ``[B, num_categories]`` ->
-        per-point features ``[B, N, out_channels]``."""
+        per-point features ``[B, N, out_channels]``; the keyword arguments
+        give the keyed FPS starts of train mode (module doc)."""
         B, N, _ = xyz.shape
         top = len(self.npoints)
 
@@ -99,7 +103,7 @@ class KeepHighResolutionPartSeg(WindowModes, nn.Module):
         feats[0], knn_list[0], dist0 = self.la0(xyz, xyz)  # self-kNN of the full cloud
         cur_xyz = xyz
         for i, npoint in enumerate(self.npoints):
-            fps_idx = self.fps_scale(cur_xyz, npoint)
+            fps_idx = self.fps_scale(cur_xyz, npoint, i, fps_generator, fps_starts)
             new_xyz = index_points(cur_xyz, fps_idx)
             feats[i + 1], knn_list[i + 1], _ = getattr(self, f"la{i + 1}")(
                 new_xyz, cur_xyz, feature=feats[i], fps_idx=fps_idx)

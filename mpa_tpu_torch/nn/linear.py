@@ -7,7 +7,11 @@ for key (``utils/convert.py``).
 BatchNorm follows flax (``nn.BatchNorm(momentum=0.9, epsilon=1e-5,
 use_fast_variance=False)``), not ``torch.nn.BatchNorm1d``, in train mode: it
 normalises with the biased batch variance computed in two passes, and keeps
-that biased variance, not the unbiased one, in its running statistics.
+that biased variance, not the unbiased one, in its running statistics. Given
+a process group (``mpa_tpu_torch/parallel``), its statistics are those of
+the global batch, as ``mpa_tpu``'s are under a data-parallel ``jit``.
+``norm="layer"`` is flax's ``nn.LayerNorm(epsilon=1e-5)`` (the reference's
+``norm1``).
 """
 
 from __future__ import annotations
@@ -15,8 +19,28 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks of ``group``; its backward sums the incoming
+    gradients over the ranks in turn (each rank's loss depends on every
+    rank's share)."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -29,17 +53,37 @@ class BatchNorm(nn.BatchNorm1d):
     ``0.9 * running + (1 - 0.9) * batch`` with the biased ``var`` (flax
     ``momentum=0.9`` is torch ``momentum=0.1``). Eval mode normalises with the
     running statistics.
+
+    With ``process_group`` set (``parallel.sync_batchnorm``), train mode
+    reduces over the global batch of every rank of the group, in flax's two
+    passes: ``mean`` is the all-reduced sum over the all-reduced row count,
+    then ``var`` the all-reduced ``sum((x - mean)^2)`` over that count. The
+    all-reduces carry the gradient (each rank's backward sums the others'),
+    so the data-parallel step's averaged gradient is the global batch's.
+    ``torch.nn.SyncBatchNorm`` would keep the unbiased running variance.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.process_group = None
+
+    def _global_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return _AllReduceSum.apply(t, self.process_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = torch.mean(x, dim=dims)
-            centred = x - mean
-            var = torch.mean(centred * centred, dim=dims)
+            if self.process_group is None:
+                mean = torch.mean(x, dim=dims)
+                centred = x - mean
+                var = torch.mean(centred * centred, dim=dims)
+            else:
+                rows = x.new_full((1,), float(x.numel() // x.shape[-1]))
+                total = self._global_sum(torch.cat([torch.sum(x, dim=dims), rows]))
+                count = total[-1]
+                mean = total[:-1] / count
+                centred = x - mean
+                var = self._global_sum(torch.sum(centred * centred, dim=dims)) / count
             y = centred * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
             keep = 1.0 - self.momentum  # flax's momentum
             with torch.no_grad():
@@ -68,17 +112,19 @@ def seeded_dropout(x: torch.Tensor, p: float, training: bool,
 
 
 class LinearUnit(nn.Module):
-    """Linear -> {BatchNorm | none} -> LeakyReLU(0.2)."""
+    """Linear -> {BatchNorm | LayerNorm | none} -> LeakyReLU(0.2)."""
 
     def __init__(self, in_features: int, features: int, norm: Optional[str] = "batch"):
         super().__init__()
         self.linear = nn.Linear(in_features, features)
         if norm == "batch":
             self.norm = BatchNorm(features)
+        elif norm == "layer":
+            self.norm = nn.LayerNorm(features, eps=1e-5)
         elif norm is None:
             self.norm = None
         else:
-            raise NotImplementedError(f"LinearUnit norm={norm!r} is not ported yet")
+            raise ValueError(f"unknown norm: {norm!r}")
 
     def forward(self, x: torch.Tensor, *, mid_op=None) -> torch.Tensor:
         """``mid_op``: an optional linear row-mixing map (the scatter-mean

@@ -24,8 +24,9 @@ is.
 over its index is the windowed one; ``feature_knn_mode='window'`` (only
 together with it) bands the feature-space search too. A scale pair that
 admits no window takes the exact search, as in ``mpa_tpu``: that is the
-modes' semantics, not a device fallback. ``use_tanh`` is not ported and
-raises.
+modes' semantics, not a device fallback. ``use_tanh`` gives every
+LocalTrans the edge-level tanh path; with ``include_xyz_branch`` the three
+branches then run unpacked (``mpa_tpu/nn/local_merge.py:178-200``).
 """
 
 from __future__ import annotations
@@ -59,8 +60,6 @@ class LocalMerge(nn.Module):
                  single_branch: bool = False, knn_mode: str = "exact",
                  feature_knn_mode: str = "exact"):
         super().__init__()
-        if use_tanh:
-            raise NotImplementedError("LocalMerge use_tanh is not ported")
         self.knn_mode = check_mode("knn_mode", knn_mode, ("exact", "window"))
         self.feature_knn_mode = check_mode("feature_knn_mode", feature_knn_mode,
                                            ("exact", "window"))
@@ -69,16 +68,18 @@ class LocalMerge(nn.Module):
         self.first = feature_channels is None
         self.single_branch = single_branch and not self.first
         self.include_xyz_branch = include_xyz_branch and not self.first and not single_branch
+        self.use_tanh = use_tanh
         if self.first or self.include_xyz_branch:
-            self.xyz_trans = LocalTrans(3, out_channels, num_neighbors, residual_proj=True)
+            self.xyz_trans = LocalTrans(3, out_channels, num_neighbors, residual_proj=True,
+                                        use_tanh=use_tanh)
         if self.first:
             return
         self.feature_trans = LocalTrans(feature_channels, out_channels, num_neighbors,
-                                        residual_proj=residual)
+                                        residual_proj=residual, use_tanh=use_tanh)
         if self.single_branch:
             return
         self.feature_trans2 = LocalTrans(feature_channels, out_channels, num_neighbors,
-                                         residual_proj=residual)
+                                         residual_proj=residual, use_tanh=use_tanh)
         branches = 3 if self.include_xyz_branch else 2
         self.fc2 = LinearUnit(branches * out_channels, out_channels)
 
@@ -111,9 +112,12 @@ class LocalMerge(nn.Module):
         feature_mode = self.feature_knn_mode if self.knn_mode == "window" else "exact"
         _, idx_feat, wspec_f = self._knn(feature, center_feat, None, feature_mode)
         m2 = self.feature_trans2(feature, center_feat, idx_feat, window_spec=wspec_f)
-        if not self.include_xyz_branch:
+        if not self.include_xyz_branch or self.use_tanh:
             m1 = self.feature_trans(feature, center_feat, idx, window_spec=wspec)
             branches = [m1, m2]
+            if self.include_xyz_branch:
+                xyz_f = self.xyz_trans(base_xyz, xyz, idx, xyz_mode=True, window_spec=wspec)
+                branches = [xyz_f, m1, m2]
         else:
             C = self.out_channels
             packed = torch.cat([self.xyz_trans.node_pack(base_xyz),

@@ -9,6 +9,12 @@ into a gathered node term ``v(x_j)`` and a per-query shift ``b_v - v(x_i)``.
 can pack branches that share one kNN index into one attention call. Given a
 ``window_spec`` (an index from the windowed kNN), the attention is the
 windowed one (``ops/window.py``), the same function.
+
+``use_tanh`` is ``mpa_tpu``'s edge-level path (``local_trans.py:109-125``):
+``tanh(q(center) - k(neighbour)) / K`` weights the neighbours' values,
+summed over K, on gathered rows (``index_points``, the row gather), with
+the ``q`` projection live; in xyz mode k and v act on the centre-relative
+deltas. It does not fold and takes no window spec, as in ``mpa_tpu``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from torch import nn
 
 from mpa_tpu_torch.nn.linear import LinearUnit
 from mpa_tpu_torch.ops.attention import transition_attention
+from mpa_tpu_torch.ops.gather import index_points
 from mpa_tpu_torch.ops.window import windowed_transition_attention
 
 
@@ -37,12 +44,11 @@ class LocalTrans(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, num_neighbors: int,
                  residual_proj: bool = False, use_tanh: bool = False):
         super().__init__()
-        if use_tanh:
-            raise NotImplementedError("LocalTrans use_tanh (edge-level path) is not ported")
+        self.use_tanh = use_tanh
         self.out_channels = out_channels
         self.num_neighbors = num_neighbors
-        # q takes no part in the output (the fold removes it); it exists so
-        # every checkpoint leaf has a home.
+        # q takes no part in the folded output; it exists so every checkpoint
+        # leaf has a home (the tanh path reads it).
         self.q = nn.Linear(in_channels, out_channels)
         self.k = nn.Linear(in_channels, out_channels)
         self.v = nn.Linear(in_channels, out_channels)
@@ -70,6 +76,8 @@ class LocalTrans(nn.Module):
 
     def forward(self, source, center, idx, *, xyz_mode: bool = False,
                 window_spec=None) -> torch.Tensor:
+        if self.use_tanh:
+            return self.ffn_out(self.tanh_context(source, center, idx, xyz_mode), center)
         packed = self.node_pack(source)
         shifts = self.value_shift(center) if xyz_mode else None
         if window_spec is not None:
@@ -78,3 +86,13 @@ class LocalTrans(nn.Module):
         else:
             context = transition_attention(packed, idx, shifts, 1, self.out_channels)
         return self.ffn_out(context, center)
+
+    def tanh_context(self, source, center, idx, xyz_mode: bool) -> torch.Tensor:
+        """The edge-level context ``sum_K tanh(q(center) - key) / K * value``."""
+        if xyz_mode:
+            neigh = index_points(source, idx) - center[:, :, None, :]
+            key, value = self.k(neigh), self.v(neigh)
+        else:
+            key, value = index_points(self.k(source), idx), index_points(self.v(source), idx)
+        attn = torch.tanh(self.q(center)[:, :, None, :] - key) / self.num_neighbors
+        return torch.sum(attn * value, dim=2)

@@ -17,7 +17,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from mpa_tpu_torch.ops.fps import banded_farthest_point_sample, pick_fps_bands
+from mpa_tpu_torch.ops.fps import banded_farthest_point_sample, keyed_start, pick_fps_bands
 from mpa_tpu_torch.ops.morton import morton_order
 from mpa_tpu_torch.ops.scatter import scatter_mean_upsample
 from mpa_tpu_torch.ops.window import WindowSpec, make_window_spec, windowed_scatter_mean
@@ -87,16 +87,22 @@ class WindowModes:
     def feature_mode(self) -> str:
         return "window" if self.neighbor_mode == "window_all" else "exact"
 
-    def fps_scale(self, cur_xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-        """One encoder FPS step. In ``'window_all'`` the Morton-sorted cloud is
-        cut into contiguous bands (``pick_fps_bands`` with the model's
+    def fps_scale(self, cur_xyz: torch.Tensor, npoint: int, i: int,
+                  generator: Optional[torch.Generator] = None, starts=None) -> torch.Tensor:
+        """Encoder FPS step ``i``. In ``'window_all'`` the Morton-sorted cloud
+        is cut into contiguous bands (``pick_fps_bands`` with the model's
         floors); when windowed the indices are sorted, so every scale stays
-        Morton-ordered (an FPS set does not depend on its order)."""
+        Morton-ordered (an FPS set does not depend on its order). In train
+        mode the step takes keyed starts (``ops/fps.py::keyed_start``):
+        ``starts[i]`` (``[B]``, or ``[B, n_bands]`` band-local ones when
+        banded) or a draw from ``generator``; index 0 otherwise."""
         bands = 1
         if self.neighbor_mode == "window_all":
             bands = pick_fps_bands(cur_xyz.shape[1], npoint, min_band=self.fps_min_band,
                                    min_samples=self.fps_min_samples)
-        fps_idx = banded_farthest_point_sample(cur_xyz, npoint, bands)
+        start = keyed_start(self.training, i, generator, starts, cur_xyz.shape[0],
+                            cur_xyz.shape[1], bands)
+        fps_idx = banded_farthest_point_sample(cur_xyz, npoint, bands, start_idx=start)
         if self.windowed:
             fps_idx = torch.sort(fps_idx, dim=-1)[0]
         return fps_idx

@@ -18,7 +18,7 @@ one ``fps_kernel`` launch runs them all.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -180,6 +180,31 @@ def farthest_point_sample(
         return fps_cuda(points.float().contiguous(), npoint, start_idx)
     _check(points, npoint, start_idx)
     return fps_plain(points, npoint, start_idx)
+
+
+def draw_starts(generator: torch.Generator, batch: int, n: int, n_bands: int = 1
+                ) -> torch.Tensor:
+    """Keyed FPS starts drawn from ``generator`` on its device: one index in
+    ``[0, n)`` a cloud (``[batch]``), or with ``n_bands > 1`` one band-local
+    index in ``[0, n / n_bands)`` a band (``[batch, n_bands]``), uniform, as
+    ``mpa_tpu`` draws them with ``jax.random.randint`` (torch draws other
+    values from the same seed)."""
+    shape = (batch,) if n_bands <= 1 else (batch, n_bands)
+    return torch.randint(0, n // max(n_bands, 1), shape, generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
+def keyed_start(keyed: bool, i: int, generator: Optional[torch.Generator], starts,
+                batch: int, n: int, n_bands: int = 1) -> Union[int, torch.Tensor]:
+    """The start of FPS scale ``i`` (ladder order) over ``batch`` clouds of
+    ``n`` points: with ``keyed`` (train mode, ``mpa_tpu`` keys FPS in no
+    other), the caller's ``starts[i]`` or else a :func:`draw_starts` draw
+    from ``generator``; index 0 otherwise, or when neither is given."""
+    if keyed and starts is not None:
+        return starts[i]
+    if keyed and generator is not None:
+        return draw_starts(generator, batch, n, n_bands)
+    return 0
 
 
 def pick_fps_bands(N: int, npoint: int, *, min_band: int = 512, min_samples: int = 64) -> int:

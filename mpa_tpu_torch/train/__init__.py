@@ -6,6 +6,7 @@ from mpa_tpu_torch.train.losses import (
     chamfer_distance,
     cls_loss,
     completion_loss,
+    mi_aux_loss,
     smooth_cls_loss,
     smooth_seg_loss,
 )
@@ -57,6 +58,7 @@ __all__ = [
     "make_schedule",
     "make_semseg_train_step",
     "make_train_step",
+    "mi_aux_loss",
     "part_iou_metrics",
     "point_accuracy",
     "scale_point_cloud",

@@ -16,12 +16,17 @@ included, as ``optax.add_decayed_weights`` does. A parameter that takes no
 part in the loss (``LocalTrans.q``) gets a zero gradient in JAX, which the
 decay term then moves through Adam; torch would leave its ``.grad`` as None
 and skip it, so the step gives every such parameter a zero gradient first.
+
+A data-parallel step (``mpa_tpu_torch/parallel``) is this step with a
+``reduce_grads`` hook, which averages the gradients over the ranks between
+the backward and the optimizer; the L2 term stays inside the optimizer's
+gradient, as here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, List, Optional
 
 import torch
 from torch import nn
@@ -38,6 +43,14 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     generator: Optional[torch.Generator] = None  # dropout masks, on the model's device
     step: int = 0
+    # Keyed FPS starts (the models' ``fps_generator``), on the model's device;
+    # None leaves every FPS at index 0, as ``mpa_tpu``'s train step does.
+    fps_generator: Optional[torch.Generator] = None
+
+# ``reduce_grads(parameters, loss)``: called after the backward with every
+# parameter (each with a gradient) and the detached loss; returns the loss
+# the step reports.
+GradReducer = Callable[[List[torch.Tensor], torch.Tensor], torch.Tensor]
 
 
 def make_optimizer(
@@ -71,6 +84,7 @@ def make_train_step(
     loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     schedule: Schedule,
     steps_per_epoch: int,
+    reduce_grads: Optional[GradReducer] = None,
 ):
     """Build ``train_step(state, points, labels) -> loss`` (detached);
     ``points`` is whatever the model takes (a part-seg model takes the pair
@@ -78,7 +92,10 @@ def make_train_step(
 
     The learning rate of step ``t`` (counted from 0) is
     ``schedule(t // steps_per_epoch)``, as ``mpa_tpu``'s optax schedule reads
-    the step count before its update. The model runs in train mode.
+    the step count before its update. The model runs in train mode, and
+    takes ``state.fps_generator`` for its keyed FPS starts when one is set.
+    ``reduce_grads`` (``GradReducer``) runs between the backward and the
+    optimizer.
     """
 
     def train_step(state: TrainState, points: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -87,15 +104,19 @@ def make_train_step(
             group["lr"] = lr
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(state.model(points, generator=state.generator), labels)
+        keyed = {} if state.fps_generator is None else {"fps_generator": state.fps_generator}
+        loss = loss_fn(state.model(points, generator=state.generator, **keyed), labels)
         loss.backward()
-        for group in state.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        params = [p for group in state.optimizer.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        loss = loss.detach()
+        if reduce_grads is not None:
+            loss = reduce_grads(params, loss)
         state.optimizer.step()
         state.step += 1
-        return loss.detach()
+        return loss
 
     return train_step
 
@@ -110,48 +131,58 @@ def make_schedule(cfg: TrainConfig) -> Schedule:
     raise ValueError(f"unknown scheduler {cfg.scheduler}")
 
 
-def make_cls_train_step(cfg: TrainConfig, steps_per_epoch: int):
+# Every task's step factory takes ``(cfg, steps_per_epoch, reduce_grads=None)``.
+
+
+def make_cls_train_step(cfg: TrainConfig, steps_per_epoch: int,
+                        reduce_grads: Optional[GradReducer] = None):
     """The classification step of ``cfg``: label-smoothed NLL under its
     per-epoch schedule."""
     smoothing = cfg.label_smoothing
     return make_train_step(lambda out, labels: smooth_cls_loss(out, labels, smoothing),
-                           make_schedule(cfg), steps_per_epoch)
+                           make_schedule(cfg), steps_per_epoch, reduce_grads)
 
 
-def _seg_train_step(cfg: TrainConfig, steps_per_epoch: int):
+def _seg_train_step(cfg: TrainConfig, steps_per_epoch: int,
+                    reduce_grads: Optional[GradReducer] = None):
     smoothing = cfg.label_smoothing
     return make_train_step(lambda out, labels: smooth_seg_loss(out, labels, smoothing),
-                           make_schedule(cfg), steps_per_epoch)
+                           make_schedule(cfg), steps_per_epoch, reduce_grads)
 
 
-def make_partseg_train_step(cfg: TrainConfig, steps_per_epoch: int):
+def make_partseg_train_step(cfg: TrainConfig, steps_per_epoch: int,
+                            reduce_grads: Optional[GradReducer] = None):
     """The part-seg step of ``cfg``: per-point label-smoothed NLL under its
     per-epoch schedule. Call it as ``step(state, (points, onehot), labels)``
     with labels ``[B, N]``."""
-    return _seg_train_step(cfg, steps_per_epoch)
+    return _seg_train_step(cfg, steps_per_epoch, reduce_grads)
 
 
-def make_semseg_train_step(cfg: TrainConfig, steps_per_epoch: int):
+def make_semseg_train_step(cfg: TrainConfig, steps_per_epoch: int,
+                           reduce_grads: Optional[GradReducer] = None):
     """The semantic-segmentation step of ``cfg`` (``s3dis_semseg``: SGD 0.1,
     momentum 0.9, wd 1e-4, cosine to 1e-3, smoothing 0.1, head dropout 0.5
     from the state's generator): per-point label-smoothed NLL. Call it as
     ``step(state, blocks [B, N, 9], labels [B, N])``."""
-    return _seg_train_step(cfg, steps_per_epoch)
+    return _seg_train_step(cfg, steps_per_epoch, reduce_grads)
 
 
-def make_pose_train_step(cfg: TrainConfig, steps_per_epoch: int):
+def make_pose_train_step(cfg: TrainConfig, steps_per_epoch: int,
+                         reduce_grads: Optional[GradReducer] = None):
     """The pose step of ``cfg`` (``pose_modelnet40``: adam-l2 1e-3, wd 1e-4,
     cosine to 1e-5, head dropout 0.1 from the state's generator): the mean
     geodesic angle. Call it as ``step(state, points [B, N, 3], rotations
     [B, 3, 3])``."""
-    return make_train_step(rotation_geodesic_loss, make_schedule(cfg), steps_per_epoch)
+    return make_train_step(rotation_geodesic_loss, make_schedule(cfg), steps_per_epoch,
+                           reduce_grads)
 
 
-def make_completion_train_step(cfg: TrainConfig, steps_per_epoch: int):
+def make_completion_train_step(cfg: TrainConfig, steps_per_epoch: int,
+                               reduce_grads: Optional[GradReducer] = None):
     """The completion step of ``cfg`` (``completion``: the pose recipe): the
     coarse and the fine cloud's Chamfer distance to the full one. Call it as
     ``step(state, partial [B, N, 3], full [B, M, 3])``."""
-    return make_train_step(completion_loss, make_schedule(cfg), steps_per_epoch)
+    return make_train_step(completion_loss, make_schedule(cfg), steps_per_epoch, reduce_grads)
 
 
 # The train step of each task, as ``TRAIN_STEPS[cfg.task](cfg, steps_per_epoch)``.

@@ -6,7 +6,8 @@ over log-probabilities, the off-class mass ``smoothing / (n_class - 1)``;
 ``cls_loss`` is the plain NLL (``ClsLoss``); ``smooth_seg_loss`` is the same
 smoothed NLL over flattened per-point log-probabilities (part-seg
 ``get_loss``); ``chamfer_distance`` and ``completion_loss`` are the
-completion model's objective.
+completion model's objective; ``mi_aux_loss`` is the golden part-seg
+snapshot's optional mutual-information auxiliary, wired into no model.
 """
 
 from __future__ import annotations
@@ -59,3 +60,18 @@ def completion_loss(out, target: torch.Tensor) -> torch.Tensor:
     model's ``(coarse, fine)``."""
     coarse, fine = out
     return chamfer_distance(coarse, target) + chamfer_distance(fine, target)
+
+
+def mi_aux_loss(ret2: torch.Tensor, ret3: torch.Tensor, ret4: torch.Tensor) -> torch.Tensor:
+    """The mean over three scales of the mean BCE-with-logits of each
+    ``[B, 2M]`` score tensor (M positive-pair scores, then M negative-pair
+    ones) against ``[ones(M), zeros(M)]`` (``mpa_tpu/train/losses.py:79``,
+    the reference's ``get_loss2``), in float32."""
+
+    def one(ret: torch.Tensor) -> torch.Tensor:
+        x = ret.float()
+        m = x.shape[1] // 2
+        target = torch.cat([torch.ones_like(x[:, :m]), torch.zeros_like(x[:, m:])], dim=1)
+        return torch.nn.functional.binary_cross_entropy_with_logits(x, target)
+
+    return (one(ret2) + one(ret3) + one(ret4)) / 3.0

@@ -253,12 +253,15 @@ def test_local_merge_matches_frozen_oracle():
 @pytest.mark.parametrize("kw", [dict(use_tanh=True), dict(knn_mode="window"),
                                 dict(feature_knn_mode="window")])
 def test_unported_local_merge_modes_raise(kw):
-    """``use_tanh`` is not ported and raises; the window modes are ported
-    (held against ``mpa_tpu`` in ``tests/test_torch_port_semseg.py``) and an
-    unknown mode raises instead."""
+    """``use_tanh`` is ported (held against ``mpa_tpu`` in
+    ``tests/test_torch_port_model_options.py``) and reaches every branch; the
+    window modes are ported (held against ``mpa_tpu`` in
+    ``tests/test_torch_port_semseg.py``) and an unknown mode raises
+    instead."""
     if "use_tanh" in kw:
-        with pytest.raises(NotImplementedError):
-            LocalMerge(16, 16, 8, **kw)
+        merge = LocalMerge(16, 16, 8, include_xyz_branch=True, **kw)
+        assert all(t.use_tanh for t in (merge.xyz_trans, merge.feature_trans,
+                                        merge.feature_trans2))
         return
     (key, mode), = kw.items()
     assert getattr(LocalMerge(16, 16, 8, **kw), key) == mode
@@ -393,9 +396,12 @@ def test_partseg_registry_and_unported_options():
         MarkovPartSeg(neighbor_mode="ball")
     with pytest.raises(NotImplementedError):
         MarkovPartSeg(compute_dtype=torch.bfloat16)
-    for kw in (dict(dtype=torch.bfloat16), dict(fps_random_start=True)):
-        with pytest.raises(NotImplementedError):
-            KeepHighResolutionPartSeg(**kw)
+    with pytest.raises(NotImplementedError):
+        KeepHighResolutionPartSeg(dtype=torch.bfloat16)
+    # Keyed FPS starts are ported: the forward takes them in train mode
+    # (tests/test_torch_port_model_options.py), so no constructor switch.
+    with pytest.raises(TypeError):
+        KeepHighResolutionPartSeg(fps_random_start=True)
     with pytest.raises(ValueError):
         MarkovPartSeg(dropout=1.0)
 

@@ -301,10 +301,10 @@ def _recorded_draws(monkeypatch, argv):
     augmentation made there (as the augmentation of zeros and of ones)."""
     seen = {}
 
-    def recording(cfg, points, step):
+    def recording(cfg, points, step, shard=(0, 1)):
         probe = torch.stack([torch.zeros_like(points), torch.ones_like(points)])
         seen[step] = augment_batch(cfg, probe.flatten(0, 1), step).reshape(probe.shape)
-        return augment_batch(cfg, points, step)
+        return augment_batch(cfg, points, step, shard)
 
     monkeypatch.setattr(cli_train, "augment_batch", recording)
     out = cli_train.main(argv)
