@@ -165,7 +165,25 @@ S3DIS rooms through ``cli.train`` and the sliding scene inference (phase
    (its encoder's ``fps_random_start`` set), part-seg and part-seg in ``window_all`` with keyed
    FPS starts drawn on the card, every ``fps_kernel`` launch replayed with
    its starts (tagged ``keyed_*``);
-4. a ``{"kernels": [...]}`` JSON line, then the last line
+8. mixed precision (run after phase 7): ``markov_cls`` and ``markov_partseg``
+   with ``compute_dtype=torch.bfloat16`` at the widths of phases 2 and 2c:
+   (a) served through ``load_classifier`` / ``load_segmenter(compute_dtype=
+   ...)``, two warm-up and three timed requests, the launch counts exactly
+   the float32 paths' in all and ``BF16_PATHS``' in bf16, float32 log-probs
+   whose rows sum to 1, the card against the CPU's bf16 model (plain ops)
+   on ``parity_batch`` clouds within ``BF16_LIMITS``, and beside it the
+   card's float32 model against its bf16 one and the bf16 model with
+   cuBLAS's reduced-precision bf16 reduction let on; (b) the preset's train
+   step of the bf16 model, two warm-up and five timed steps with exact
+   counts and the peak memory, parameters and gradients float32, and one
+   step at ``parity_batch`` against the CPU's within ``BF16_TRAIN_LIMITS``'
+   loss and ``grad_limit`` units; (c) every bf16 launch of a request and of a
+   step's backward replayed against its plain version (tagged
+   ``PATH_bf16``), as phase 3's float32 launches, with one bf16 ulp more
+   where those have a tolerance; (d) the request and step medians of bf16
+   beside float32 and each bf16 kernel's time;
+4. a ``{"kernels": [...]}`` JSON line (the bf16 launches as entries of
+   their own, ``NAME[bf16]``), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; nothing falls back to
@@ -384,6 +402,13 @@ ROUNDING_ZERO = re.compile(
     r"(\.k\.bias|\.q\.(weight|bias)|\.linear\.bias|^fc[12]\.bias|\.final_class\.bias"
     r"|\.mlp_[lf]0\.bias|\.conv\d+\.bias|surface_constructor\.mlp[12]\.bias"
     r"|^sa4\.mlps\.bn1\.bias|^conv6\.norm\.bias)$")
+# In bf16 steps, also the value projections' biases (a shift of v passes
+# through the max over the neighbours into a train-mode BatchNorm: their
+# gradients are at most 9e-4 of the whole gradient's norm in float64 on the
+# CPU, below bf16's resolution of it), and for all of these a floor of that
+# resolution, 2^-8 of the whole gradient's norm.
+BF16_ROUNDING_ZERO = re.compile(ROUNDING_ZERO.pattern + r"|\.v\.bias$")
+BF16_ZERO_FLOOR = 2.0 ** -8
 SOURCES = {
     "knn_kernel": ("mpa_tpu_torch/kernels/csrc/knn.cu", "mpa_tpu/ops/pallas/knn_pallas.py:102"),
     "fps_kernel": ("mpa_tpu_torch/kernels/csrc/fps.cu", "mpa_tpu/ops/pallas/fps_pallas.py:70"),
@@ -485,7 +510,9 @@ def time_events(fn, reps: int = 3) -> float:
 
 def bound(name: str, inp: dict):
     """(bytes, operations) the call's work needs at least: each input read
-    once and each output written once; operations counted from the shapes."""
+    once and each output written once, each at its own element size (2
+    bytes for bf16); operations counted from the shapes (float32 arithmetic
+    in bf16 storage too)."""
     if name == "knn_kernel":
         B, N, C = inp["base"].shape
         S, k = inp["query"].shape[1], inp["k"]
@@ -517,16 +544,18 @@ def bound(name: str, inp: dict):
     elif name == "gather_rows_kernel":
         B, _, W = inp["points"].shape
         E = inp["idx"].shape[1]
-        nbytes = 2 * 4 * B * E * W + 4 * B * E
+        nbytes = 2 * inp["points"].element_size() * B * E * W + 4 * B * E
         ops = 0
     elif name == "scatter_add_rows_kernel":
         B, E, W = inp["grads"].shape
-        nbytes = 4 * (B * E * W + B * E + B * inp["num_points"] * W)
-        ops = B * E * W  # one add per gradient float
+        es = inp["grads"].element_size()  # the output has the gradient's type
+        nbytes = es * (B * E * W + B * inp["num_points"] * W) + 4 * B * E
+        ops = B * E * W  # one add per gradient value
     elif name in ("scatter_mean_kernel", "windowed_scatter_mean_kernel"):
         B, S, C = inp["features"].shape
         K, N = inp["knn_idx"].shape[2], inp["num_fine"]
-        nbytes = 4 * (B * S * C + B * S * K + B * N * C + B * N)
+        es = inp["features"].element_size()  # the mean has the features' type, the count is f32
+        nbytes = es * (B * S * C + B * N * C) + 4 * (B * S * K + B * N)
         # One add per float of every row that lands in a slot (this call's
         # indices, not the most there could be), one divide per output float.
         idx = inp["knn_idx"]
@@ -537,8 +566,9 @@ def bound(name: str, inp: dict):
         Wo = inp["n_branches"] * inp["c"]
         sh = int(inp["shifts"] is not None)
         # packed, idx, gctx (and shifts) read once; dpacked (and dshift)
-        # written once.
-        nbytes = 4 * (2 * B * N * Win + B * S * K + B * S * Wo * (1 + 2 * sh))
+        # written once, in packed's type.
+        es = inp["packed"].element_size()
+        nbytes = es * (2 * B * N * Win + B * S * Wo * (1 + 2 * sh)) + 4 * B * S * K
         # Per (query, channel), from attention_bwd.cu with one neighbour at the
         # maximum (there is at least one): the denominator's K - 1 adds; per
         # neighbour a divide, subtract, multiply, compare (and the shift's
@@ -551,7 +581,8 @@ def bound(name: str, inp: dict):
         S, K = inp["idx"].shape[1:]
         Wo = inp["n_branches"] * inp["c"]
         has_shift = inp["shifts"] is not None
-        nbytes = 4 * (B * N * Win + B * S * K + B * S * Wo * (2 if has_shift else 1))
+        es = inp["packed"].element_size()  # packed, shifts and the context share it
+        nbytes = es * (B * N * Win + B * S * Wo * (2 if has_shift else 1)) + 4 * B * S * K
         ops = B * S * Wo * K * (6 if has_shift else 5)
     return nbytes, ops
 
@@ -607,7 +638,7 @@ def check_scatter_mean_grad(inp: dict) -> float:
     # the index, so it takes a copy.
     feats, idx, n = inp["features"].detach(), inp["knn_idx"].clone(), inp["num_fine"]
     g = torch.randn((feats.shape[0], n, feats.shape[2]), device=feats.device,
-                    generator=torch.Generator(device=feats.device).manual_seed(SEED))
+                    generator=torch.Generator(device=feats.device).manual_seed(SEED)).to(feats.dtype)
     kern = scatter_mean_upsample
     if "spec" in inp:
         kern = lambda f, i, m: windowed_scatter_mean(f, i, m, inp["spec"])  # noqa: E731
@@ -616,12 +647,22 @@ def check_scatter_mean_grad(inp: dict) -> float:
         f = feats.clone().requires_grad_(True)
         grads.append(torch.autograd.grad(fn(f, idx, n), f, g)[0])
     torch.cuda.synchronize()
-    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
-    return (grads[0] - grads[1]).abs().max().item()
+    torch.testing.assert_close(grads[0].float(), grads[1].float(), rtol=bf16_rtol(1e-5, grads[0]),
+                               atol=1e-6)
+    return (grads[0].float() - grads[1].float()).abs().max().item()
+
+
+def bf16_rtol(rtol: float, t: torch.Tensor) -> float:
+    """``rtol`` of a float32 comparison, and for a bf16 ``t`` one bf16 ulp
+    more (2^-7 of the magnitude): a float32 sum that differs in its last
+    bits can round to the neighbouring bf16."""
+    return rtol + (2.0 ** -7 if t.dtype == torch.bfloat16 else 0.0)
 
 
 def check_call(name: str, inp: dict) -> dict:
-    """Kernel against plain version on one recorded call, with its times."""
+    """Kernel against plain version on one recorded call, with its times.
+    bf16 launches are held as the float32 ones, bit for bit where those are,
+    and within one bf16 ulp more where those have a tolerance."""
     # A backward launch records tensors that autograd saved; replay them
     # detached, so that the plain version builds no graph.
     inp = {k: v.detach() if torch.is_tensor(v) else v for k, v in inp.items()}
@@ -710,16 +751,17 @@ def check_call(name: str, inp: dict) -> dict:
         if not torch.equal(got, want):
             raise AssertionError("gather_rows_kernel differs from the plain version")
         err = 0.0
-        shape = ("points {} idx {}, {} floats a column, {} columns a thread"
-                 .format(tuple(pts.shape), tuple(idx.shape), *gather_form(pts, idx.numel())))
+        shape = ("{} points {} idx {}, {} values a column, {} columns a thread"
+                 .format(pts.dtype, tuple(pts.shape), tuple(idx.shape),
+                         *gather_form(pts, idx.numel())))
     elif name == "scatter_add_rows_kernel":
         grads, idx, n = inp["grads"], inp["idx"], inp["num_points"]
         B, _, W = grads.shape
         kern, plain = (lambda: scatter_add_cuda(grads, idx, n)), (lambda: scatter_add_plain(grads, idx, n))
         rows = (idx.long() + torch.arange(B, device=idx.device)[:, None] * n).reshape(-1)
         flat_grads = grads.reshape(-1, W)
-        library = lambda: torch.zeros((B * n, W), device=grads.device).index_add_(  # noqa: E731
-            0, rows, flat_grads)
+        library = lambda: torch.zeros((B * n, W), dtype=grads.dtype,  # noqa: E731
+                                      device=grads.device).index_add_(0, rows, flat_grads)
         got, again, want = kern(), kern(), plain()
         cpu = scatter_add_plain(grads.cpu(), idx.cpu(), n)
         if not torch.equal(got, again):
@@ -730,10 +772,10 @@ def check_call(name: str, inp: dict) -> dict:
                 f"{int((got.cpu() != cpu).sum())} places")
         # The plain version's index_add_ is atomic on the card: sums in another
         # order. The CPU comparison above is the exact one.
-        err = assert_close_scaled(got, want, rtol=1e-5, what=name)
+        err = assert_close_scaled(got.float(), want.float(), rtol=bf16_rtol(1e-5, got), what=name)
         ref = want.abs().max().item()
-        shape = ("grads {} into N={}, {} slots a block, {} channels a lane"
-                 .format(tuple(grads.shape), n, *scatter_add_form(grads, n)))
+        shape = ("{} grads {} into N={}, {} slots a block, {} channels a lane"
+                 .format(grads.dtype, tuple(grads.shape), n, *scatter_add_form(grads, n)))
     elif name in ("scatter_mean_kernel", "windowed_scatter_mean_kernel"):
         feats, idx, n = inp["features"], inp["knn_idx"], inp["num_fine"]
         B, S, C = feats.shape
@@ -747,12 +789,14 @@ def check_call(name: str, inp: dict) -> dict:
         ones = torch.ones_like(rows, dtype=torch.float32)
 
         def index_adds():  # index_add_ of the rows and of ones, then the divide
-            total = torch.zeros((B * n, C), device=feats.device).index_add_(0, rows, vals)
+            total = torch.zeros((B * n, C), dtype=feats.dtype,
+                                device=feats.device).index_add_(0, rows, vals)
             cnt = torch.zeros((B * n,), device=feats.device).index_add_(0, rows, ones)
-            return total / cnt.clamp_min(1.0)[:, None]
+            return (total / cnt.clamp_min(1.0)[:, None]).to(feats.dtype)
 
         rows_c = rows[:, None].expand(-1, C)
-        library = lambda: torch.zeros((B * n, C), device=feats.device).scatter_reduce_(  # noqa: E731
+        library = lambda: torch.zeros((B * n, C), dtype=feats.dtype,  # noqa: E731
+                                      device=feats.device).scatter_reduce_(
             0, rows_c, vals, reduce="mean", include_self=False)
 
         (got, gc), (again, _), (want, wc) = kern(), kern(), plain()
@@ -767,9 +811,9 @@ def check_call(name: str, inp: dict) -> dict:
                 f"{int((got.cpu() != cpu).sum())} places")
         # The plain version's index_add_ is atomic on the card: a sum of up to a
         # few dozen rows in another order. The CPU comparison above is the exact one.
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        err = (got - want).abs().max().item()
-        shape = f"features {tuple(feats.shape)} idx {tuple(idx.shape)} into N={n}"
+        torch.testing.assert_close(got.float(), want.float(), rtol=bf16_rtol(1e-5, got), atol=1e-5)
+        err = (got.float() - want.float()).abs().max().item()
+        shape = f"{feats.dtype} features {tuple(feats.shape)} idx {tuple(idx.shape)} into N={n}"
         form = scatter_mean_form(feats, n) if spec is None else windowed_scatter_mean_form(feats, n)
         shape += ", {} slots a block, {} channels a lane".format(*form)
         extra["index_add_ms"] = time_graph(index_adds)
@@ -779,11 +823,15 @@ def check_call(name: str, inp: dict) -> dict:
         if spec is not None:
             kern = lambda: windowed_attention_bwd_cuda(*args, spec)  # noqa: E731
         (gp, gs), (wp, ws) = kern(), plain()
-        err = assert_close_scaled(gp, wp, rtol=1e-4, what=f"{name} dpacked")
+        if gp.dtype != args[0].dtype or (gs is not None and gs.dtype != args[0].dtype):
+            raise AssertionError(f"{name}: gradients of type {gp.dtype}, want {args[0].dtype}")
+        err = assert_close_scaled(gp.float(), wp.float(), rtol=bf16_rtol(1e-4, gp),
+                                  what=f"{name} dpacked")
         if args[2] is not None:
-            err = max(err, assert_close_scaled(gs, ws, rtol=1e-5, what=f"{name} dshift"))
+            err = max(err, assert_close_scaled(gs.float(), ws.float(), rtol=bf16_rtol(1e-5, gs),
+                                               what=f"{name} dshift"))
         ref = wp.abs().max().item()
-        shape = (f"packed {tuple(args[0].shape)} idx {tuple(args[1].shape)} "
+        shape = (f"{args[0].dtype} packed {tuple(args[0].shape)} idx {tuple(args[1].shape)} "
                  f"shift={args[2] is not None} n_branches={args[4]}")
     else:
         args = (inp["packed"], inp["idx"], inp["shifts"], inp["n_branches"], inp["c"])
@@ -795,7 +843,7 @@ def check_call(name: str, inp: dict) -> dict:
             raise AssertionError(f"{name} differs from the plain version at "
                                  f"{int((got != want).sum())} places")
         err = 0.0
-        shape = (f"packed {tuple(args[0].shape)} idx {tuple(args[1].shape)} "
+        shape = (f"{args[0].dtype} packed {tuple(args[0].shape)} idx {tuple(args[1].shape)} "
                  f"shift={args[2] is not None} n_branches={args[3]}, "
                  f"{attention_fwd_form(args[0], args[2], args[1].shape[2], args[4])} "
                  "channels a thread")
@@ -864,15 +912,16 @@ def make_step(path: str, steps_per_epoch: int):
     return TRAIN_STEPS[cfg.task](cfg, steps_per_epoch)
 
 
-def grad_error_units(got: dict, want: dict) -> list:
+def grad_error_units(got: dict, want: dict, zero: re.Pattern = ROUNDING_ZERO,
+                     zero_floor: float = 1e-5) -> list:
     """Per parameter, the L2 distance of ``got``'s gradient from ``want``'s in
-    units of 1e-3 of ``want``'s norm; for the tensors ``ROUNDING_ZERO`` names
-    the unit adds 1e-5 of the whole gradient's norm. Largest first, as
-    ``(name, units)``."""
+    units of 1e-3 of ``want``'s norm; for the tensors ``zero`` names (zero up
+    to rounding) the unit adds ``zero_floor`` of the whole gradient's norm.
+    Largest first, as ``(name, units)``."""
     total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in want.values())))
     units = {}
     for name, w in want.items():
-        unit = 1e-3 * float(w.norm()) + (1e-5 * total if ROUNDING_ZERO.search(name) else 0.0)
+        unit = 1e-3 * float(w.norm()) + (zero_floor * total if zero.search(name) else 0.0)
         units[name] = float((got[name] - w).norm()) / max(unit, 1e-30)
     return sorted(units.items(), key=lambda kv: -kv[1])
 
@@ -892,14 +941,16 @@ def fix_flips(model: torch.nn.Module, batch: int) -> None:
     model.register_forward_pre_hook(hook, with_kwargs=True)
 
 
-def train_parity(path: str) -> dict:
+def train_parity(path: str, **model_kw) -> dict:
     """One step of the path's preset with dropout 0 on the card and on the
     CPU (plain ops), from the same weights, with the same umbrella flips
     (``fix_flips``), on the first ``parity_batch`` training clouds. Returns
     the loss difference, ``grad_error_units`` of the gradients, the worst
     error of a BatchNorm running statistic (relative to its norm plus 1e-3
-    an entry) as ``(name, value)``, the card step's launch counts and both
-    steps' wall seconds."""
+    an entry) as ``(name, value)``, the card step's launch counts (and its
+    bf16 ones) and both steps' wall seconds. ``model_kw`` reach the model's
+    constructor; with ``compute_dtype`` the gradient units take
+    ``BF16_ROUNDING_ZERO`` and its floor."""
     from mpa_tpu_torch import kernels
     from mpa_tpu_torch.cli import train as cli_train
     from mpa_tpu_torch.train import create_train_state
@@ -907,7 +958,9 @@ def train_parity(path: str) -> dict:
     spec, cfg = path_spec(path), path_config(path, parity=True)
     arrays = train_arrays(path, cfg)
     head = tuple(a[:spec["parity_batch"]] for a in arrays)
-    model = fresh_model(path, cfg, **({} if path == "completion" else {"dropout": 0.0}))
+    if path != "completion":
+        model_kw = dict(model_kw, dropout=0.0)
+    model = fresh_model(path, cfg, **model_kw)
     fix_flips(model, spec["parity_batch"])
     results = {}
     for device in (torch.device("cuda"), torch.device("cpu")):
@@ -919,8 +972,12 @@ def train_parity(path: str) -> dict:
         wall = time.perf_counter() - t0
         grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
         stats = {n: b.detach().cpu() for n, b in state.model.named_buffers() if "running" in n}
-        results[device.type] = (loss, grads, stats, wall, dict(kernels.LAUNCHES))
-    (lg, gg, sg, wg, launches), (lc, gc, sc, wc, _) = results["cuda"], results["cpu"]
+        results[device.type] = (loss, grads, stats, wall,
+                                (dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_BF16)))
+    (lg, gg, sg, wg, (launches, bf16)), (lc, gc, sc, wc, _) = results["cuda"], results["cpu"]
+    zero = {}
+    if model_kw.get("compute_dtype") is not None:
+        zero = dict(zero=BF16_ROUNDING_ZERO, zero_floor=BF16_ZERO_FLOOR)
     # Relative to the statistic's norm plus 1e-3 an entry: a running mean that
     # is zero up to rounding (a Dense with a zero bias on centred coordinates)
     # has no relative error to speak of.
@@ -928,9 +985,12 @@ def train_parity(path: str) -> dict:
                 for n in sc}
     return {
         "loss_diff": abs(lg - lc),
-        "grad_units": grad_error_units(gg, gc),
+        "grad_units": grad_error_units(gg, gc, **zero),
+        "grad_l2": float(torch.sqrt(sum(((gg[n] - gc[n]).double() ** 2).sum() for n in gc))
+                         / torch.sqrt(sum((g.double() ** 2).sum() for g in gc.values()))),
         "stat": max(stat_err.items(), key=lambda kv: kv[1]),
         "launches": {k: v for k, v in launches.items() if v},
+        "launches_bf16": {k: v for k, v in bf16.items() if v},
         "cuda_s": wg,
         "cpu_s": wc,
     }
@@ -949,7 +1009,6 @@ def train_phase(path: str, tag: str) -> dict:
     """Phases 2b, 2d and 2f: the path's train step on the card, its launch
     counts, the loss on a fixed batch, the CUDA step against the CPU step,
     and the training CLI."""
-    from mpa_tpu_torch import kernels
     from mpa_tpu_torch.cli import train as cli_train
     from mpa_tpu_torch.train import create_train_state
 
@@ -959,47 +1018,26 @@ def train_phase(path: str, tag: str) -> dict:
     steps_per_epoch = len(arrays[0]) // B
     cuda = torch.device("cuda")
 
-    def batch(i):
-        return cli_train.make_inputs(cfg, tuple(a[i * B:(i + 1) * B] for a in arrays), cuda)
-
-    # Timed steps, with the launch counts of exactly those steps.
-    state = create_train_state(fresh_model(path), cfg, cuda)
-    step = make_step(path, steps_per_epoch)
-    for i in range(TRAIN_WARMUP):
-        step(state, *batch(i))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    times, losses = [], []
-    for i in range(TRAIN_STEPS):
-        x, y = batch(TRAIN_WARMUP + i)
-        t0 = time.perf_counter()
-        losses.append(float(step(state, x, y)))  # float() waits for the step
-        times.append(time.perf_counter() - t0)
-    launches = dict(kernels.LAUNCHES)
+    # Timed steps, with the launch counts of exactly those steps, and one more
+    # that records the backward launches' inputs and the step's gathers
+    # (forward, and the scatter-means' backward) for phase 3.
+    run = timed_steps(path, fresh_model(path))
+    times, losses, launches, recorded = (run["times"], run["losses"], run["launches"][0],
+                                         run["recorded"])
     for i, (dt, loss) in enumerate(zip(times, losses)):
         log(f"[{tag}] step {i}: B={B} x {points} pts, loss {loss:.4f}, "
             f"{dt * 1e3:.3f} ms, {B / dt:.1f} clouds/s")
     log(f"[{tag}] launches over {TRAIN_STEPS} steps: {launches}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+        f"{run['peak'] / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
     check_launches(tag, launches, spec["per_train_step"], TRAIN_STEPS, "train step")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train losses {losses}")
-
-    # One more step records the backward launches' inputs, and the step's
-    # gathers (forward, and the scatter-means' backward), for phase 3.
-    kernels.recorded = []
-    step(state, *batch(TRAIN_WARMUP + TRAIN_STEPS))
-    torch.cuda.synchronize()
-    recorded = [(n, inp) for n, inp in kernels.recorded
-                if n in BACKWARD or n == "gather_rows_kernel"]
-    kernels.recorded = None
-    del state
+    del run
 
     # Ten steps on one fixed batch must lower the loss.
     state = create_train_state(fresh_model(path), cfg, cuda)
     step = make_step(path, steps_per_epoch)
-    x, y = batch(0)
+    x, y = cli_train.make_inputs(cfg, tuple(a[:B] for a in arrays), cuda)
     fixed = [float(step(state, x, y)) for _ in range(FIXED_STEPS)]
     log(f"[{tag}] {FIXED_STEPS} steps on one batch: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
     if not fixed[-1] < fixed[0]:
@@ -1106,8 +1144,9 @@ def cloud_requests(path: str, n: int) -> np.ndarray:
     return cli_train.load_dataset(cfg, n_train=1, n_eval=n)[1][0]
 
 
-def serve_loader(path: str, device=None):
-    """The serving entry point of ``path`` with this script's seed."""
+def serve_loader(path: str, device=None, **kw):
+    """The serving entry point of ``path`` with this script's seed; ``kw``
+    (``compute_dtype``) reach the loader."""
     from mpa_tpu_torch.serve import (
         load_classifier, load_completer, load_pose_regressor, load_segmenter,
         load_semantic_segmenter,
@@ -1117,7 +1156,7 @@ def serve_loader(path: str, device=None):
     loader = {"partseg": load_segmenter, "partseg_fp": load_segmenter,
               "semseg": load_semantic_segmenter, "pose": load_pose_regressor,
               "completion": load_completer}.get(path, load_classifier)
-    return loader(spec["preset"], seed=SEED, device=device, **spec.get("overrides", {}))
+    return loader(spec["preset"], seed=SEED, device=device, **spec.get("overrides", {}), **kw)
 
 
 def cloud_parity(path: str) -> dict:
@@ -1174,16 +1213,13 @@ def check_served_output(path: str, out, B: int, points: int) -> None:
                                rtol=0, atol=1e-4)
 
 
-def serve_phase(path: str, tag: str) -> dict:
-    """Phases 2, 2c, 2e, 2g, 2i, 2k and 2m: the path's serving entry point
-    answers two warm-up and ``REQUESTS`` timed requests on the card; launch
-    counts, well-formed answers, and the card against the CPU."""
-    from mpa_tpu_torch import kernels
+def request_inputs(path: str) -> list:
+    """``REQUESTS + 1`` requests of ``path`` at its batch and points: the
+    arguments of its serving entry point, made with numpy from ``SEED``."""
     from mpa_tpu_torch.data import realistic_partseg, surface_clouds, synthetic_semseg
 
     spec = PATHS[path]
     B, points = spec["batch"], spec["points"]
-    serve = serve_loader(path)
     if path == "semseg":
         blocks, _ = synthetic_semseg(1, points, seed=SEED)  # 24 blocks of one room
         requests = [(blocks[i * B:(i + 1) * B],) for i in range(REQUESTS + 1)]
@@ -1201,10 +1237,21 @@ def serve_phase(path: str, tag: str) -> dict:
         rng = np.random.default_rng(SEED)
         requests = [(rng.standard_normal((B, points, 3)).astype(np.float32),)
                     for _ in range(REQUESTS + 1)]
+    return requests
+
+
+def timed_requests(serve, path: str) -> tuple:
+    """Two warm-up and ``REQUESTS`` timed requests of ``path`` through
+    ``serve``: their seconds and answers, the launch counts of exactly those
+    requests (all, and bf16), and every launch's inputs of one more request
+    of the same shapes, for the replays (recording keeps them alive, so it
+    stays out of the timed ones)."""
+    from mpa_tpu_torch import kernels
+
+    requests = request_inputs(path)
     for _ in range(2):  # warm-up: kernel loading, allocator growth
         serve(*requests[0])
     torch.cuda.synchronize()
-
     kernels.reset_launch_counts()
     outputs, latencies = [], []
     for req in requests[1:]:
@@ -1213,13 +1260,60 @@ def serve_phase(path: str, tag: str) -> dict:
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
         outputs.append(out)
-    launches = dict(kernels.LAUNCHES)
-
-    # One more request of the same shapes records every kernel's inputs for
-    # phase 3 (recording keeps them alive, so it stays out of the timed ones).
+    launches = (dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_BF16))
     kernels.recorded = []
     serve(*requests[1])
     recorded, kernels.recorded = kernels.recorded, None
+    return latencies, outputs, launches, recorded
+
+
+def timed_steps(path: str, model: torch.nn.Module) -> dict:
+    """The path's train step of ``model`` on the card at its batch: two
+    warm-up and ``TRAIN_STEPS`` timed steps, with their seconds, losses,
+    launch counts (all, and bf16) and peak memory, then one more step whose
+    backward launches and gathers are recorded for the replays."""
+    from mpa_tpu_torch import kernels
+    from mpa_tpu_torch.cli import train as cli_train
+    from mpa_tpu_torch.train import create_train_state
+
+    B, cfg = PATHS[path]["batch"], path_config(path)
+    arrays = train_arrays(path, cfg)
+    cuda = torch.device("cuda")
+
+    def batch(i):
+        return cli_train.make_inputs(cfg, tuple(a[i * B:(i + 1) * B] for a in arrays), cuda)
+
+    state = create_train_state(model, cfg, cuda)
+    step = make_step(path, len(arrays[0]) // B)
+    for i in range(TRAIN_WARMUP):
+        step(state, *batch(i))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times, losses = [], []
+    for i in range(TRAIN_STEPS):
+        x, y = batch(TRAIN_WARMUP + i)
+        t0 = time.perf_counter()
+        losses.append(float(step(state, x, y)))  # float() waits for the step
+        times.append(time.perf_counter() - t0)
+    out = {"times": times, "losses": losses, "peak": torch.cuda.max_memory_allocated(),
+           "launches": (dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_BF16)), "state": state}
+    kernels.recorded = []
+    step(state, *batch(TRAIN_WARMUP + TRAIN_STEPS))
+    torch.cuda.synchronize()
+    out["recorded"] = [(n, inp) for n, inp in kernels.recorded
+                       if n in BACKWARD or n == "gather_rows_kernel"]
+    kernels.recorded = None
+    return out
+
+
+def serve_phase(path: str, tag: str) -> dict:
+    """Phases 2, 2c, 2e, 2g, 2i, 2k and 2m: the path's serving entry point
+    answers two warm-up and ``REQUESTS`` timed requests on the card; launch
+    counts, well-formed answers, and the card against the CPU."""
+    spec = PATHS[path]
+    B, points = spec["batch"], spec["points"]
+    latencies, outputs, (launches, _), recorded = timed_requests(serve_loader(path), path)
 
     for i, lat in enumerate(latencies):
         log(f"[{tag}] request {i}: B={B} x {points} pts, {lat * 1e3:.3f} ms, "
@@ -1245,7 +1339,7 @@ def serve_phase(path: str, tag: str) -> dict:
     else:
         cpu = serve_loader(path, device="cpu")
         t0 = time.perf_counter()
-        want = cpu(*requests[1])
+        want = cpu(*request_inputs(path)[1])
         t_cpu = time.perf_counter() - t0
         got = outputs[0].cpu()
         diff = (got - want).abs().max().item()
@@ -1835,8 +1929,8 @@ PLANTED_FAULTS = {
         "if (k < K - 1) denom = __fadd_rn(denom, e[k][i]);"),
     "attention backward: no tie split": (
         "semseg", "mpa_tpu_torch/kernels/csrc/attention_bwd.cuh",
-        "const float dw = __fmul_rn(__fdiv_rn(1.f, cnt), gctx[orow + oc]);",
-        "const float dw = gctx[orow + oc];"),
+        "const float dw = __fmul_rn(__fdiv_rn(1.f, cnt), load1(gctx + orow + oc));",
+        "const float dw = load1(gctx + orow + oc);"),
     "windowed scatter-mean: last chunk of the search skipped": (
         "semseg", "mpa_tpu_torch/kernels/csrc/window_scatter_mean.cu",
         "const int e_lo = lo * K, e_hi = hi * K;",
@@ -1866,6 +1960,20 @@ PLANTED_FAULTS = {
         "    flat /= size\n",
         "    average_gradients.calls = getattr(average_gradients, 'calls', 0) + 1\n"
         "    flat /= size * average_gradients.calls\n"),
+    "bf16 scatter-mean: the sum rounded to bf16 after every add": (
+        "bf16", "mpa_tpu_torch/kernels/csrc/scatter_index.cuh",
+        "              if (j + u < j1) add_row(acc, r[u]);\n",
+        "              if (j + u < j1) {\n"
+        "                add_row(acc, r[u]);\n"
+        "                if constexpr (!kF32)\n"
+        "                  for (int v = 0; v < VEC; ++v)\n"
+        "                    acc.x[v] = __bfloat162float(__float2bfloat16_rn(acc.x[v]));\n"
+        "              }\n"),
+    "bf16 attention forward: the denominator rounded to bf16": (
+        "bf16", "mpa_tpu_torch/kernels/csrc/attention_fwd.cuh",
+        "const float den = fmaxf(denom, kEps);",
+        "const float den = std::is_same<T, float>::value ? fmaxf(denom, kEps)\n"
+        "          : __bfloat162float(__float2bfloat16_rn(fmaxf(denom, kEps)));"),
     "data parallel: step 2's all-reduce missed": (
         "dp", "mpa_tpu_torch/parallel/mesh.py",
         "    dist.all_reduce(flat, group=group)\n",
@@ -1943,6 +2051,8 @@ def parity_readings(path: str) -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             readings, failures, _ = dp_readings(Path(tmp))
         return {**readings, "failures": failures}
+    if path == "bf16":
+        return bf16_readings()
     out = {}
     seg, limits = {"partseg": (segmenter_parity, SEG_LIMITS),
                    "semseg": (semseg_parity, SEMSEG_LIMITS),
@@ -1992,6 +2102,42 @@ def parity_readings(path: str) -> dict:
     return out
 
 
+def bf16_readings() -> dict:
+    """``--parity bf16``: phase 8's card-against-CPU readings of the bf16
+    cls and part-seg (served and one train step) and the replays of every
+    bf16 launch of each parity request and of the backward of each parity
+    step, each check's failure caught and reported."""
+    from mpa_tpu_torch import kernels
+
+    out = {}
+    for path in BF16_PATHS:
+        rep = bf16_served_parity(path)
+        recorded = rep.pop("recorded")
+        out[f"{path}_served"] = {k: rep[k] for k in ("max_abs", "median_abs", "p99_abs",
+                                                     "argmax_agreement")}
+        out[f"{path}_served_within_limits"] = within(rep, BF16_LIMITS[path])
+        kernels.recorded = []
+        try:
+            parity = train_parity(path, compute_dtype=torch.bfloat16)
+        finally:
+            trained, kernels.recorded = kernels.recorded, None
+        out[f"{path}_train"] = {"loss_diff": parity["loss_diff"], "grad_l2": parity["grad_l2"],
+                                "grad_units": parity["grad_units"][:3]}
+        out[f"{path}_train_within_limits"] = bf16_step_within(path, parity)
+        launches = [(n, inp) for n, inp in recorded if not _f32_launch(n, inp)]
+        launches += [(n, inp) for n, inp in trained if n in BACKWARD and not _f32_launch(n, inp)]
+        failures = []
+        for name, inp in launches:
+            try:
+                check_call(name, inp)
+            except AssertionError as e:
+                failures.append(f"{name}: " + str(e).splitlines()[0][:120])
+        out[f"{path}_replays"] = f"{len(launches)} bf16 launches, {len(failures)} fail"
+        if failures:
+            out[f"{path}_replay_failures"] = failures[:5]
+    return out
+
+
 def planted_faults(only: str = "all") -> None:
     """``--planted-faults [PATH]``: for each entry of ``PLANTED_FAULTS`` (of
     path ``only``, or all), a copy of the port in a temporary directory with
@@ -2000,7 +2146,7 @@ def planted_faults(only: str = "all") -> None:
     readings. The limits of ``SEG_LIMITS``, ``SEMSEG_LIMITS``,
     ``REPSURF_LIMITS``, ``grad_limit`` and ``DP_LIMITS`` lie between a
     correct copy's readings and the faulty ones'."""
-    parity_paths = ["partseg", "semseg", "repsurf", "dp"]
+    parity_paths = ["partseg", "semseg", "repsurf", "dp", "bf16"]
     if only != "all":
         parity_paths = [only]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2025,8 +2171,11 @@ def planted_faults(only: str = "all") -> None:
                 proc = subprocess.run([sys.executable, "chip_smoke.py", "--parity", path],
                                       cwd=root, capture_output=True, text=True, timeout=900)
                 last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+                saved = REPO / "chiprun_out" / "planted" / f"{root.name}_{path}.json"
+                saved.parent.mkdir(parents=True, exist_ok=True)
+                saved.write_text(last)
                 log(f"[planted] {name} ({path}): exit {proc.returncode} "
-                    f"{last or proc.stderr[-400:]}")
+                    f"{last[:2000] or proc.stderr[-400:]} (all of it in {saved})")
 
 
 # Phase 7: data parallelism and the trainer's surface on the card. Two ranks
@@ -2432,14 +2581,261 @@ def phase7(work: Path) -> tuple:
     return counts, rows + keyed_rows
 
 
+# Phase 8: mixed precision, compute_dtype=torch.bfloat16, the exact
+# neighbour mode of markov_cls and markov_partseg at their paths' widths.
+# The five kernels of the bf16 path take bf16 storage; every other kernel
+# sees float32 (the coordinates, and the feature kNN after its upcast, as
+# in mpa_tpu). The launch counts are those of the float32 paths in all
+# (``PATHS``), and of them the bf16 launches: cls, the five center_feat
+# gathers (the five new_xyz gathers are of float32 coordinates) and every
+# attention call; part-seg, the four center_feat gathers and Fuse's ten
+# finer sources, every attention call and every scatter-mean. A train step
+# adds the bf16 backwards: every attention backward and the scatter-add of
+# every bf16 gather. The scatter-means' backward gathers are float32: the
+# bf16 gradient divided by the float32 count is float32, as in mpa_tpu.
+BF16_CLS_FORWARD = {"gather_rows_kernel": 5, "transition_attention_fwd_kernel": 11}
+BF16_PARTSEG_FORWARD = {"gather_rows_kernel": 14, "transition_attention_fwd_kernel": 17,
+                        "scatter_mean_kernel": 14}
+BF16_PATHS = {
+    "cls": dict(per_forward=BF16_CLS_FORWARD,
+                per_train_step=dict(BF16_CLS_FORWARD, transition_attention_bwd_kernel=11,
+                                    scatter_add_rows_kernel=5)),
+    "partseg": dict(per_forward=BF16_PARTSEG_FORWARD,
+                    per_train_step=dict(BF16_PARTSEG_FORWARD, transition_attention_bwd_kernel=17,
+                                        scatter_add_rows_kernel=14)),
+}
+# The bf16 model on the card against the same bf16 model on the CPU (plain
+# ops), served on ``parity_batch`` clouds (``BF16_LIMITS``: the log-probs of
+# cls, their largest difference; of part-seg, per point, its median and the
+# argmax agreement) and one train step there (``BF16_TRAIN_LIMITS``: the
+# loss, and the gradients in ``grad_error_units`` with ``BF16_ROUNDING_ZERO``
+# and its floor). Both sides round to bf16 at the same places, but cuBLAS
+# and the CPU sum a bf16 product's terms in other orders, so a product can
+# round to the neighbouring bf16 (2^-8 of its size), and the max over the
+# neighbours and the train-mode BatchNorms amplify that: the whole train-mode
+# gradient of the card's step is 0.75 (cls) and 0.36 (part-seg) of its norm
+# from the CPU's. Each limit lies between a correct run's reading and the
+# planted faults' (``--planted-faults bf16``; NVIDIA H100 80GB HBM3, 700 W,
+# PERF.md section 6): cls max 2.368e-03 correct, 6.887e-03 with the
+# attention forward's denominator rounded to bf16; part-seg median 3.749e-03
+# correct, 3.851e-03 with the scatter-mean summing in bf16 and 3.877e-03
+# with the denominator fault; loss 6.3e-03 / 3.7e-03 correct, 7.36e-02 (cls,
+# denominator) and 6.5e-03 (part-seg, both faults); gradient units 940 / 504
+# correct, 1421 / 930 with the denominator fault (the scatter-mean fault
+# reads 507 there: the part-seg loss and median limits catch it, and its
+# replays).
+BF16_LIMITS = {"cls": {"max_abs": 4e-3},
+               "partseg": {"median_abs": 3.8e-3, "argmax_agreement": 0.99}}
+BF16_TRAIN_LIMITS = {"cls": {"loss_abs": 2e-2, "grad_limit": 1150},
+                     "partseg": {"loss_abs": 5e-3, "grad_limit": 700}}
+
+
+def bf16_step_within(path: str, parity: dict) -> bool:
+    """``train_parity``'s bf16 step of ``path`` within ``BF16_TRAIN_LIMITS``."""
+    limits = BF16_TRAIN_LIMITS[path]
+    return (parity["loss_diff"] <= limits["loss_abs"]
+            and parity["grad_units"][0][1] <= limits["grad_limit"])
+
+
+def bf16_served_parity(path: str) -> dict:
+    """The bf16 model of ``path`` served on ``parity_batch`` request clouds
+    on the card against the CPU (plain ops) from the same weights:
+    ``segmentation_agreement`` (cls: one row a cloud); beside it the card's
+    float32 model against its bf16 one (what bf16 costs), and the card's
+    bf16 model with cuBLAS's reduced-precision bf16 reduction let on against
+    the CPU (what the port's setting, off, is worth). Also every launch of
+    the card's bf16 request (``recorded``)."""
+    from mpa_tpu_torch import kernels
+
+    spec = PATHS[path]
+    req = tuple(a[:spec["parity_batch"]] for a in request_inputs(path)[1])
+    bf16 = dict(compute_dtype=torch.bfloat16)
+    kernels.recorded = []
+    try:
+        got = serve_loader(path, **bf16)(*req).cpu()
+    finally:
+        recorded, kernels.recorded = kernels.recorded, None
+    f32 = serve_loader(path)(*req).cpu()
+    matmul = torch.backends.cuda.matmul
+    reduced = serve_loader(path, **bf16)  # resolve_device sets the flag off: let it on after
+    matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        loose = reduced(*req).cpu()
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    want = serve_loader(path, device="cpu", **bf16)(*req)
+    cpu_s = time.perf_counter() - t0
+
+    def agree(a, b):
+        return segmentation_agreement(a, b) if a.dim() == 3 else segmentation_agreement(a[None],
+                                                                                         b[None])
+
+    return dict(agree(got, want), cpu_s=cpu_s, f32_vs_bf16=agree(f32, got),
+                reduced_vs_cpu=agree(loose, want), recorded=recorded)
+
+
+def bf16_phase(path: str, tag: str) -> dict:
+    """Phase 8 for ``path`` (``cls`` or ``partseg``), module doc: (a) the bf16
+    model served, two warm-up and ``REQUESTS`` timed requests, launch counts
+    exact in all and in bf16, well-formed answers, the card against the CPU
+    within ``BF16_LIMITS``; (b) the preset's train step of the bf16 model,
+    two warm-up and ``TRAIN_STEPS`` timed steps with their counts and peak
+    memory, and one step at ``parity_batch`` on the card against the CPU
+    within ``BF16_TRAIN_LIMITS``' loss and gradient limits; (c) the launches of
+    one more request and step, recorded for the replays; (d) the medians."""
+    spec, want = PATHS[path], BF16_PATHS[path]
+    B, points = spec["batch"], spec["points"]
+    bf16 = dict(compute_dtype=torch.bfloat16)
+
+    # (a) served
+    latencies, outputs, (launches, launches_bf16), recorded = timed_requests(
+        serve_loader(path, **bf16), path)
+    log(f"[{tag}] requests ms {[round(t * 1e3, 3) for t in latencies]}: B={B} x {points} pts; "
+        f"launches over {REQUESTS} requests {launches}, bf16 among them {launches_bf16}")
+    check_launches(tag, launches, spec["per_forward"], REQUESTS, "request")
+    check_launches(f"{tag} bf16", launches_bf16, want["per_forward"], REQUESTS, "request")
+    for out in outputs:
+        if out.dtype != torch.float32:
+            raise AssertionError(f"[{tag}] log-probs of type {out.dtype}, want float32")
+        check_served_output(path, out, B, points)
+    report = bf16_served_parity(path)
+    limits = BF16_LIMITS[path]
+    log(f"[{tag}] cuda vs cpu, bf16 both, at B={spec['parity_batch']} (plain ops, "
+        f"{report['cpu_s']:.1f} s on the host): max |d| {report['max_abs']:.3e}, median "
+        f"{report['median_abs']:.3e}, argmax agreement {report['argmax_agreement']:.5f} (limits "
+        f"{limits}); card f32 vs card bf16: max {report['f32_vs_bf16']['max_abs']:.3e}, median "
+        f"{report['f32_vs_bf16']['median_abs']:.3e}, argmax agreement "
+        f"{report['f32_vs_bf16']['argmax_agreement']:.5f}; cuBLAS reduced-precision bf16 "
+        f"reduction on, vs cpu: max {report['reduced_vs_cpu']['max_abs']:.3e}, median "
+        f"{report['reduced_vs_cpu']['median_abs']:.3e}")
+    if not within(report, limits):
+        raise AssertionError(f"[{tag}] bf16 cuda and cpu answers differ: {report}")
+    served_recorded = recorded + report.pop("recorded")
+    torch.cuda.empty_cache()
+
+    # (b) trained, (c) its launches recorded
+    run = timed_steps(path, fresh_model(path, **bf16))
+    times, losses, peak = run["times"], run["losses"], run["peak"]
+    t_launches, t_bf16 = run["launches"]
+    log(f"[{tag}] train steps ms {[round(t * 1e3, 3) for t in times]}, losses "
+        f"{[round(v, 4) for v in losses]}; peak memory {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated); launches over {TRAIN_STEPS} steps {t_launches}, "
+        f"bf16 among them {t_bf16}")
+    check_launches(tag, t_launches, spec["per_train_step"], TRAIN_STEPS, "train step")
+    check_launches(f"{tag} bf16", t_bf16, want["per_train_step"], TRAIN_STEPS, "train step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[{tag}] non-finite train losses {losses}")
+    for name, p in run["state"].model.named_parameters():
+        if p.dtype != torch.float32 or (p.grad is not None and p.grad.dtype != torch.float32):
+            raise AssertionError(f"[{tag}] {name}: parameters and gradients stay float32")
+    trained_recorded = run["recorded"]
+    del run
+    torch.cuda.empty_cache()
+    parity = train_parity(path, **bf16)
+    train_limits = BF16_TRAIN_LIMITS[path]
+    log(f"[{tag}] cuda vs cpu, bf16 both, one step at B={spec['parity_batch']} "
+        f"({parity['cuda_s'] * 1e3:.1f} ms on the card, {parity['cpu_s']:.1f} s on the host): "
+        f"loss |d| {parity['loss_diff']:.3e} (limit {train_limits['loss_abs']}); gradient "
+        f"error in units of grad_error_units with BF16_ROUNDING_ZERO's floor "
+        f"(limit {train_limits['grad_limit']}), largest: "
+        + ", ".join(f"{n} {u:.3f}" for n, u in parity["grad_units"][:3])
+        + f"; whole gradient {parity['grad_l2']:.4f} of its norm apart"
+        + f"; worst statistic {parity['stat'][0]} rel {parity['stat'][1]:.3e}")
+    if not bf16_step_within(path, parity):
+        raise AssertionError(f"[{tag}] the bf16 CUDA train step differs from the CPU step")
+    return {"latency_ms": [t * 1e3 for t in latencies], "step_ms": [t * 1e3 for t in times],
+            "peak_bytes": peak, "launches": launches, "launches_bf16": launches_bf16,
+            "train_launches": t_launches, "train_launches_bf16": t_bf16,
+            "recorded": served_recorded, "trained": trained_recorded,
+            "served": {k: report[k] for k in ("max_abs", "median_abs", "argmax_agreement")},
+            "grad_units": parity["grad_units"][0]}
+
+
+def bf16_replay(path: str, res: dict) -> list:
+    """Phase 8c: every bf16 launch of the bf16 path's recorded request (and
+    the parity request's) and of its recorded step, against its plain
+    version (``check_call``), tagged ``PATH_bf16``; the step's gathers
+    ``PATH_bf16_train``; the scatter-means' backward as phase 3's."""
+    rows = [replay_call(f"{path}_bf16", name, inp) for name, inp in res["recorded"]
+            if not _f32_launch(name, inp)]
+    rows += [replay_call(f"{path}_bf16" if name in BACKWARD else f"{path}_bf16_train", name, inp)
+             for name, inp in res["trained"] if not _f32_launch(name, inp)]
+    errs = [check_scatter_mean_grad(inp) for name, inp in res["recorded"]
+            if name == "scatter_mean_kernel"]
+    if errs:
+        log(f"[8 {path}] bf16 scatter-mean backward at {len(errs)} recorded launches: "
+            f"max_abs_err {max(errs):.3e} against autograd of the plain version")
+    return rows
+
+
+def _f32_launch(name: str, inp: dict) -> bool:
+    """Whether a recorded launch ran on float32 storage (the coordinates'
+    gathers, the feature kNN after its upcast, FPS)."""
+    for key in ("points", "grads", "features", "packed"):
+        if key in inp:
+            return inp[key].dtype != torch.bfloat16
+    return True
+
+
+def summarise_bf16(name: str, rows: list, counts: dict) -> dict:
+    """The ``kernels`` line's entry of ``name``'s bf16 launches, tagged
+    ``[bf16]``: ``summarise``'s keys, its times the sums over the bf16
+    launches of one served request (forward kernels) or one train step
+    (backward kernels) of markov_partseg at B = 32 x 2048 in bf16, and of
+    markov_cls in ``by_path.cls``."""
+    backward = name in BACKWARD
+    unit = "train" if backward else "serve"
+
+    def sums(path):
+        mine = [r for r in rows if r["name"] == name and r["path"] == f"{path}_bf16"]
+        n = counts[f"{path}_bf16_{unit}"].get(name, 0) // (TRAIN_STEPS if backward else REQUESTS)
+        # The recorded request's launches, without the parity request's.
+        mine = mine[:n]
+        if not mine:
+            return None
+        bytes_ms = sum(r["bytes_ms"] for r in mine)
+        ops_ms = sum(r["ops_ms"] for r in mine)
+        libs = [r["library_ms"] for r in mine]
+        return {"launches_per_unit": len(mine),
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
+                "bound_ms": sum(r["bound_ms"] for r in mine),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None if None in libs else sum(libs)}
+
+    by_path = {path: sums(path) for path in BF16_PATHS}
+    source, replaces = SOURCES[name]
+    return {"name": f"{name}[bf16]", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[f"partseg_bf16_{unit}"][name],
+            "per": "train step" if backward else "request", "path": "partseg_bf16",
+            "launches_by_path": {run: c.get(name, 0) for run, c in counts.items()},
+            **by_path["partseg"], "by_path": by_path}
+
+
+def phase8() -> tuple:
+    """Phase 8 (module doc): each path's readings, its bf16 launch counts by
+    run, and the replays' rows."""
+    results, rows, counts = {}, [], {}
+    for path, tag in (("cls", "8 cls bf16"), ("partseg", "8 partseg bf16")):
+        res = bf16_phase(path, tag)
+        rows += bf16_replay(path, res)
+        del res["recorded"], res["trained"]
+        counts[f"{path}_bf16_serve"] = res["launches_bf16"]
+        counts[f"{path}_bf16_train"] = res["train_launches_bf16"]
+        results[path] = res
+        torch.cuda.empty_cache()
+    return results, rows, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parity", nargs="?", const="partseg",
                     choices=["partseg", "semseg", "repsurf", "partseg_fp", "pose", "completion",
-                             "dp"],
+                             "dp", "bf16"],
                     help="only that path's card-against-CPU readings, as JSON")
     ap.add_argument("--planted-faults", nargs="?", const="all",
-                    choices=["all", "partseg", "semseg", "repsurf", "dp"],
+                    choices=["all", "partseg", "semseg", "repsurf", "dp", "bf16"],
                     help="the --parity readings of copies with one fault planted in each "
                          "(of that path's faults only, if given)")
     args = ap.parse_args()
@@ -2543,6 +2939,9 @@ def main() -> int:
     rows += dp_rows
     torch.cuda.empty_cache()
 
+    # -- 8: mixed precision, bf16 cls and part-seg served, trained, replayed --------
+    bf16, bf16_rows, bf16_counts = phase8()
+
     counts = {f"{path}_serve": served[path]["launches"] for path in PATHS}
     counts.update({f"{path}_train": trained[path]["launches"] for path in PATHS})
     counts.update({f"{path}_recipe_{run}": recipe[path][run] for path in RECIPE
@@ -2551,6 +2950,7 @@ def main() -> int:
     counts.update({f"s3dis_{run}": scene[run] for run in ("train", "scene")})
     counts.update(dp_counts)
     summary = [summarise(name, rows, counts) for name in kernels.KERNELS]
+    summary += [summarise_bf16(name, bf16_rows, bf16_counts) for name in kernels.BF16_KERNELS]
     log("[4 kernels] times are per request for the forward kernels and per train step for "
         "the backward kernels: the sum over its launches of each; top level: the kernel's "
         "path, markov_semseg window_all at B=2 x 16384 points for the windowed kernels, "
@@ -2576,6 +2976,18 @@ def main() -> int:
     for path, r in recipe.items():
         log(f"[5 {path}] recipe ({card}): eval {r['clouds_s']:.1f} clouds/s, train "
             f"epoch seconds {r['epoch_seconds']}, {r['clouds_per_s']} clouds/s")
+    for path, r in bf16.items():
+        med = {k: statistics.median(v) for k, v in
+               (("bf16 request", r["latency_ms"]), ("f32 request", served[path]["latency_ms"]),
+                ("bf16 step", r["step_ms"]), ("f32 step", trained[path]["step_ms"]))}
+        log(f"[8 {path}] ({card}) median ms: " + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+            + f"; bf16 step peak memory {r['peak_bytes'] / 2**30:.3f} GiB; card vs cpu: served "
+            f"{r['served']}, step's largest gradient error {r['grad_units']}")
+        for row in summary:
+            if row["name"].endswith("[bf16]") and row["by_path"].get(path):
+                t = row["by_path"][path]
+                log(f"[8 {path}] {row['name']} per {row['per']}: {t['launches_per_unit']} "
+                    f"launches, {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     print(card, flush=True)  # the card, exactly as nvidia-smi reports it
     log(f"[4 total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": summary}), flush=True)

@@ -11,6 +11,11 @@ are counted and recorded there; the scatter-means' backward launches
 ``gather_rows_kernel``. The ``windowed_*`` kernels serve the Morton-window
 modes (``ops/window.py``); ``ball_query_kernel`` the set abstraction of
 ``repsurf_ssg_2x`` (``ops/ball_query.py``).
+
+Five kernels also take bf16 storage, the mixed precision models'
+(``compute_dtype=torch.bfloat16``): ``BF16_KERNELS``. ``LAUNCHES`` counts
+every launch of a kernel, whatever its storage; ``LAUNCHES_BF16`` counts
+the bf16 ones among them, so a path's float32 launches are the difference.
 """
 
 from __future__ import annotations
@@ -32,7 +37,16 @@ KERNELS = (
     "ball_query_kernel",
 )
 
+BF16_KERNELS = (
+    "gather_rows_kernel",
+    "transition_attention_fwd_kernel",
+    "scatter_add_rows_kernel",
+    "transition_attention_bwd_kernel",
+    "scatter_mean_kernel",
+)
+
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES_BF16: Dict[str, int] = {name: 0 for name in BF16_KERNELS}
 
 # When a list, every launch also appends ``(name, inputs)`` to it, so a
 # measurement can replay each kernel on the very inputs its path gave it.
@@ -42,9 +56,15 @@ recorded: Optional[List[Tuple[str, dict]]] = None
 def reset_launch_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    for name in BF16_KERNELS:
+        LAUNCHES_BF16[name] = 0
 
 
-def launched(name: str, inputs: dict) -> None:
+def launched(name: str, inputs: dict, bf16: bool = False) -> None:
+    """Count one launch of ``name`` (``bf16``: on bf16 storage) and, while
+    recording, keep its inputs."""
     LAUNCHES[name] += 1
+    if bf16:
+        LAUNCHES_BF16[name] += 1
     if recorded is not None:
         recorded.append((name, inputs))

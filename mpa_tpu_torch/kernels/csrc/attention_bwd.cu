@@ -10,7 +10,9 @@
 // Contract (attention_pallas.py _attn_math, g != None): packed [B,N,nB*2C]
 // f32 holding [E_r || V_r] per branch r, idx [B,S,K] int32 in [0, N),
 // shifts [B,S,nB*C] f32 or null, gctx [B,S,nB*C] f32 ->
-// dpacked [B,N,nB*2C] f32 and, with shifts, dshift [B,S,nB*C] f32. Per
+// dpacked [B,N,nB*2C] f32 and, with shifts, dshift [B,S,nB*C] f32 (or
+// packed, shifts and gctx bf16 -> dpacked and dshift bf16, the arithmetic
+// and the adds f32, each output rounded once). Per
 // branch, query and channel, with V' = V + shift:
 //   denom = sum_k E,  den = max(denom, 1e-20),  attn = E / den - 1,
 //   w = attn * V',  m = max_k w,  ties = {k : w_k == m},  cnt = |ties|,
@@ -43,36 +45,52 @@
 // time on markov_partseg and markov_cls; of it the atomics are a sixth and
 // the zeroing a sixteenth, the one pass over the gathered rows the rest.
 // The TPU's one-hot matmul scatter and its bf16 gradient rounding
-// (GRAD_SCATTER_PRECISION) are not carried over: every add is f32.
+// (GRAD_SCATTER_PRECISION) are not carried over: every add is f32, in bf16
+// storage too, and the f32 dpacked is rounded to bf16 by a second pass.
 #include "attention_bwd.cuh"
 #include "common.cuh"
 
 namespace {
 
-template <int KMAX>
+template <int KMAX, typename T>
 __global__ void transition_attention_bwd_kernel(
-    const float* __restrict__ packed, const int* __restrict__ idx,
-    const float* __restrict__ shifts, const float* __restrict__ gctx,
-    float* __restrict__ dpacked, float* __restrict__ dshift,
+    const T* __restrict__ packed, const int* __restrict__ idx,
+    const T* __restrict__ shifts, const T* __restrict__ gctx,
+    float* __restrict__ dpacked, T* __restrict__ dshift,
     int N, int S, int K, int n_branches, int C) {
   mpa::attention_bwd_body<KMAX>(packed, idx, shifts, gctx, dpacked, dshift, N, S, K, n_branches,
                                 C);
 }
 
+template <typename T>
+cudaError_t launch(const void* packed, const void* idx, const void* shifts, const void* gctx,
+                   void* dpacked, void* dpacked16, void* dshift, int B, int N, int S, int K,
+                   int n_branches, int C, cudaStream_t st) {
+  static const mpa::AttentionBwdKernel<T> kernels[4] = {
+      transition_attention_bwd_kernel<8, T>, transition_attention_bwd_kernel<16, T>,
+      transition_attention_bwd_kernel<32, T>, transition_attention_bwd_kernel<64, T>};
+  return mpa::launch_attention_bwd(kernels, packed, idx, shifts, gctx, dpacked, dpacked16, dshift,
+                                   B, N, S, K, n_branches, C, st);
+}
+
 }  // namespace
 
 // packed [B,N,nB*2C], idx [B,S,K] int32, shifts [B,S,nB*C] or null,
-// gctx [B,S,nB*C], dpacked [B,N,nB*2C], dshift [B,S,nB*C] (null exactly when
-// shifts is null); all contiguous f32 except idx. dpacked is zeroed here, on
-// the same stream, before the adds. Requires 1 <= K <= 64 (checked by the
-// Python wrapper).
+// gctx [B,S,nB*C], dpacked [B,N,nB*2C] f32, dshift [B,S,nB*C] (null exactly
+// when shifts is null); all contiguous; packed, shifts, gctx and dshift f32
+// (bf16 == 0) or bf16 (bf16 == 1, then dpacked16 [B,N,nB*2C] bf16 receives
+// dpacked rounded; null for f32). dpacked is zeroed here, on the same
+// stream, before the adds. Requires 1 <= K <= 64 (checked by the Python
+// wrapper).
 MPA_EXPORT int mpa_transition_attention_bwd(const void* packed, const void* idx,
                                             const void* shifts, const void* gctx, void* dpacked,
-                                            void* dshift, int B, int N, int S, int K, int n_branches,
-                                            int C, void* stream) {
-  static const mpa::AttentionBwdKernel kernels[4] = {
-      transition_attention_bwd_kernel<8>, transition_attention_bwd_kernel<16>,
-      transition_attention_bwd_kernel<32>, transition_attention_bwd_kernel<64>};
-  return mpa::launch_attention_bwd(kernels, packed, idx, shifts, gctx, dpacked, dshift, B, N, S, K,
-                                   n_branches, C, mpa::as_stream(stream));
+                                            void* dpacked16, void* dshift, int B, int N, int S,
+                                            int K, int n_branches, int C, int bf16,
+                                            void* stream) {
+  if (bf16 && dpacked16 == nullptr) return cudaErrorInvalidValue;
+  if (bf16)
+    return launch<mpa::bf16>(packed, idx, shifts, gctx, dpacked, dpacked16, dshift, B, N, S, K,
+                             n_branches, C, mpa::as_stream(stream));
+  return launch<float>(packed, idx, shifts, gctx, dpacked, nullptr, dshift, B, N, S, K,
+                       n_branches, C, mpa::as_stream(stream));
 }

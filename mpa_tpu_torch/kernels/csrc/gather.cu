@@ -2,18 +2,22 @@
 //
 // Replaces mpa_tpu/ops/pallas/gather_pallas.py::loop_gather_rows (kernel body
 // _loop_gather_kernel; its batch-grid variant _loop_gather_kernel_bg has the
-// same semantics). Contract: src [B,N,W] f32, idx [B,E] int32 in [0, N) ->
-// out [B,E,W] f32. Forward only.
+// same semantics). Contract: src [B,N,W] f32 or bf16, idx [B,E] int32 in
+// [0, N) -> out [B,E,W] of src's type, a bit-exact copy of the rows (the
+// TPU kernel moves bf16 rows as they are, gather_pallas.py:309-332).
+// Forward only.
 //
-// What bounds it on the H100: bytes. It reads E rows of W floats and writes
-// as many, so the bound is 2*B*E*W*4 bytes over the memory rate; at the
+// What bounds it on the H100: bytes. It reads E rows of W values and writes
+// as many, so the bound is 2*B*E*W*sizeof(value) bytes over the memory rate; at the
 // paths' small launches (a few hundred KB) what a launch costs comes first,
 // then the two dependent loads (the index, then the row). The TPU's
 // scalar-prefetch row loop is a TPU layout and is not carried over.
 //
-// Design: one flat grid over the output's B*E*W/VEC columns of VEC floats
+// Design: one flat grid over the output's B*E*W/VEC columns of VEC values
 // (float4 where W % 4 == 0 and both pointers are 16-byte aligned, float2
-// where W is even and they are 8-byte aligned, else scalar), ELEMS columns
+// where W is even and they are 8-byte aligned, else scalar; for bf16 rows
+// 16, 8, 4 or 2 bytes, 8, 4, 2 or 1 values a column, the same rule in
+// bytes: a column is moved as raw bits, never widened), ELEMS columns
 // a thread, 256 apart, all loads issued before the first store; 32-bit
 // index arithmetic (a column's row is i / (W/VEC), the row's cloud row / E).
 // Neighbouring threads copy neighbouring columns, so every warp's loads and
@@ -27,22 +31,12 @@ namespace {
 
 constexpr int THREADS = 256;
 
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<1> { using T = float; };
-template <>
-struct Vec<2> { using T = float2; };
-template <>
-struct Vec<4> { using T = float4; };
-
-template <int VEC, int ELEMS>
+// The column types: float rows as float4, float2 or float; bf16 rows as raw
+// 16, 8, 4 or 2 bytes.
+template <typename T, int ELEMS>
 __global__ void __launch_bounds__(THREADS)
-gather_rows_kernel(const float* __restrict__ src, const int* __restrict__ idx,
-                   float* __restrict__ out, int N, int E, int wv, int total) {
-  using T = typename Vec<VEC>::T;
-  const T* s = reinterpret_cast<const T*>(src);
-  T* o = reinterpret_cast<T*>(out);
+gather_rows_kernel(const T* __restrict__ s, const int* __restrict__ idx,
+                   T* __restrict__ o, int N, int E, int wv, int total) {
   const int i0 = blockIdx.x * (THREADS * ELEMS) + threadIdx.x;
   T v[ELEMS];
 #pragma unroll
@@ -62,44 +56,52 @@ gather_rows_kernel(const float* __restrict__ src, const int* __restrict__ idx,
   }
 }
 
-template <int VEC, int ELEMS>
-cudaError_t launch(const float* src, const int* idx, float* out, int N, int E, int wv, int total,
-                   cudaStream_t stream) {
-  const int blocks = mpa::ceil_div(total, THREADS * ELEMS);
-  gather_rows_kernel<VEC, ELEMS><<<blocks, THREADS, 0, stream>>>(src, idx, out, N, E, wv, total);
-  return cudaGetLastError();
-}
-
-template <int VEC>
-cudaError_t launch_elems(const float* src, const int* idx, float* out, int N, int E, int wv,
+template <typename T>
+cudaError_t launch_elems(const void* src, const int* idx, void* out, int N, int E, int wv,
                          int total, int elems, cudaStream_t stream) {
+  const auto s = static_cast<const T*>(src);
+  const auto o = static_cast<T*>(out);
   switch (elems) {
-    case 1: return launch<VEC, 1>(src, idx, out, N, E, wv, total, stream);
-    case 2: return launch<VEC, 2>(src, idx, out, N, E, wv, total, stream);
+    case 1:
+      gather_rows_kernel<T, 1><<<mpa::ceil_div(total, THREADS), THREADS, 0, stream>>>(
+          s, idx, o, N, E, wv, total);
+      return cudaGetLastError();
+    case 2:
+      gather_rows_kernel<T, 2><<<mpa::ceil_div(total, THREADS * 2), THREADS, 0, stream>>>(
+          s, idx, o, N, E, wv, total);
+      return cudaGetLastError();
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// src [B,N,W] f32, idx [B,E] int32, out [B,E,W] f32, all contiguous, in
-// ops/gather.py::gather_form's form: vec floats a column (1, 2 or 4,
-// dividing W, both pointers aligned to it) and elems columns a thread (1 or
-// 2). Requires B * N and B * E * W below 2^31 (checked by the Python
+// src [B,N,W], idx [B,E] int32, out [B,E,W], all contiguous, src and out of
+// elem_bytes bytes a value (4: f32, 2: bf16), in ops/gather.py::gather_form's
+// form: vec values a column (f32 1, 2 or 4; bf16 1, 2, 4 or 8; dividing W,
+// both pointers aligned to the column's bytes) and elems columns a thread
+// (1 or 2). Requires B * N and B * E * W below 2^31 (checked by the Python
 // wrapper).
 MPA_EXPORT int mpa_gather_rows(const void* src, const void* idx, void* out, int B, int N,
-                               int E, int W, int vec, int elems, void* stream) {
+                               int E, int W, int vec, int elems, int elem_bytes, void* stream) {
   const auto align = reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out);
-  if ((vec != 1 && vec != 2 && vec != 4) || W % vec != 0 || align % (4 * vec) != 0)
+  const int bytes = vec * elem_bytes;
+  if ((elem_bytes != 4 && elem_bytes != 2) || vec < 1 || W % vec != 0 ||
+      (bytes != 2 && bytes != 4 && bytes != 8 && bytes != 16) || (elem_bytes == 4 && vec > 4) ||
+      align % bytes != 0)
     return cudaErrorInvalidValue;
   const int wv = W / vec;
   const int total = B * E * wv;
   if (total == 0) return cudaSuccess;
   cudaStream_t st = mpa::as_stream(stream);
-  const auto s = static_cast<const float*>(src);
   const auto ip = static_cast<const int*>(idx);
-  const auto o = static_cast<float*>(out);
-  if (vec == 4) return launch_elems<4>(s, ip, o, N, E, wv, total, elems, st);
-  if (vec == 2) return launch_elems<2>(s, ip, o, N, E, wv, total, elems, st);
-  return launch_elems<1>(s, ip, o, N, E, wv, total, elems, st);
+  if (elem_bytes == 4) {
+    if (vec == 4) return launch_elems<float4>(src, ip, out, N, E, wv, total, elems, st);
+    if (vec == 2) return launch_elems<float2>(src, ip, out, N, E, wv, total, elems, st);
+    return launch_elems<float>(src, ip, out, N, E, wv, total, elems, st);
+  }
+  if (bytes == 16) return launch_elems<uint4>(src, ip, out, N, E, wv, total, elems, st);
+  if (bytes == 8) return launch_elems<uint2>(src, ip, out, N, E, wv, total, elems, st);
+  if (bytes == 4) return launch_elems<unsigned int>(src, ip, out, N, E, wv, total, elems, st);
+  return launch_elems<unsigned short>(src, ip, out, N, E, wv, total, elems, st);
 }

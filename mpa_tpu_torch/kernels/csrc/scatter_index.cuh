@@ -11,6 +11,10 @@
 // A claim that names no slot of [0, N) adds nothing. Epilogues: MEAN divides
 // by max(claims, 1) and writes the claims as `count`; the sum writes the sum
 // alone. Every slot of the range is written once: zero where nothing lands.
+// Storage: f32 rows into f32 slots, or bf16 rows into bf16 slots; the sums
+// are f32 either way, and a bf16 slot is rounded once, from the final f32
+// sum (or mean), as the TPU kernels' f32 accumulators are cast once
+// (mpa_tpu/ops/scatter.py:46-51, gather_pallas.py:332).
 //
 // Design: a block owns `slots` consecutive slots of one cloud and builds the
 // inverse index of its range in shared memory, so that finding a slot's
@@ -27,10 +31,12 @@
 //      cursors, 32 claims at once (__match_any_sync ranks a step's claims of
 //      one slot), so every slot's list is in ascending e order with no sort;
 //   4. adds each slot's rows in list order, G lanes a slot across the
-//      channels (`vec` channels a lane: float4, float2 or one float), four
-//      or eight rows' loads in
+//      channels (`vec` channels a lane: float4, float2 or one float; bf16
+//      rows take eight as one 16-byte load, four, two or one, and keep them
+//      in registers as loaded, Bf16Lanes), four or eight rows' loads in
 //      flight (index_depth), into `out`: the sum of a pass before the last
-//      is kept in `out` and read back by the same thread.
+//      is kept in `out` (f32 slots) or in the f32 scratch `part` (bf16
+//      slots) and read back by the same thread.
 // No float atomics, no memset, a list that never overflows (a pass holds at
 // most as many claims as indices).
 #pragma once
@@ -71,7 +77,21 @@ inline int index_depth(long long claims, int N) { return claims >= 6LL * N ? 8 :
 template <int VEC>
 struct Row {
   float x[VEC];
+  __device__ __forceinline__ float operator[](int i) const { return x[i]; }
 };
+
+// A source row's VEC channels as loaded: floats, or the bf16 words
+// (Bf16Lanes), widened as they are added.
+template <typename T, int VEC>
+using RowLanes =
+    typename std::conditional<std::is_same<T, float>::value, Row<VEC>, Bf16Lanes<VEC>>::type;
+
+template <int VEC>
+__device__ __forceinline__ Bf16Lanes<VEC> load_row(const bf16* p) {
+  Bf16Lanes<VEC> r;
+  r.load(p);
+  return r;
+}
 
 template <int VEC>
 __device__ __forceinline__ Row<VEC> load_row(const float* p) {
@@ -92,10 +112,10 @@ __device__ __forceinline__ Row<VEC> load_row(const float* p) {
   return r;
 }
 
-template <int VEC>
-__device__ __forceinline__ void add_row(Row<VEC>& acc, const Row<VEC>& r) {
+template <int VEC, typename Lanes>
+__device__ __forceinline__ void add_row(Row<VEC>& acc, const Lanes& r) {
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc.x[i] = __fadd_rn(acc.x[i], r.x[i]);
+  for (int i = 0; i < VEC; ++i) acc.x[i] = __fadd_rn(acc.x[i], r[i]);
 }
 
 // The block's exclusive prefix of x in thread order. warp_sums: kIndexWarps
@@ -117,15 +137,19 @@ __device__ __forceinline__ int block_exclusive_scan(int x, int* warp_sums) {
 
 // One block's slots [n0, n0 + nr), 1 <= nr <= kMaxSlots, from the claims
 // [e_lo, e_hi) of `idx` (the cloud's claims; claim e brings row e / K of
-// `src`, rows of C floats). out: slot n0's row of the output; count (MEAN
-// only): slot n0's count. smem4: 2 * tile ints of dynamic shared memory.
-// Launched with kIndexThreads threads.
-template <int VEC, int DEPTH, bool MEAN>
-__device__ __forceinline__ void scatter_rows(const float* __restrict__ src,
+// `src`, rows of C values of type T, float or bf16). out: slot n0's row of
+// the output, of type T; part (T = bf16 and more than one pass only): slot
+// n0's row of an f32 scratch of the output's shape; count (MEAN only): slot
+// n0's count. smem4: 2 * tile ints of dynamic shared memory. Launched with
+// kIndexThreads threads.
+template <int VEC, int DEPTH, bool MEAN, typename T>
+__device__ __forceinline__ void scatter_rows(const T* __restrict__ src,
                                              const int* __restrict__ idx, int e_lo, int e_hi,
                                              int K, int n0, int nr_, int C, int tile,
-                                             float* __restrict__ out, float* __restrict__ count,
-                                             IndexShared& sh, int4* smem4) {
+                                             T* __restrict__ out, float* __restrict__ part,
+                                             float* __restrict__ count, IndexShared& sh,
+                                             int4* smem4) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   int* stage = reinterpret_cast<int*>(smem4);  // [tile]: the pass's indices
   int* list = stage + tile;  // [tile]: the claiming source rows, grouped by slot
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -221,12 +245,19 @@ __device__ __forceinline__ void scatter_rows(const float* __restrict__ src,
       for (int slot = tid / G; slot < static_cast<int>(nr); slot += per_step) {
         const int j0 = sh.first[slot], j1 = sh.first[slot + 1];
         for (int c = g * VEC; c < C; c += G * VEC) {
-          float* o = out + static_cast<size_t>(slot) * C + c;
+          // Where a pass before the last keeps its sums: the f32 slot
+          // itself, or the f32 scratch for a bf16 slot.
+          float* o;
+          if constexpr (kF32) {
+            o = out + static_cast<size_t>(slot) * C + c;
+          } else {
+            o = part + static_cast<size_t>(slot) * C + c;
+          }
           Row<VEC> acc;
 #pragma unroll
           for (int v = 0; v < VEC; ++v) acc.x[v] = p0 == e_lo ? 0.f : o[v];
           for (int j = j0; j < j1; j += DEPTH) {
-            Row<VEC> r[DEPTH];
+            RowLanes<T, VEC> r[DEPTH];
 #pragma unroll
             for (int u = 0; u < DEPTH; ++u)
               if (j + u < j1) r[u] = load_row<VEC>(src + static_cast<size_t>(list[j + u]) * C + c);
@@ -239,7 +270,13 @@ __device__ __forceinline__ void scatter_rows(const float* __restrict__ src,
 #pragma unroll
             for (int v = 0; v < VEC; ++v) acc.x[v] = __fdiv_rn(acc.x[v], den);
           }
-          if constexpr (VEC == 4) {
+          if (!kF32 && last) {
+            store_bf16<VEC>(reinterpret_cast<bf16*>(out) + static_cast<size_t>(slot) * C + c,
+                            acc.x);
+          } else if constexpr (VEC == 8) {  // bf16 rows: a pass before the last into part
+            reinterpret_cast<float4*>(o)[0] = make_float4(acc.x[0], acc.x[1], acc.x[2], acc.x[3]);
+            reinterpret_cast<float4*>(o)[1] = make_float4(acc.x[4], acc.x[5], acc.x[6], acc.x[7]);
+          } else if constexpr (VEC == 4) {
             *reinterpret_cast<float4*>(o) = make_float4(acc.x[0], acc.x[1], acc.x[2], acc.x[3]);
           } else if constexpr (VEC == 2) {
             *reinterpret_cast<float2*>(o) = make_float2(acc.x[0], acc.x[1]);

@@ -34,7 +34,7 @@ namespace {
 
 template <int KMAX, int VEC>
 __global__ void __launch_bounds__(mpa::kAttentionFwdThreads,
-                                  mpa::attention_fwd_min_blocks(KMAX, VEC))
+                                  mpa::attention_fwd_min_blocks(KMAX, VEC, sizeof(float)))
 windowed_attention_fwd_kernel(
     const float* __restrict__ packed, const int* __restrict__ idx,
     const float* __restrict__ shifts, float* __restrict__ out,
@@ -46,11 +46,13 @@ windowed_attention_fwd_kernel(
 
 // packed [B,N,nB*2C], idx [B,S,K] int32 in [0, N), shifts [B,S,nB*C] or null,
 // out [B,S,nB*C]; all contiguous f32 except idx. Requires 1 <= K <= 64
-// (checked by the Python wrapper). vec: as mpa_transition_attention_fwd.
+// (checked by the Python wrapper). vec: as mpa_transition_attention_fwd for
+// float32 (4 or 1).
 MPA_EXPORT int mpa_windowed_attention_fwd(const void* packed, const void* idx, const void* shifts,
                                           void* out, int B, int N, int S, int K, int n_branches,
                                           int C, int vec, void* stream) {
-  static const mpa::AttentionFwdKernels kernels = {
+  static const mpa::AttentionFwdKernels<float> kernels = {
+      {nullptr, nullptr},
       {windowed_attention_fwd_kernel<8, 4>, windowed_attention_fwd_kernel<16, 4>},
       {windowed_attention_fwd_kernel<8, 1>, windowed_attention_fwd_kernel<16, 1>,
        windowed_attention_fwd_kernel<32, 1>, windowed_attention_fwd_kernel<64, 1>}};

@@ -56,9 +56,9 @@ MPA_EXPORT int mpa_windowed_attention_bwd(const void* packed, const void* idx,
                                           const void* shifts, const void* gctx, void* dpacked,
                                           void* dshift, int B, int N, int S, int K, int n_branches,
                                           int C, void* stream) {
-  static const mpa::AttentionBwdKernel kernels[4] = {
+  static const mpa::AttentionBwdKernel<float> kernels[4] = {
       windowed_attention_bwd_kernel<8>, windowed_attention_bwd_kernel<16>,
       windowed_attention_bwd_kernel<32>, windowed_attention_bwd_kernel<64>};
-  return mpa::launch_attention_bwd(kernels, packed, idx, shifts, gctx, dpacked, dshift, B, N, S, K,
-                                   n_branches, C, mpa::as_stream(stream));
+  return mpa::launch_attention_bwd(kernels, packed, idx, shifts, gctx, dpacked, nullptr, dshift, B,
+                                   N, S, K, n_branches, C, mpa::as_stream(stream));
 }

@@ -43,7 +43,8 @@ windowed_scatter_mean_kernel(const float* __restrict__ feat, const int* __restri
   const size_t slot0 = static_cast<size_t>(b) * N + n0;
   mpa::scatter_rows<VEC, DEPTH, true>(feat + static_cast<size_t>(b) * S * C,
                                       idx + static_cast<size_t>(b) * S * K, e_lo, e_hi, K, n0,
-                                      nr, C, tile, out + slot0 * C, count + slot0, sh, smem4);
+                                      nr, C, tile, out + slot0 * C, nullptr, count + slot0, sh,
+                                      smem4);
 }
 
 }  // namespace

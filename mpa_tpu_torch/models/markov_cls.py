@@ -19,6 +19,11 @@ the dropout masks, from the generator.
 take them in train mode when its ``fps_random_start`` is set
 (``nn/keephigh.py``); ``mpa_tpu``'s classifier leaves that switch off, as
 this one builds it.
+
+``compute_dtype=torch.bfloat16`` is ``mpa_tpu``'s mixed precision: the
+parameters stay float32, the encoder computes in bf16 up to its pooled
+feature (``nn/keephigh.py``), and the head ``fc1`` .. ``fc3`` runs in
+float32 (``mpa_tpu/models/markov_cls.py:61-77``).
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from torch import nn
 
 from mpa_tpu_torch.models.registry import register_model
 from mpa_tpu_torch.nn.keephigh import KeepHighResolutionEncoder
-from mpa_tpu_torch.nn.linear import BatchNorm, seeded_dropout
+from mpa_tpu_torch.nn.linear import BatchNorm, check_compute_dtype, seeded_dropout
 from mpa_tpu_torch.nn.umbrella_constructor import UmbrellaSurfaceConstructor
 
 
@@ -49,15 +54,14 @@ class MarkovClassifier(nn.Module):
         compute_dtype: Any = None,
     ):
         super().__init__()
-        if compute_dtype is not None:
-            raise NotImplementedError("MarkovClassifier compute_dtype (mixed precision) is not ported yet")
+        check_compute_dtype(compute_dtype)
         if not 0.0 <= dropout < 1.0:
             raise ValueError(f"dropout={dropout} must be in [0, 1)")
         self.dropout = dropout
         self.surface_constructor = UmbrellaSurfaceConstructor() if use_umbrella else None
         self.keep_high = KeepHighResolutionEncoder(
             npoints=npoints, channels=channels, residuals=residuals,
-            num_neighbors=num_neighbors, out_features=encoder_features,
+            num_neighbors=num_neighbors, out_features=encoder_features, dtype=compute_dtype,
         )
         self.fc1 = nn.Linear(encoder_features, 512)
         self.bn1 = BatchNorm(512)

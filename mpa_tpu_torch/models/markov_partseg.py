@@ -11,6 +11,11 @@ bits, so parity runs use ``dropout=0``. In the window modes
 put back in the input order. In train mode the encoder's FPS takes keyed
 starts when ``fps_generator`` or ``fps_starts`` is given
 (``nn/keephigh_partseg.py``), as ``mpa_tpu``'s takes them from ``rng``.
+
+``compute_dtype=torch.bfloat16`` is ``mpa_tpu``'s mixed precision, in the
+exact neighbour mode: the parameters stay float32, the encoder-decoder and
+``conv8`` .. ``conv10`` compute in bf16, and ``conv11`` takes their output
+widened to float32 (``mpa_tpu/models/markov_partseg.py:64-75``).
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from torch import nn
 
 from mpa_tpu_torch.models.registry import register_model
 from mpa_tpu_torch.nn.keephigh_partseg import KeepHighResolutionPartSeg
-from mpa_tpu_torch.nn.linear import LinearUnit, seeded_dropout
+from mpa_tpu_torch.nn.linear import LinearUnit, check_compute_dtype, seeded_dropout
 from mpa_tpu_torch.nn.window_mode import morton_sort, morton_unsort
 
 
@@ -43,8 +48,7 @@ class MarkovPartSeg(nn.Module):
         fps_min_samples: int = 64,
     ):
         super().__init__()
-        if compute_dtype is not None:
-            raise NotImplementedError("MarkovPartSeg compute_dtype (mixed precision) is not ported yet")
+        check_compute_dtype(compute_dtype)
         if not 0.0 <= dropout < 1.0:
             raise ValueError(f"dropout={dropout} must be in [0, 1)")
         self.dropout = dropout
@@ -52,12 +56,12 @@ class MarkovPartSeg(nn.Module):
         self.keep_high = KeepHighResolutionPartSeg(
             npoints=npoints, channels=channels, residuals=residuals,
             num_neighbors=num_neighbors, num_categories=num_categories,
-            neighbor_mode=neighbor_mode, fps_min_band=fps_min_band,
+            dtype=compute_dtype, neighbor_mode=neighbor_mode, fps_min_band=fps_min_band,
             fps_min_samples=fps_min_samples,
         )
-        self.conv8 = LinearUnit(self.keep_high.out_channels, 512)
-        self.conv9 = LinearUnit(512, 256)
-        self.conv10 = LinearUnit(256, 128)
+        self.conv8 = LinearUnit(self.keep_high.out_channels, 512, dtype=compute_dtype)
+        self.conv9 = LinearUnit(512, 256, dtype=compute_dtype)
+        self.conv10 = LinearUnit(256, 128, dtype=compute_dtype)
         self.conv11 = nn.Linear(128, num_parts)
 
     def forward(
@@ -82,6 +86,8 @@ class MarkovPartSeg(nn.Module):
                                       fps_starts=fps_starts))
         x = seeded_dropout(x, self.dropout, self.training, generator)
         x = self.conv10(self.conv9(x))
+        # conv11 has no compute dtype: its weight's type promotes the input.
+        x = x.to(torch.promote_types(x.dtype, self.conv11.weight.dtype))
         return morton_unsort(F.log_softmax(self.conv11(x), dim=-1), inv_perm)
 
 

@@ -21,6 +21,10 @@ window takes the exact ops, as in ``mpa_tpu``.
 
 A flax ``Fuse`` creates parameters only for the target it is called with; here
 the target is fixed when the module is built.
+
+``dtype`` (``torch.bfloat16``, ``mpa_tpu/nn/fuse.py:86-118``): every unit
+computes in bf16, the finer sources' gathers and the coarser sources'
+scatter-means move bf16 rows, and the sums are bf16.
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ class Fuse(nn.Module):
     slot replaced)."""
 
     def __init__(self, channels: Sequence[int], target: int, num_neighbors: int = 8,
-                 knn_mode: str = "exact"):
+                 knn_mode: str = "exact", dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.knn_mode = check_mode("knn_mode", knn_mode, ("exact", "window"))
         self.channels = tuple(channels)
@@ -66,8 +70,8 @@ class Fuse(nn.Module):
         ct = self.channels[target]
         for s, cs in enumerate(self.channels):
             if s != target:
-                setattr(self, f"conv{s}{target}", LinearUnit(cs, ct))
-        setattr(self, f"conv{target}", LinearUnit(ct, ct))
+                setattr(self, f"conv{s}{target}", LinearUnit(cs, ct, dtype=dtype))
+        setattr(self, f"conv{target}", LinearUnit(ct, ct, dtype=dtype))
 
     def forward(
         self,

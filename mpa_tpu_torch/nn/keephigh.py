@@ -11,6 +11,12 @@ own index, ``fps_starts[i]`` (``[B]``) where the caller gives them, else
 drawn from ``fps_generator`` (``ops/fps.py::keyed_start``, one ``[B]`` draw
 a scale in ladder order). In eval mode, or without the switch, FPS starts at
 index 0, as in ``mpa_tpu``.
+
+``dtype`` (``torch.bfloat16``, ``mpa_tpu/nn/keephigh.py:36,72-82``): the
+states and ``conv3`` / ``conv4`` compute in bf16; the max and the mean over
+points of their bf16 output are bf16 (the mean accumulated in float32), and
+``final_class`` (a Dense without a dtype, whose float32 kernel promotes its
+input), ``final_bn`` and what follows run in float32.
 """
 
 from __future__ import annotations
@@ -27,6 +33,14 @@ from mpa_tpu_torch.ops.fps import farthest_point_sample, keyed_start
 from mpa_tpu_torch.ops.gather import index_points
 
 
+def mean_over_points(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean(x, axis=1)``: a bf16 ``x`` summed in float32, the mean
+    rounded back to bf16."""
+    if x.dtype == torch.bfloat16:
+        return torch.mean(x.float(), dim=1).to(x.dtype)
+    return torch.mean(x, dim=1)
+
+
 class KeepHighResolutionEncoder(nn.Module):
     def __init__(
         self,
@@ -36,18 +50,20 @@ class KeepHighResolutionEncoder(nn.Module):
         num_neighbors: int = 8,
         out_features: int = 1024,
         fps_random_start: bool = False,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if len(channels) != len(npoints) + 1 or len(residuals) != len(channels):
             raise ValueError("channels and residuals need one entry more than npoints")
         self.fps_random_start = fps_random_start
         self.npoints = tuple(npoints)
-        self.la0 = LocalMerge(None, channels[0], num_neighbors, residuals[0])
+        self.la0 = LocalMerge(None, channels[0], num_neighbors, residuals[0], dtype=dtype)
         for i in range(len(self.npoints)):
             setattr(self, f"la{i + 1}",
-                    LocalMerge(channels[i], channels[i + 1], num_neighbors, residuals[i + 1]))
-        self.conv3 = LinearUnit(channels[-1], channels[-1])
-        self.conv4 = LinearUnit(channels[-1], out_features)
+                    LocalMerge(channels[i], channels[i + 1], num_neighbors, residuals[i + 1],
+                               dtype=dtype))
+        self.conv3 = LinearUnit(channels[-1], channels[-1], dtype=dtype)
+        self.conv4 = LinearUnit(channels[-1], out_features, dtype=dtype)
         self.final_class = nn.Linear(2 * out_features, out_features)
         self.final_bn = BatchNorm(out_features)
 
@@ -70,6 +86,8 @@ class KeepHighResolutionEncoder(nn.Module):
             )
             cur_xyz = new_xyz
         x = self.conv4(self.conv3(feats))
-        fused = torch.cat([torch.amax(x, dim=1), torch.mean(x, dim=1)], dim=-1)
+        fused = torch.cat([torch.amax(x, dim=1), mean_over_points(x)], dim=-1)
+        # final_class has no compute dtype: its weight's type promotes the input.
+        fused = fused.to(torch.promote_types(fused.dtype, self.final_class.weight.dtype))
         fused = self.final_bn(self.final_class(fused))
         return F.leaky_relu(fused, negative_slope=0.2)

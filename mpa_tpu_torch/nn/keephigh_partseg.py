@@ -22,7 +22,12 @@ FPS scales take keyed starts when the caller gives them, as ``mpa_tpu``
 does with ``rng`` (``keephigh_partseg.py:76-77``): ``fps_starts[i]``
 (``[B]``, or ``[B, n_bands]`` band-local ones at a banded ``window_all``
 scale), or starts drawn from ``fps_generator`` (``draw_starts``, in ladder
-order). Mixed precision is not ported yet and raises.
+order).
+
+``dtype`` (``torch.bfloat16``: ``mpa_tpu``'s mixed precision) gives every
+state, Fuse and LinearUnit bf16 compute, in the exact mode; with
+``window`` or ``window_all`` it raises ``NotImplementedError``, as the
+windowed kernels take float32 only.
 """
 
 from __future__ import annotations
@@ -63,27 +68,30 @@ class KeepHighResolutionPartSeg(WindowModes, nn.Module):
         super().__init__()
         if len(channels) != len(npoints) + 1 or len(residuals) != len(channels):
             raise ValueError("channels and residuals need one entry more than npoints")
-        if dtype is not None:
-            raise NotImplementedError("mixed precision (dtype) is not ported yet")
         self.neighbor_mode = check_mode("neighbor_mode", neighbor_mode, NEIGHBOR_MODES)
+        if dtype is not None and self.windowed:
+            raise NotImplementedError(
+                f"mixed precision (dtype) with neighbor_mode={neighbor_mode!r} is not ported: "
+                "bf16 storage in the windowed kernels is queued in ROADMAP.md")
         self.fps_min_band, self.fps_min_samples = fps_min_band, fps_min_samples
         self.npoints = tuple(npoints)
         ch = self.channels = tuple(channels)
         K = num_neighbors
         top = len(self.npoints)  # the coarsest scale
         modes = dict(include_xyz_branch=True, knn_mode=self.spatial_mode,
-                     feature_knn_mode=self.feature_mode)
+                     feature_knn_mode=self.feature_mode, dtype=dtype)
         self.la0 = LocalMerge(None, ch[0], K, residuals[0], **modes)
         for i in range(top):
             setattr(self, f"la{i + 1}", LocalMerge(ch[i], ch[i + 1], K, residuals[i + 1], **modes))
-        self.mlp = LinearUnit(ch[top], ch[top])
-        self.fuse1 = Fuse(ch, top, K, knn_mode=self.spatial_mode)
+        self.mlp = LinearUnit(ch[top], ch[top], dtype=dtype)
+        self.fuse1 = Fuse(ch, top, K, knn_mode=self.spatial_mode, dtype=dtype)
         for step, s in enumerate(range(top - 1, -1, -1)):
-            setattr(self, f"up_conv{s + 1}", LinearUnit(ch[s + 1], ch[s]))
+            setattr(self, f"up_conv{s + 1}", LinearUnit(ch[s + 1], ch[s], dtype=dtype))
             setattr(self, f"la{s + 1}_up", LocalMerge(ch[s], ch[s], K, False, **modes))
-            setattr(self, f"fuse{step + 2}", Fuse(ch, s, K, knn_mode=self.spatial_mode))
-        self.conv7 = LinearUnit(num_categories, label_channels)
-        self.conv5 = LinearUnit(ch[0], point_channels)
+            setattr(self, f"fuse{step + 2}",
+                    Fuse(ch, s, K, knn_mode=self.spatial_mode, dtype=dtype))
+        self.conv7 = LinearUnit(num_categories, label_channels, dtype=dtype)
+        self.conv5 = LinearUnit(ch[0], point_channels, dtype=dtype)
         self.out_channels = point_channels + sum(ch) + label_channels
 
     def forward(self, xyz: torch.Tensor, label_onehot: torch.Tensor, *,

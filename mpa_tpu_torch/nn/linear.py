@@ -12,6 +12,14 @@ a process group (``mpa_tpu_torch/parallel``), its statistics are those of
 the global batch, as ``mpa_tpu``'s are under a data-parallel ``jit``.
 ``norm="layer"`` is flax's ``nn.LayerNorm(epsilon=1e-5)`` (the reference's
 ``norm1``).
+
+``dtype`` (``torch.bfloat16``: the mixed precision models) is flax's
+``nn.Dense(dtype=...)`` inside the unit: the parameters stay float32 and are
+cast, with the input, to ``dtype``; the product and then the bias add are
+taken in ``dtype``, each rounded (:func:`dense`); the norm and the
+LeakyReLU run in float32 on the widened result (flax's float32 scale
+promotes it), and the unit's output is cast to ``dtype``. Without a norm
+the LeakyReLU runs in ``dtype``, as flax's does.
 """
 
 from __future__ import annotations
@@ -111,11 +119,45 @@ def seeded_dropout(x: torch.Tensor, p: float, training: bool,
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-class LinearUnit(nn.Module):
-    """Linear -> {BatchNorm | LayerNorm | none} -> LeakyReLU(0.2)."""
+def check_compute_dtype(dtype) -> None:
+    """A model's ``compute_dtype``: None (float32) or ``torch.bfloat16``."""
+    if dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {dtype!r}")
 
-    def __init__(self, in_features: int, features: int, norm: Optional[str] = "batch"):
+
+def dense(linear: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``linear`` applied as flax's ``nn.Dense(dtype=dtype)``: with ``dtype``
+    None the float32 ``linear(x)``; else ``x @ W.T`` and then ``+ b`` in
+    ``dtype``, the input, the weight and the bias cast to it, two roundings
+    (``F.linear`` with its bias, or a fused epilogue, would round once)."""
+    if dtype is None:
+        return linear(x)
+    y = torch.matmul(x.to(dtype), linear.weight.to(dtype).t())
+    return y + linear.bias.to(dtype)
+
+
+def dense_bias(linear: nn.Linear, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """What ``dense`` gives for a zero input: the bias, in ``dtype``."""
+    return linear.bias if dtype is None else linear.bias.to(dtype)
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.leaky_relu(x, 0.2)``: in float32 ``F.leaky_relu``; in bf16
+    ``where(x >= 0, x, bf16(0.2) * x)``, the slope a bf16 weak scalar as in
+    JAX (``F.leaky_relu`` would multiply by the float32 0.2)."""
+    if x.dtype != torch.bfloat16:
+        return F.leaky_relu(x, negative_slope=0.2)
+    return torch.where(x >= 0, x, x * torch.tensor(0.2, dtype=x.dtype))
+
+
+class LinearUnit(nn.Module):
+    """Linear -> {BatchNorm | LayerNorm | none} -> LeakyReLU(0.2); with
+    ``dtype``, the mixed precision form of the module doc."""
+
+    def __init__(self, in_features: int, features: int, norm: Optional[str] = "batch",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.linear = nn.Linear(in_features, features)
         if norm == "batch":
             self.norm = BatchNorm(features)
@@ -132,10 +174,13 @@ class LinearUnit(nn.Module):
         ``act(norm(mid_op(x @ W) + b))``: the matmul runs on the fewer input
         rows and the row mix at the narrower output width. As in ``mpa_tpu``
         the product is taken as ``linear(x) - b``, one rounding included, so
-        rows that ``mid_op`` leaves zero come out as the bias."""
-        x = self.linear(x)
+        rows that ``mid_op`` leaves zero come out as the bias. With ``dtype``
+        every step of that form is taken in ``dtype``."""
+        x = dense(self.linear, x, self.dtype)
         if mid_op is not None:
-            x = mid_op(x - self.linear.bias) + self.linear.bias
+            bias = dense_bias(self.linear, self.dtype)
+            x = mid_op(x - bias) + bias
         if self.norm is not None:
-            x = self.norm(x)
-        return F.leaky_relu(x, negative_slope=0.2)
+            x = self.norm(x if self.dtype is None else x.float())
+        x = leaky_relu(x)
+        return x if self.dtype is None else x.to(self.dtype)

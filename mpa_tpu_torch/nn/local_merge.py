@@ -27,6 +27,12 @@ admits no window takes the exact search, as in ``mpa_tpu``: that is the
 modes' semantics, not a device fallback. ``use_tanh`` gives every
 LocalTrans the edge-level tanh path; with ``include_xyz_branch`` the three
 branches then run unpacked (``mpa_tpu/nn/local_merge.py:178-200``).
+
+``dtype`` (``torch.bfloat16``) gives every LocalTrans and ``fc2`` bf16
+compute (``mpa_tpu/nn/local_merge.py:47``): ``center_feat`` is a bf16
+gather, the feature-space kNN upcasts its bf16 features to float32 before
+any distance (``ops/knn.py``), and the spatial kNN stays on the float32
+coordinates.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ class LocalMerge(nn.Module):
                  num_neighbors: int = 8, residual: bool = False, *,
                  use_tanh: bool = False, include_xyz_branch: bool = False,
                  single_branch: bool = False, knn_mode: str = "exact",
-                 feature_knn_mode: str = "exact"):
+                 feature_knn_mode: str = "exact", dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.knn_mode = check_mode("knn_mode", knn_mode, ("exact", "window"))
         self.feature_knn_mode = check_mode("feature_knn_mode", feature_knn_mode,
@@ -71,17 +77,17 @@ class LocalMerge(nn.Module):
         self.use_tanh = use_tanh
         if self.first or self.include_xyz_branch:
             self.xyz_trans = LocalTrans(3, out_channels, num_neighbors, residual_proj=True,
-                                        use_tanh=use_tanh)
+                                        use_tanh=use_tanh, dtype=dtype)
         if self.first:
             return
         self.feature_trans = LocalTrans(feature_channels, out_channels, num_neighbors,
-                                        residual_proj=residual, use_tanh=use_tanh)
+                                        residual_proj=residual, use_tanh=use_tanh, dtype=dtype)
         if self.single_branch:
             return
         self.feature_trans2 = LocalTrans(feature_channels, out_channels, num_neighbors,
-                                         residual_proj=residual, use_tanh=use_tanh)
+                                         residual_proj=residual, use_tanh=use_tanh, dtype=dtype)
         branches = 3 if self.include_xyz_branch else 2
-        self.fc2 = LinearUnit(branches * out_channels, out_channels)
+        self.fc2 = LinearUnit(branches * out_channels, out_channels, dtype=dtype)
 
     def forward(
         self,

@@ -15,16 +15,23 @@ windowed one (``ops/window.py``), the same function.
 summed over K, on gathered rows (``index_points``, the row gather), with
 the ``q`` projection live; in xyz mode k and v act on the centre-relative
 deltas. It does not fold and takes no window spec, as in ``mpa_tpu``.
+
+``dtype`` (``torch.bfloat16``) is ``mpa_tpu``'s mixed precision
+(``local_trans.py:71-95``): q, k and v are bf16 Dense layers
+(``nn/linear.py::dense``), ``node_pack`` takes the softmax numerator and its
+stabiliser in float32 and packs ``[E || V]`` in bf16, the value shift and
+the residual add are bf16, and the LinearUnits take the same ``dtype``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
-from mpa_tpu_torch.nn.linear import LinearUnit
+from mpa_tpu_torch.nn.linear import LinearUnit, dense, dense_bias
 from mpa_tpu_torch.ops.attention import transition_attention
 from mpa_tpu_torch.ops.gather import index_points
 from mpa_tpu_torch.ops.window import windowed_transition_attention
@@ -42,8 +49,10 @@ class LocalTrans(nn.Module):
     """
 
     def __init__(self, in_channels: int, out_channels: int, num_neighbors: int,
-                 residual_proj: bool = False, use_tanh: bool = False):
+                 residual_proj: bool = False, use_tanh: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.use_tanh = use_tanh
         self.out_channels = out_channels
         self.num_neighbors = num_neighbors
@@ -52,14 +61,15 @@ class LocalTrans(nn.Module):
         self.q = nn.Linear(in_channels, out_channels)
         self.k = nn.Linear(in_channels, out_channels)
         self.v = nn.Linear(in_channels, out_channels)
-        self.conv_res = LinearUnit(in_channels, out_channels) if residual_proj else None
-        self.ffn = LinearUnit(out_channels, out_channels)
+        self.conv_res = (LinearUnit(in_channels, out_channels, dtype=dtype) if residual_proj
+                         else None)
+        self.ffn = LinearUnit(out_channels, out_channels, dtype=dtype)
 
     def node_pack(self, source: torch.Tensor) -> torch.Tensor:
         """``[B, N, 2C]`` = ``[E || v(source)]``, ``E = exp(-(W_k x)/sqrt(C) - stab)``
         with ``stab`` the (detached) max over N per batch and channel."""
-        k_src = self.k(source)
-        v_src = self.v(source)
+        k_src = dense(self.k, source, self.dtype)
+        v_src = dense(self.v, source, self.dtype)
         neg = -k_src.float() / math.sqrt(float(self.out_channels))
         stab = torch.amax(neg, dim=1, keepdim=True).detach()
         e_src = torch.exp(neg - stab).to(v_src.dtype)
@@ -67,7 +77,7 @@ class LocalTrans(nn.Module):
 
     def value_shift(self, center: torch.Tensor) -> torch.Tensor:
         """xyz-mode per-query value shift ``b_v - v(center)``."""
-        return self.v.bias - self.v(center)
+        return dense_bias(self.v, self.dtype) - dense(self.v, center, self.dtype)
 
     def ffn_out(self, context: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
         """Residual + FFN head on a precomputed attention context."""
@@ -89,10 +99,17 @@ class LocalTrans(nn.Module):
 
     def tanh_context(self, source, center, idx, xyz_mode: bool) -> torch.Tensor:
         """The edge-level context ``sum_K tanh(q(center) - key) / K * value``."""
+        def k(t):
+            return dense(self.k, t, self.dtype)
+
+        def v(t):
+            return dense(self.v, t, self.dtype)
+
         if xyz_mode:
             neigh = index_points(source, idx) - center[:, :, None, :]
-            key, value = self.k(neigh), self.v(neigh)
+            key, value = k(neigh), v(neigh)
         else:
-            key, value = index_points(self.k(source), idx), index_points(self.v(source), idx)
-        attn = torch.tanh(self.q(center)[:, :, None, :] - key) / self.num_neighbors
+            key, value = index_points(k(source), idx), index_points(v(source), idx)
+        query = dense(self.q, center, self.dtype)
+        attn = torch.tanh(query[:, :, None, :] - key) / self.num_neighbors
         return torch.sum(attn * value, dim=2)

@@ -9,6 +9,14 @@ gather the neighbour rows themselves, so the only residuals are ``packed``,
 ``idx`` and ``shifts``. On a CPU tensor it takes :func:`attention_plain`,
 which autograd differentiates; :func:`attention_bwd_plain` is the backward
 kernel's plain version.
+
+bf16 ``packed``, ``shifts`` and incoming gradient (the mixed precision
+models') stay bf16 on both devices: the arithmetic is the float32 one, and
+the context, ``dpacked`` and ``dshift`` are rounded to bf16 once
+(``attention_pallas.py:602-623``, ``:665,675``). On the CPU a
+``torch.autograd.Function`` gives the bf16 forward :func:`attention_bwd_plain`
+as its backward, whose scatter-add sums in float32 (autograd's own would add
+the gathered rows' gradients in bf16).
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from torch.autograd.function import once_differentiable
 
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
-from mpa_tpu_torch.ops.gather import scatter_add_plain
+from mpa_tpu_torch.ops.gather import KERNEL_DTYPES, scatter_add_plain, stored
 from mpa_tpu_torch.utils.device import on_cuda
 
 # Guard for an all-underflowed exp-sum denominator; above the f32 subnormal
@@ -82,7 +90,8 @@ def attention_bwd_plain(
     over K), then an ``index_add_`` of ``[dE || dV]`` into ``dpacked``.
 
     Returns ``(dpacked [B, N, W] float32, dshift [B, S, n_branches*C] or
-    None)``.
+    None)``; for bf16 ``packed``, dpacked is bf16 (the float32 sums rounded
+    once), and dshift has ``shifts``' type.
     """
     B, S, K = idx.shape
     N, W = packed.shape[1], packed.shape[2]
@@ -113,7 +122,7 @@ def attention_bwd_plain(
         if shifts is not None:
             dshifts.append(torch.sum(dV, dim=2))
     dG = torch.cat(douts, dim=-1).reshape(B, S * K, W)
-    dpacked = scatter_add_plain(dG, idx.reshape(B, S * K), N)
+    dpacked = stored(scatter_add_plain(dG, idx.reshape(B, S * K), N), packed)
     dshift = torch.cat(dshifts, dim=-1).to(shifts.dtype) if shifts is not None else None
     return dpacked, dshift
 
@@ -132,18 +141,24 @@ def check_args(packed, idx, shifts, n_branches, c) -> None:
         raise ValueError(f"transition_attention: shifts shape {tuple(shifts.shape)}")
 
 
-def check_cuda_args(name, packed, idx, shifts, n_branches, c, gctx) -> None:
+def check_cuda_args(name, packed, idx, shifts, n_branches, c, gctx,
+                    dtypes=(torch.float32,)) -> None:
+    """The kernels' arguments: ``packed`` of one of ``dtypes``, and
+    ``shifts`` and ``gctx`` of its type, contiguous on one CUDA device."""
     check_args(packed, idx, shifts, n_branches, c)
     K = idx.shape[2]
     if not 1 <= K <= MAX_K:
         raise ValueError(f"{name} supports 1 <= K <= {MAX_K}, got {K}")
-    named = [("packed", packed, torch.float32), ("idx", idx, torch.int32)]
+    if packed.dtype not in dtypes:
+        raise ValueError(f"{name}: packed must be {' or '.join(map(str, dtypes))}, "
+                         f"got {packed.dtype}")
+    named = [("packed", packed, packed.dtype), ("idx", idx, torch.int32)]
     if shifts is not None:
-        named.append(("shifts", shifts, torch.float32))
+        named.append(("shifts", shifts, packed.dtype))
     if gctx is not None:
         if tuple(gctx.shape) != (idx.shape[0], idx.shape[1], n_branches * c):
             raise ValueError(f"{name}: gctx shape {tuple(gctx.shape)}")
-        named.append(("gctx", gctx, torch.float32))
+        named.append(("gctx", gctx, packed.dtype))
     for arg, t, dt in named:
         if t.device != packed.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be a contiguous {dt} tensor on {packed.device}")
@@ -153,14 +168,21 @@ def check_cuda_args(name, packed, idx, shifts, n_branches, c, gctx) -> None:
 
 def attention_fwd_form(packed: torch.Tensor, shifts: Optional[torch.Tensor], K: int,
                        c: int) -> int:
-    """``transition_attention_fwd_kernel``'s channels a thread: 4 (float4
-    loads of E, V and the shift, a float4 store) where ``c % 4 == 0``, ``K <=
-    16`` (the K float4 pairs a thread keeps in registers) and ``packed`` and
-    ``shifts`` start on a 16-byte boundary (their rows and branch offsets
-    then do too); 1 for every other call. The kernel's entry refuses 4
-    where it does not hold."""
-    aligned = packed.data_ptr() % 16 == 0 and (shifts is None or shifts.data_ptr() % 16 == 0)
-    return 4 if c % 4 == 0 and K <= 16 and aligned else 1
+    """``transition_attention_fwd_kernel``'s channels a thread: where ``K <=
+    16`` (the rows a thread keeps in registers), the most of 16 bytes' worth
+    (float32: 4, float4 loads of E, V and the shift and a float4 store; bf16:
+    8, one 16-byte load of eight) and 4 (bf16: 8-byte loads) that divides
+    ``c`` with ``packed`` and ``shifts`` starting on a boundary of that many
+    values (their rows and branch offsets then do too); 1 for every other
+    call. The kernel's entry refuses any other form."""
+    es = packed.element_size()
+
+    def aligned(vec: int) -> bool:
+        return all(t is None or t.data_ptr() % (vec * es) == 0 for t in (packed, shifts))
+
+    if K > 16:
+        return 1
+    return next((v for v in (16 // es, 4) if c % v == 0 and aligned(v)), 1)
 
 
 def attention_cuda(
@@ -170,14 +192,16 @@ def attention_cuda(
     n_branches: int,
     c: int,
 ) -> torch.Tensor:
-    """Launch ``transition_attention_fwd_kernel`` on CUDA tensors, with
+    """Launch ``transition_attention_fwd_kernel`` on CUDA tensors (float32,
+    or bf16 ``packed`` and ``shifts`` for a bf16 context), with
     :func:`attention_fwd_form`'s channels a thread."""
     check_cuda_args("transition_attention_fwd_kernel", packed, idx, shifts, n_branches, c,
-                gctx=None)
+                    gctx=None, dtypes=KERNEL_DTYPES)
     B, N, _ = packed.shape
     S, K = idx.shape[1], idx.shape[2]
     vec = attention_fwd_form(packed, shifts, K, c)
-    out = torch.empty((B, S, n_branches * c), dtype=torch.float32, device=packed.device)
+    bf16 = packed.dtype == torch.bfloat16
+    out = torch.empty((B, S, n_branches * c), dtype=packed.dtype, device=packed.device)
     lib = build.load()
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -185,13 +209,14 @@ def attention_cuda(
             lib.mpa_transition_attention_fwd(
                 packed.data_ptr(), idx.data_ptr(),
                 None if shifts is None else shifts.data_ptr(), out.data_ptr(),
-                B, N, S, K, n_branches, c, vec, stream,
+                B, N, S, K, n_branches, c, vec, int(bf16), stream,
             ),
             f"transition_attention_fwd_kernel (K={K}, c={c}, {vec} channels a thread)",
         )
     kernels.launched(
         "transition_attention_fwd_kernel",
         {"packed": packed, "idx": idx, "shifts": shifts, "n_branches": n_branches, "c": c},
+        bf16=bf16,
     )
     return out
 
@@ -205,11 +230,16 @@ def attention_bwd_cuda(
     c: int,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch ``transition_attention_bwd_kernel`` on CUDA tensors; returns
-    ``(dpacked, dshift or None)`` as :func:`attention_bwd_plain`."""
-    check_cuda_args("transition_attention_bwd_kernel", packed, idx, shifts, n_branches, c, gctx)
+    ``(dpacked, dshift or None)`` as :func:`attention_bwd_plain`. For bf16
+    ``packed``, ``shifts`` and ``gctx`` the kernel adds into a float32
+    ``dpacked`` and rounds it into the bf16 one it returns."""
+    check_cuda_args("transition_attention_bwd_kernel", packed, idx, shifts, n_branches, c, gctx,
+                    dtypes=KERNEL_DTYPES)
     B, N, W = packed.shape
     S, K = idx.shape[1], idx.shape[2]
-    dpacked = torch.empty((B, N, W), dtype=torch.float32, device=packed.device)
+    bf16 = packed.dtype == torch.bfloat16
+    acc = torch.empty((B, N, W), dtype=torch.float32, device=packed.device)
+    dpacked = torch.empty_like(packed) if bf16 else acc
     dshift = None if shifts is None else torch.empty_like(shifts)
     lib = build.load()
     with torch.cuda.device(packed.device):
@@ -218,8 +248,9 @@ def attention_bwd_cuda(
             lib.mpa_transition_attention_bwd(
                 packed.data_ptr(), idx.data_ptr(),
                 None if shifts is None else shifts.data_ptr(), gctx.data_ptr(),
-                dpacked.data_ptr(), None if dshift is None else dshift.data_ptr(),
-                B, N, S, K, n_branches, c, stream,
+                acc.data_ptr(), dpacked.data_ptr() if bf16 else None,
+                None if dshift is None else dshift.data_ptr(),
+                B, N, S, K, n_branches, c, int(bf16), stream,
             ),
             "transition_attention_bwd_kernel",
         )
@@ -227,6 +258,7 @@ def attention_bwd_cuda(
         "transition_attention_bwd_kernel",
         {"packed": packed, "idx": idx, "shifts": shifts, "gctx": gctx,
          "n_branches": n_branches, "c": c},
+        bf16=bf16,
     )
     return dpacked, dshift
 
@@ -247,8 +279,27 @@ class _TransitionAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gctx):
         packed, idx, shifts = ctx.saved_tensors
-        dpacked, dshift = attention_bwd_cuda(packed, idx, shifts, gctx.float().contiguous(),
+        dpacked, dshift = attention_bwd_cuda(packed, idx, shifts,
+                                             gctx.to(packed.dtype).contiguous(),
                                              ctx.n_branches, ctx.c)
+        return dpacked, None, dshift, None, None
+
+
+class _AttentionPlainBf16(torch.autograd.Function):
+    """:func:`attention_plain` on bf16 CPU tensors, its backward
+    :func:`attention_bwd_plain` (float32 sums, each output rounded once)."""
+
+    @staticmethod
+    def forward(ctx, packed, idx, shifts, n_branches: int, c: int):
+        ctx.save_for_backward(packed, idx, shifts)
+        ctx.n_branches, ctx.c = n_branches, c
+        return attention_plain(packed, idx, shifts, n_branches, c)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gctx):
+        packed, idx, shifts = ctx.saved_tensors
+        dpacked, dshift = attention_bwd_plain(packed, idx, shifts, gctx, ctx.n_branches, ctx.c)
         return dpacked, None, dshift, None, None
 
 
@@ -271,14 +322,20 @@ def transition_attention(
 
     Returns ``[B, S, n_branches*C]`` contexts (branch-concatenated).
     """
+    bf16 = packed.dtype == torch.bfloat16
+    if bf16 and shifts is not None and shifts.dtype != packed.dtype:
+        raise ValueError(f"transition_attention: bf16 packed needs bf16 shifts, got {shifts.dtype}")
     if on_cuda(packed, "packed"):
+        store = torch.bfloat16 if bf16 else torch.float32
         out = _TransitionAttention.apply(
-            packed.float().contiguous(),
+            packed.to(store).contiguous(),
             idx.to(torch.int32).contiguous(),
-            None if shifts is None else shifts.float().contiguous(),
+            None if shifts is None else shifts.to(store).contiguous(),
             n_branches,
             c,
         )
         return out.to(packed.dtype)
     check_args(packed, idx, shifts, n_branches, c)
+    if bf16:
+        return _AttentionPlainBf16.apply(packed, idx, shifts, n_branches, c)
     return attention_plain(packed, idx, shifts, n_branches, c)

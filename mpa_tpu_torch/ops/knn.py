@@ -11,6 +11,12 @@ the kernel's values are kept, and the backward is that of
 differentiates: ``2 (q - b[idx]) g`` into ``query`` and its negation
 scatter-added into ``base`` (``gather_rows_kernel`` and
 ``scatter_add_rows_kernel``). The indices carry no gradient.
+
+bf16 points or features (the mixed precision models' feature-space kNN) are
+upcast to float32 before any distance, on both devices, as ``mpa_tpu``'s
+``square_distance`` takes their products in float32
+(``mpa_tpu/ops/pairwise.py:34-43``): ``knn_kernel`` stays float32, and the
+distances are float32.
 """
 
 from __future__ import annotations

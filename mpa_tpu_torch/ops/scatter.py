@@ -15,6 +15,13 @@ backward is the VJP of ``scatter_pallas.py::_bwd``: the incoming gradient
 divided by the count, gathered through ``gather_rows_kernel`` and summed over
 K. On a CPU tensor it takes :func:`scatter_mean_plain`, which autograd
 differentiates.
+
+bf16 features (the mixed precision models') give a bf16 mean on both
+devices: the sums, counts and divide are float32 and the mean is rounded
+once (``mpa_tpu/ops/scatter.py:46-51``). The backward is ``mpa_tpu``'s:
+the bf16 gradient divided by the float32 count is float32 (JAX's type
+promotion in ``scatter_pallas.py::_bwd``), so its gather and its sum over K
+run in float32, and the result is rounded to bf16 once.
 """
 
 from __future__ import annotations
@@ -26,7 +33,9 @@ from torch.autograd.function import once_differentiable
 
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
-from mpa_tpu_torch.ops.gather import MAX_B, gather_cuda, index_form
+from mpa_tpu_torch.ops.gather import (
+    KERNEL_DTYPES, MAX_B, gather_cuda, index_form, partial_sums, stored,
+)
 from mpa_tpu_torch.utils.device import on_cuda
 
 
@@ -36,7 +45,8 @@ def scatter_mean_plain(
     """Plain version: the segment-sum form of ``mpa_tpu/ops/scatter.py`` with
     ``index_add_`` over (batch, fine-point) keys. Returns ``(mean [B, N, C]
     float32, count [B, N] float32)``; indices outside ``[0, num_fine)`` claim
-    no slot."""
+    no slot. The mean of bf16 features is the float32 one rounded to bf16
+    (``scatter_mean_kernel``'s contract)."""
     B, S, C = features.shape
     K = knn_idx.shape[-1]
     idx = knn_idx.long()
@@ -49,7 +59,7 @@ def scatter_mean_plain(
     count = torch.zeros((B * num_fine,), dtype=torch.float32, device=features.device)
     count.index_add_(0, seg, torch.ones_like(seg, dtype=torch.float32))
     out = summed / count.clamp_min(1.0)[:, None]
-    return out.reshape(B, num_fine, C), count.reshape(B, num_fine)
+    return stored(out.reshape(B, num_fine, C), features), count.reshape(B, num_fine)
 
 
 def check_args(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int) -> None:
@@ -69,9 +79,9 @@ def scatter_mean_form(features: torch.Tensor, num_fine: int) -> Tuple[int, int]:
     """``scatter_mean_kernel``'s form for ``features [B,S,C]`` into
     ``num_fine`` slots, ``(slots, vec)``: ``ops/gather.py::index_form``'s
     (256 slots a block halved down to 32 while the launch has fewer than
-    ``FILL_BLOCKS`` blocks; four channels a lane where ``C % 4 == 0`` and
-    ``features`` is 16-byte aligned, else one). The kernel's entry refuses
-    any other form."""
+    ``FILL_BLOCKS`` blocks; eight bf16 or four channels a lane where they
+    divide ``C`` and ``features`` is aligned to them, else one). The
+    kernel's entry refuses any other form."""
     return index_form(features, num_fine)
 
 
@@ -79,12 +89,13 @@ def scatter_mean_cuda(
     features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``scatter_mean_kernel`` in :func:`scatter_mean_form`'s form:
-    features ``[B,S,C]`` f32, knn_idx ``[B,S,K]`` int32 -> ``(mean
-    [B,num_fine,C], count [B,num_fine])`` f32."""
+    features ``[B,S,C]`` f32 or bf16, knn_idx ``[B,S,K]`` int32 -> ``(mean
+    [B,num_fine,C]`` of features' type``, count [B,num_fine]`` f32)."""
     check_args(features, knn_idx, num_fine)
-    for arg, t, dt in (("features", features, torch.float32), ("knn_idx", knn_idx, torch.int32)):
-        if t.device.type != "cuda" or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"scatter_mean_kernel: {arg} must be a contiguous {dt} CUDA tensor")
+    for arg, t, dts in (("features", features, KERNEL_DTYPES), ("knn_idx", knn_idx, (torch.int32,))):
+        if t.device.type != "cuda" or t.dtype not in dts or not t.is_contiguous():
+            raise ValueError(f"scatter_mean_kernel: {arg} must be a contiguous "
+                             f"{' or '.join(map(str, dts))} CUDA tensor")
     if features.device != knn_idx.device:
         raise ValueError("scatter_mean_kernel: features and knn_idx on different devices")
     B, S, C = features.shape
@@ -93,18 +104,21 @@ def scatter_mean_cuda(
         raise ValueError(f"scatter_mean_kernel: B <= {MAX_B}, C >= 1, K >= 1 and S*K < 2^31 "
                          f"expected, got B={B}, S={S}, K={K}, C={C}")
     slots, vec = scatter_mean_form(features, num_fine)
-    out = torch.empty((B, num_fine, C), dtype=torch.float32, device=features.device)
+    bf16 = features.dtype == torch.bfloat16
+    out = torch.empty((B, num_fine, C), dtype=features.dtype, device=features.device)
     count = torch.empty((B, num_fine), dtype=torch.float32, device=features.device)
+    part = partial_sums(out, S * K)
     lib = build.load()
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(
             lib.mpa_scatter_mean(features.data_ptr(), knn_idx.data_ptr(), out.data_ptr(),
-                                 count.data_ptr(), B, S, K, num_fine, C, slots, vec, stream),
+                                 None if part is None else part.data_ptr(), count.data_ptr(),
+                                 B, S, K, num_fine, C, slots, vec, int(bf16), stream),
             f"scatter_mean_kernel ({slots} slots a block, {vec} channels a lane)",
         )
     kernels.launched("scatter_mean_kernel",
-                     {"features": features, "knn_idx": knn_idx, "num_fine": num_fine})
+                     {"features": features, "knn_idx": knn_idx, "num_fine": num_fine}, bf16=bf16)
     return out, count
 
 
@@ -114,7 +128,8 @@ def scatter_mean_bwd_cuda(
     """The scatter-mean's VJP on CUDA tensors: ``df[s] = sum_k g[idx[s, k]] /
     max(count[idx[s, k]], 1)``, the rows picked by ``gather_rows_kernel``.
     grad ``[B,N,C]`` f32, knn_idx ``[B,S,K]`` int32 in ``[0, N)``, count
-    ``[B,N]`` -> ``[B,S,C]``."""
+    ``[B,N]`` -> ``[B,S,C]`` f32. A bf16 ``grad`` divided by the f32 count
+    is f32, as in ``mpa_tpu``."""
     B, S, K = knn_idx.shape
     g_norm = (grad / count.clamp_min(1.0)[..., None]).contiguous()
     picked = gather_cuda(g_norm, knn_idx.reshape(B, S * K))
@@ -135,7 +150,7 @@ class _ScatterMean(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad: torch.Tensor):
         knn_idx, count = ctx.saved_tensors
-        return scatter_mean_bwd_cuda(grad.float(), knn_idx, count), None, None
+        return stored(scatter_mean_bwd_cuda(grad, knn_idx, count), grad), None, None
 
 
 def scatter_mean_upsample(
@@ -156,7 +171,8 @@ def scatter_mean_upsample(
     """
     check_args(features, knn_idx, num_fine)
     if on_cuda(features, "features"):
-        out = _ScatterMean.apply(features.float().contiguous(),
-                                 knn_idx.to(torch.int32).contiguous(), num_fine)
+        rows = features if features.dtype == torch.bfloat16 else features.float()
+        out = _ScatterMean.apply(rows.contiguous(), knn_idx.to(torch.int32).contiguous(),
+                                 num_fine)
         return out.to(features.dtype)
     return scatter_mean_plain(features, knn_idx, num_fine)[0].to(features.dtype)

@@ -92,6 +92,13 @@ class WindowSpec:
         return g * self.bn
 
 
+def refuse_bf16(t: torch.Tensor, what: str) -> None:
+    """Raise for bf16 storage, which the windowed kernels do not take yet."""
+    if t.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{what}: bf16 storage in the windowed kernels is not ported yet (ROADMAP.md)")
+
+
 def make_window_spec(S: int, N: int, sq: int = 128) -> WindowSpec:
     """The spec for S queries over N nodes. Requires the models' power-of-two
     scales: ``S % sq == 0`` (``sq`` capped at ``S // 2``), at least two
@@ -394,7 +401,9 @@ def windowed_transition_attention(
     spec: WindowSpec,
 ) -> torch.Tensor:
     """``transition_attention`` (same arguments and result) for an ``idx``
-    inside its rows' windows of ``spec``, the windowed kNN's guarantee."""
+    inside its rows' windows of ``spec``, the windowed kNN's guarantee.
+    float32 only: bf16 storage in the windowed kernels is not ported."""
+    refuse_bf16(packed, "windowed attention")
     if on_cuda(packed, "packed"):
         out = _WindowedAttention.apply(
             packed.float().contiguous(), idx.to(torch.int32).contiguous(),
@@ -475,7 +484,9 @@ def windowed_scatter_mean(features: torch.Tensor, knn_idx: torch.Tensor, num_fin
                           spec: WindowSpec) -> torch.Tensor:
     """``scatter_mean_upsample`` (same arguments and result) for a
     ``knn_idx`` inside its coarse rows' windows of ``spec``, the windowed
-    kNN's guarantee (differentiable in ``features``)."""
+    kNN's guarantee (differentiable in ``features``). float32 only, as
+    :func:`windowed_transition_attention`."""
+    refuse_bf16(features, "windowed scatter-mean")
     check_scatter(features, knn_idx, num_fine)
     if on_cuda(features, "features"):
         out = _WindowedScatterMean.apply(features.float().contiguous(),

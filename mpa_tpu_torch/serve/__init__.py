@@ -93,14 +93,17 @@ class SemanticSegmenter:
 
 
 def _load(preset: str, task: str, variables: Optional[Mapping], device: DeviceLike, seed: int,
-          **overrides):
+          compute_dtype: Optional[torch.dtype] = None, **overrides):
     if preset not in PRESETS:
         raise KeyError(f"unknown preset {preset!r}; available: {sorted(PRESETS)}")
     cfg = PRESETS[preset].with_overrides(**overrides)
     if cfg.task != task:
         raise ValueError(f"preset {preset!r} is a {cfg.task!r} preset, not {task!r}")
     dev = resolve_device(device)
-    model = get_model(cfg.model, **model_kwargs(cfg))
+    kw = model_kwargs(cfg)
+    if compute_dtype is not None:
+        kw["compute_dtype"] = compute_dtype
+    model = get_model(cfg.model, **kw)
     if variables is None:
         init_like_flax(model, torch.Generator().manual_seed(seed))
     else:
@@ -115,6 +118,7 @@ def load_classifier(
     *,
     device: DeviceLike = None,
     seed: int = 0,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Classifier:
     """Build the preset's classifier on ``device`` (default ``cuda``).
 
@@ -127,8 +131,10 @@ def load_classifier(
       device: ``"cuda"`` (default) or ``"cpu"``; CUDA without a card raises.
       seed: seed of the CPU generator used when ``variables`` is None, so the
         same seed gives the same weights on every device.
+      compute_dtype: ``torch.bfloat16`` for ``markov_cls``'s mixed precision
+        (float32 weights, bf16 activations), or None.
     """
-    return Classifier(*_load(preset, "cls", variables, device, seed))
+    return Classifier(*_load(preset, "cls", variables, device, seed, compute_dtype))
 
 
 def load_segmenter(
@@ -137,6 +143,7 @@ def load_segmenter(
     *,
     device: DeviceLike = None,
     seed: int = 0,
+    compute_dtype: Optional[torch.dtype] = None,
     **overrides,
 ) -> Segmenter:
     """Build the preset's part segmenter (``shapenetpart``: ``markov_partseg``,
@@ -147,8 +154,11 @@ def load_segmenter(
     times; the clouds must have that many points) and, for
     ``markov_partseg``, ``neighbor_mode`` (``"exact"``, ``"window"`` or
     ``"window_all"``), so the Morton-window segmenter is
-    ``load_segmenter(neighbor_mode="window")``."""
-    return Segmenter(*_load(preset, "partseg", variables, device, seed, **overrides))
+    ``load_segmenter(neighbor_mode="window")``. ``compute_dtype``:
+    ``torch.bfloat16`` for ``markov_partseg``'s mixed precision (exact mode
+    only), or None."""
+    return Segmenter(*_load(preset, "partseg", variables, device, seed, compute_dtype,
+                            **overrides))
 
 
 def load_semantic_segmenter(

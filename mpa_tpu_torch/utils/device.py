@@ -17,6 +17,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     ``RuntimeError``. On a CUDA device the float32 matmul and convolution
     paths are pinned to full float32 (no TF32): the port is held to the JAX
     reference in float32, and kNN selection reads the low bits of distances.
+    bf16 matmuls (the mixed precision models') are pinned to float32
+    accumulation (no reduced-precision reduction inside cuBLAS), as XLA
+    accumulates a bf16 dot in float32; the setting touches no float32 path.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -27,6 +30,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -3,6 +3,7 @@
 
     python3 profile_port.py [--model MODEL] [--batch B] [--requests 5] [--trace t.json]
     python3 profile_port.py [--model MODEL] --train [--batch B] [--requests 5]
+    python3 profile_port.py --model cls|partseg --bf16 [--train]
 
 Loads the model's preset of the PyTorch port on ``cuda`` (``scanobjectnn_cls``
 at 1024 points, batch 64; ``shapenetpart`` at 2048 points, batch 32;
@@ -20,9 +21,11 @@ kernels, matrix products, everything else) and by kernel name, and the
 peak of allocated device memory. With
 ``--train`` the unit is the preset's train step (its optimizer, dropout 0.5,
 train-mode BatchNorm) on the training CLI's synthetic clouds instead of a
-request. Needs a CUDA card; exits non-zero without one.
+request. ``--bf16`` builds ``markov_cls`` or ``markov_partseg`` with
+``compute_dtype=torch.bfloat16``. Needs a CUDA card; exits non-zero without
+one.
 
-    python3 profile_port.py --kernels [--names a,b] [--inputs PATH] [--against DIR ...]
+    python3 profile_port.py --kernels [--bf16] [--names a,b] [--inputs PATH] [--against DIR ...]
 
 Times ``knn_kernel``, ``windowed_knn_kernel``, ``fps_kernel``,
 ``transition_attention_fwd_kernel``, ``windowed_attention_fwd_kernel``,
@@ -43,7 +46,9 @@ kernel cut out, which splits that kernel's time among its parts); each is
 timed twice, in turns with this tree (others, this, this, others in
 reverse), all in one run on one card. ``--names`` times only the kernels it
 lists; ``--inputs PATH`` keeps the recording there and reuses it when it
-exists, so that two runs share it. Prints a per-launch table and the sums
+exists, so that two runs share it. With ``--bf16`` the recording is the
+bf16 launches of a request and a train step of ``markov_cls`` and
+``markov_partseg`` with ``compute_dtype=torch.bfloat16`` instead. Prints a per-launch table and the sums
 per path, and writes them to ``chiprun_out/kernel_times.json`` (``--out``).
 """
 
@@ -98,7 +103,7 @@ def kind(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def make_requests(model: str, batch: int, points: int):
+def make_requests(model: str, batch: int, points: int, dtype_kw: dict):
     """``run(i)`` answers the i-th request of ``batch`` clouds: random ones
     for the classifier, ``surface_clouds`` for repsurf (its balls hold
     neighbours on the surface), ``realistic_partseg`` ones with their categories for the
@@ -133,13 +138,13 @@ def make_requests(model: str, batch: int, points: int):
         def make(i):
             return (clouds,)
     elif model in ("partseg", "partseg_fp"):
-        serve = load_segmenter(PRESETS[model], seed=0)
+        serve = load_segmenter(PRESETS[model], seed=0, **dtype_kw)
 
         def make(i):
             pts, cats, _ = realistic_partseg(batch, points, seed=i)
             return torch.from_numpy(pts).cuda(), torch.from_numpy(cats).cuda()
     else:
-        serve = load_classifier(PRESETS[model], seed=0)
+        serve = load_classifier(PRESETS[model], seed=0, **dtype_kw)
 
         def make(i):
             return (torch.from_numpy(
@@ -153,7 +158,7 @@ def make_requests(model: str, batch: int, points: int):
     return run
 
 
-def make_train_steps(model: str, batch: int):
+def make_train_steps(model: str, batch: int, dtype_kw: dict):
     """``run(i)`` takes the preset's train step on the i-th batch of the
     training CLI's synthetic clouds (for repsurf, ``surface_clouds`` as its
     requests)."""
@@ -169,7 +174,7 @@ def make_train_steps(model: str, batch: int):
         arrays = surface_clouds(cli_train.DATASET_SIZES["cls"][0], cfg.num_points, cfg.num_classes)
     else:
         arrays, _ = cli_train.load_dataset(cfg, n_eval=1)
-    net = init_like_flax(get_model(cfg.model, **model_kwargs(cfg)),
+    net = init_like_flax(get_model(cfg.model, **model_kwargs(cfg), **dtype_kw),
                          torch.Generator().manual_seed(0))
     cuda = torch.device("cuda")
     state = create_train_state(net, cfg, cuda)
@@ -183,25 +188,29 @@ def make_train_steps(model: str, batch: int):
     return run
 
 
-def record_kernel_inputs(path: Path) -> None:
+def record_kernel_inputs(path: Path, bf16: bool = False) -> None:
     """Record the ``TIMED`` launches of one served request of each model, one
     train step of cls, part-seg, repsurf and semseg, and the FPS over 16384
     points and the exact kNNs of one semseg ``window`` request at 16384
     points, and save them to ``path`` as ``[(path, name, inputs)]`` (a window spec as its
-    fields)."""
+    fields). With ``bf16``, instead the bf16 launches of a request and a
+    step of cls and part-seg with ``compute_dtype=torch.bfloat16``."""
     from mpa_tpu_torch import kernels
 
     runs = [("cls", False), ("cls", True), ("partseg", False), ("partseg", True),
             ("repsurf", False), ("repsurf", True), ("semseg", False), ("semseg", True),
             ("semseg_window", False)]
+    dtype_kw = {}
+    if bf16:
+        runs, dtype_kw = runs[:4], {"compute_dtype": torch.bfloat16}
     out = []
     for model, train in runs:
         if model == "semseg_window":
             run = make_window_request()
         else:
             cfg = load_cfg(model)
-            run = (make_train_steps(model, cfg.batch_size) if train
-                   else make_requests(model, cfg.batch_size, cfg.num_points))
+            run = (make_train_steps(model, cfg.batch_size, dtype_kw) if train
+                   else make_requests(model, cfg.batch_size, cfg.num_points, dtype_kw))
         run(0)
         torch.cuda.synchronize()
         kernels.recorded = []
@@ -216,11 +225,15 @@ def record_kernel_inputs(path: Path) -> None:
                 continue
             if train and name in REQUEST_ONLY:
                 continue
+            if bf16 and not any(torch.is_tensor(v) and v.dtype == torch.bfloat16
+                                for v in inp.values()):
+                continue
             inp = {k: v.detach().clone() if torch.is_tensor(v) else v for k, v in inp.items()}
             if "spec" in inp:
                 sp = inp["spec"]
                 inp["spec"] = (sp.S, sp.N, sp.sq, sp.bn, sp.n_chunks)
-            out.append((model + ("_train" if train else ""), name, inp))
+            out.append((model + ("_bf16" if bf16 else "") + ("_train" if train else ""), name,
+                        inp))
         del run
         torch.cuda.empty_cache()
     torch.save(out, path)
@@ -334,7 +347,8 @@ def kernels_main(args) -> int:
     print(f"card: {card}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         saved = Path(args.inputs) if args.inputs else Path(tmp) / "inputs.pt"
-        if not saved.exists() and run_root(["--record-saved", str(saved)], REPO) is None:
+        record = ["--record-saved", str(saved)] + (["--bf16"] if args.bf16 else [])
+        if not saved.exists() and run_root(record, REPO) is None:
             return 1
         meta = [(p, n, {k: tuple(v.shape) for k, v in inp.items() if torch.is_tensor(v)})
                 for p, n, inp in torch.load(saved, weights_only=False) if n in names]
@@ -385,6 +399,9 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     ap.add_argument("--train", action="store_true", help="profile train steps, not requests")
+    ap.add_argument("--bf16", action="store_true",
+                    help="cls or partseg with compute_dtype=torch.bfloat16 (with --kernels: "
+                         "their bf16 launches)")
     ap.add_argument("--kernels", action="store_true",
                     help="time the kernels' launches of the main paths")
     ap.add_argument("--against", nargs="*", default=None,
@@ -404,7 +421,7 @@ def main() -> int:
     if args.time_saved or args.record_saved:
         sys.path[:0] = [args.root, str(REPO)]
         if args.record_saved:
-            record_kernel_inputs(Path(args.record_saved))
+            record_kernel_inputs(Path(args.record_saved), args.bf16)
             print(json.dumps("recorded"))
         else:
             print(json.dumps(time_saved(Path(args.time_saved), set(args.names.split(",")))))
@@ -416,8 +433,11 @@ def main() -> int:
     batch, points = args.batch or cfg.batch_size, cfg.num_points
     if args.model == "completion":
         points //= 2  # the partial clouds: the half of each with the lowest x
-    run = (make_train_steps(args.model, batch) if args.train
-           else make_requests(args.model, batch, points))
+    if args.bf16 and args.model not in ("cls", "partseg"):
+        ap.error("--bf16 takes --model cls or partseg")
+    dtype_kw = {"compute_dtype": torch.bfloat16} if args.bf16 else {}
+    run = (make_train_steps(args.model, batch, dtype_kw) if args.train
+           else make_requests(args.model, batch, points, dtype_kw))
     for i in range(2):
         run(i)
     torch.cuda.synchronize()
@@ -461,7 +481,8 @@ def main() -> int:
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card}")
     unit = "train step" if args.train else "request"
-    print(f"{cfg.model}: batch {batch} x {points} points, {n} traced {unit}s")
+    print(f"{cfg.model}{' (bf16)' if args.bf16 else ''}: batch {batch} x {points} points, "
+          f"{n} traced {unit}s")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"wall per {unit} (profiler on): {wall_ms:.3f} ms; peak allocated {peak_gb:.2f} GB")
     print(f"device busy per {unit}: {busy / 1e3 / n:.3f} ms "

@@ -62,6 +62,14 @@ on NaN rows and centres. The gather is held bit for bit in each form
 thread) at W = 1 to 512, E = 1, B = 1 and 64 and views 4, 8 and 12 bytes
 off, and its entry refuses the forms it does not take.
 
+The five kernels of the mixed precision path (gather, scatter-add, both
+attention kernels, scatter-mean) are held in bf16 storage too, each test
+of them parametrised over the dtype (``DTYPES``), with the gather's bf16
+forms apart and the bf16 channel forms of the attention forward, the
+scatter-mean and the scatter-add (eight, four, two and one a thread or
+lane) apart; and the bf16 ``markov_cls`` and ``markov_partseg`` against the
+CPU with their launch counts by dtype.
+
 Run on a machine with an H100:
     python -m pytest tests/test_torch_port_cuda.py -q
 """
@@ -226,11 +234,114 @@ def test_fps_kernel_all_coincident(dev):
     assert torch.equal(fps_cuda(pts, 8), fps_plain(pts, 8))
 
 
+# The storage types of the five kernels of the mixed precision path
+# (gather, scatter-add, both attention kernels, scatter-mean): each of their
+# tests below runs in both. In bf16 the gather, the attention forward, the
+# scatter-add and the scatter-mean on the CPU are bit-equal, as in float32;
+# where float32 allows a relative error (atomic or reordered sums) bf16
+# allows that plus one bf16 ulp (BF16_ULP of the magnitude), the rounding
+# of a sum that lies that close to a rounding boundary.
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+BF16_ULP = 2.0 ** -7
+
+
+def _rtol(rtol, dtype):
+    return rtol + (BF16_ULP if dtype == torch.bfloat16 else 0.0)
+
+
+@DTYPES
 @pytest.mark.parametrize("N,E,W", [(1024, 512, 3), (512, 256, 64), (64, 32, 5), (300, 900, 256)])
-def test_gather_kernel_matches_plain(dev, N, E, W):
-    pts = _cloud(3, (2, N, W), dev)
+def test_gather_kernel_matches_plain(dev, N, E, W, dtype):
+    pts = _cloud(3, (2, N, W), dev).to(dtype)
     idx = torch.randint(0, N, (2, E), generator=torch.Generator().manual_seed(0)).to(torch.int32).to(dev)
-    assert torch.equal(gather_cuda(pts, idx), gather_plain(pts, idx))
+    kernels.reset_launch_counts()
+    got = gather_cuda(pts, idx)
+    assert got.dtype == dtype and torch.equal(got, gather_plain(pts, idx))
+    assert kernels.LAUNCHES_BF16["gather_rows_kernel"] == (dtype == torch.bfloat16)
+
+
+# bf16 rows in each form gather_form picks for them: 8, 4, 2 and 1 values
+# a column (16, 8, 4 and 2 bytes), one and two columns a thread.
+GATHER_BF16_CASES = [
+    (2, 300, 700, 64, 0, (8, 1)),
+    (2, 300, 700, 64, 1, (1, 1)),  # 2 bytes off: single values
+    (2, 300, 700, 64, 2, (2, 1)),  # 4 bytes off
+    (2, 300, 700, 64, 4, (4, 1)),  # 8 bytes off
+    (2, 90, 45, 6, 0, (2, 1)),
+    (2, 90, 45, 12, 0, (4, 1)),
+    (3, 77, 130, 5, 0, (1, 1)),
+    (32, 2048, 8192, 64, 0, (8, 2)),
+]
+
+
+@pytest.mark.parametrize("B,N,E,W,offset,form", GATHER_BF16_CASES)
+def test_gather_kernel_bf16_forms_match_plain(dev, B, N, E, W, offset, form):
+    g = torch.Generator().manual_seed(E)
+    flat = torch.randn(B * N * W + offset, generator=g).to(torch.bfloat16).to(dev)
+    pts = flat[offset:].view(B, N, W)
+    idx = torch.randint(0, N, (B, E), generator=g, dtype=torch.int32).to(dev)
+    assert gather_form(pts, B * E) == form
+    got = gather_cuda(pts, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), gather_plain(pts, idx).view(torch.int16))
+
+
+def bf16_view(t: torch.Tensor, offset: int, dev) -> torch.Tensor:
+    """``t`` in bf16 on ``dev``, as a contiguous view ``offset`` values into
+    its buffer."""
+    flat = torch.cat([torch.zeros(offset), t.reshape(-1)]).to(torch.bfloat16).to(dev)
+    return flat[offset:].view(t.shape)
+
+
+# bf16 storage in each channel form of the attention forward, the
+# scatter-mean and the scatter-add: eight values a thread or lane (one
+# 16-byte load), four (8 bytes), two (the scatter-add's float2 form) and
+# one, reached by the width and by views 2 and 8 bytes into their buffers.
+# (kernel, width, offset in values, vec)
+BF16_FORM_CASES = [
+    ("attention", 24, 0, 8), ("attention", 12, 0, 4), ("attention", 24, 4, 4),
+    ("attention", 24, 1, 1), ("attention", 7, 0, 1),
+    ("scatter_mean", 64, 0, 8), ("scatter_mean", 12, 0, 4), ("scatter_mean", 64, 4, 4),
+    ("scatter_mean", 64, 1, 1),
+    ("scatter_add", 64, 0, 8), ("scatter_add", 12, 0, 4), ("scatter_add", 6, 0, 2),
+    ("scatter_add", 64, 1, 1), ("scatter_add", 5, 0, 1),
+]
+
+
+@pytest.mark.parametrize("kernel,width,offset,vec", BF16_FORM_CASES)
+def test_bf16_channel_forms_match_plain(dev, kernel, width, offset, vec):
+    """Each channel form of the three kernels in bf16 storage, picked by its
+    form function, launched as bf16 and bit for bit equal to the plain
+    version (the scatters to it on the CPU, their sequential order)."""
+    kernels.reset_launch_counts()
+    if kernel == "attention":
+        packed, idx, shifts, _ = _attention_inputs("cpu", 2, True, 300, 200, 8, width)
+        packed, shifts, idx = bf16_view(packed, offset, dev), bf16_view(shifts, offset, dev), \
+            idx.to(dev)
+        assert attention_fwd_form(packed, shifts, 8, width) == vec
+        got = attention_cuda(packed, idx, shifts, 2, width)
+        want = attention_plain(packed, idx, shifts, 2, width)
+        name = "transition_attention_fwd_kernel"
+    elif kernel == "scatter_mean":
+        feats, idx = (torch.from_numpy(a) for a in scatter_mean_case("plain", 2, 300, 8, 500,
+                                                                     width))
+        f = bf16_view(feats, offset, dev)
+        assert scatter_mean_form(f, 500)[1] == vec
+        got, _ = scatter_mean_cuda(f, idx.to(dev), 500)
+        want, _ = scatter_mean_plain(f.cpu(), idx, 500)
+        name = "scatter_mean_kernel"
+    else:
+        g = torch.Generator().manual_seed(width)
+        grads = bf16_view(torch.randn((2, 900, width), generator=g), offset, dev)
+        idx = torch.randint(0, 400, (2, 900), generator=g, dtype=torch.int32)
+        assert scatter_add_form(grads, 400)[1] == vec
+        got = scatter_add_cuda(grads, idx.to(dev), 400)
+        want = scatter_add_plain(grads.cpu(), idx, 400)
+        name = "scatter_add_rows_kernel"
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES_BF16[name] == 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu().view(torch.int16), want.cpu().view(torch.int16))
 
 
 def offset_cloud(shape, offset, seed=3):
@@ -294,7 +405,7 @@ def test_gather_kernel_refuses_forms_gather_form_does_not_pick(dev):
     def call(vec, elems, E=300):
         out = torch.zeros((2, E, 12), device=dev)
         err = lib.mpa_gather_rows(pts.data_ptr(), idx.data_ptr(), out.data_ptr(), 2, 64, E, 12,
-                                  vec, elems, stream)
+                                  vec, elems, 4, stream)
         return err, out
 
     for vec, elems in [(4, 1), (2, 1), (3, 1), (1, 0), (1, 3), (1, 4)]:
@@ -307,24 +418,26 @@ def test_gather_kernel_refuses_forms_gather_form_does_not_pick(dev):
         assert err == 0 and torch.equal(out, want)
 
 
+@DTYPES
 @pytest.mark.parametrize("n_branches,with_shift,N,S,K,c", [
     (1, True, 1024, 1024, 8, 64),
     (1, False, 64, 32, 8, 512),
     (2, True, 300, 100, 16, 24),
     (2, False, 50, 20, 5, 7),
+    (2, True, 2048, 1024, 8, 64),  # part-seg's la1 in bf16: four channels a thread
 ])
-def test_attention_kernel_matches_plain(dev, n_branches, with_shift, N, S, K, c):
+def test_attention_kernel_matches_plain(dev, n_branches, with_shift, N, S, K, c, dtype):
     g = torch.Generator().manual_seed(1)
     packed = torch.randn((2, N, n_branches * 2 * c), generator=g)
     for r in range(n_branches):
         packed[..., 2 * r * c:(2 * r + 1) * c] = packed[..., 2 * r * c:(2 * r + 1) * c].exp()
     idx = torch.randint(0, N, (2, S, K), generator=g, dtype=torch.int32)
     shifts = torch.randn((2, S, n_branches * c), generator=g) if with_shift else None
-    packed, idx = packed.to(dev), idx.to(dev)
-    shifts = None if shifts is None else shifts.to(dev)
+    packed, idx = packed.to(dev).to(dtype), idx.to(dev)
+    shifts = None if shifts is None else shifts.to(dev).to(dtype)
     got = attention_cuda(packed, idx, shifts, n_branches, c)
     want = attention_plain(packed, idx, shifts, n_branches, c)
-    assert torch.equal(got, want)
+    assert got.dtype == dtype and torch.equal(got, want)
 
 
 def _close(got, want, rtol):
@@ -332,19 +445,22 @@ def _close(got, want, rtol):
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
+@DTYPES
 @pytest.mark.parametrize("N,E,W,oob", [(1024, 512, 64, False), (512, 4096, 3, False),
-                                         (64, 1000, 130, True), (4096, 2048, 512, False)])
-def test_scatter_add_kernel_matches_plain(dev, N, E, W, oob):
+                                         (64, 1000, 130, True), (4096, 2048, 512, False),
+                                         (1024, 9000, 64, False)])  # three passes
+def test_scatter_add_kernel_matches_plain(dev, N, E, W, oob, dtype):
     g = torch.Generator().manual_seed(N)
     grads = torch.randn((2, E, W), generator=g)
     idx = torch.randint(0, N, (2, E), generator=g, dtype=torch.int32)
     if oob:  # dropped targets
         idx[:, ::7] = N + 5
         idx[:, 1::7] = -1
-    grads, idx = grads.to(dev), idx.to(dev)
+    grads, idx = grads.to(dev).to(dtype), idx.to(dev)
     got = scatter_add_cuda(grads, idx, N)
     want = scatter_add_plain(grads, idx, N)
-    _close(got, want, rtol=1e-5)
+    assert got.dtype == want.dtype == dtype
+    _close(got.float(), want.float(), rtol=_rtol(1e-5, dtype))
     # The sequential order of the plain version on the CPU, bit for bit.
     assert torch.equal(got.cpu(), scatter_add_plain(grads.cpu(), idx.cpu(), N))
 
@@ -514,21 +630,25 @@ ATTENTION_BWD_CASES = [
 ]
 
 
+@DTYPES
 @pytest.mark.parametrize("n_branches,with_shift,N,S,K,c,case,B", ATTENTION_BWD_CASES)
-def test_attention_bwd_kernel_matches_plain(dev, n_branches, with_shift, N, S, K, c, case, B):
+def test_attention_bwd_kernel_matches_plain(dev, n_branches, with_shift, N, S, K, c, case, B,
+                                            dtype):
     packed, idx, shifts, gctx = _attention_inputs("cpu", n_branches, with_shift, N, S, K, c, B=B)
     unnamed = attention_case(case, packed, idx)
-    packed, idx, gctx = packed.to(dev), idx.to(dev), gctx.to(dev)
-    shifts = None if shifts is None else shifts.to(dev)
+    packed, idx, gctx = packed.to(dev).to(dtype), idx.to(dev), gctx.to(dev).to(dtype)
+    shifts = None if shifts is None else shifts.to(dev).to(dtype)
     got_p, got_s = attention_bwd_cuda(packed, idx, shifts, gctx, n_branches, c)
     want_p, want_s = attention_bwd_plain(packed, idx, shifts, gctx, n_branches, c)
     torch.cuda.synchronize()
+    assert got_p.dtype == want_p.dtype == dtype
     assert torch.isfinite(got_p).all()
-    _close_dpacked(got_p, want_p, n_branches, c, rtol=1e-4)
+    _close_dpacked(got_p.float(), want_p.float(), n_branches, c, rtol=_rtol(1e-4, dtype))
     if unnamed is not None:
         assert not got_p[:, unnamed.to(dev)].any()
     if with_shift:
-        _close(got_s, want_s, rtol=1e-5)
+        assert got_s.dtype == dtype
+        _close(got_s.float(), want_s.float(), rtol=_rtol(1e-5, dtype))
     else:
         assert got_s is None
 
@@ -655,6 +775,35 @@ def test_classifier_on_cuda_matches_cpu_and_counts_launches(dev):
     torch.testing.assert_close(got.cpu(), cpu(x), rtol=0, atol=1e-3)
 
 
+@pytest.mark.parametrize("path", ["cls", "partseg"])
+def test_bf16_model_on_cuda_matches_cpu_and_counts_launches(dev, path):
+    """The bf16 model (``compute_dtype=torch.bfloat16``) served at full
+    width: its launches exactly the float32 path's in all and
+    ``chip_smoke.BF16_PATHS``' in bf16; on ``parity_batch`` clouds against
+    the CPU's bf16 model within ``chip_smoke.BF16_LIMITS``; one train step
+    against the CPU's, its launches, its loss and its gradients in bf16
+    units within ``chip_smoke.BF16_TRAIN_LIMITS``."""
+    spec = chip_smoke.PATHS[path]
+    req = chip_smoke.request_inputs(path)[1]
+    serve = chip_smoke.serve_loader(path, compute_dtype=torch.bfloat16)
+    kernels.reset_launch_counts()
+    out = serve(*req)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == spec["per_forward"]
+    assert ({k: v for k, v in kernels.LAUNCHES_BF16.items() if v}
+            == chip_smoke.BF16_PATHS[path]["per_forward"])
+    chip_smoke.check_served_output(path, out, spec["batch"], spec["points"])
+    report = chip_smoke.bf16_served_parity(path)
+    assert chip_smoke.within(report, chip_smoke.BF16_LIMITS[path]), report
+    parity = chip_smoke.train_parity(path, compute_dtype=torch.bfloat16)
+    limits = chip_smoke.BF16_TRAIN_LIMITS[path]
+    assert parity["loss_diff"] <= limits["loss_abs"], parity["loss_diff"]
+    assert parity["launches"] == spec["per_train_step"]
+    assert parity["launches_bf16"] == chip_smoke.BF16_PATHS[path]["per_train_step"]
+    name, units = parity["grad_units"][0]
+    assert units <= limits["grad_limit"], f"grad {name}: {units:.3f} units"
+
+
 # -- the scatter-mean kernel ------------------------------------------------------
 
 
@@ -708,16 +857,19 @@ def scatter_mean_case(case, B, S, K, N, C, seed=0):
     return feats, idx
 
 
+@DTYPES
 @pytest.mark.parametrize("case", SCATTER_CASES)
-def test_scatter_mean_kernel_matches_plain(dev, case):
+def test_scatter_mean_kernel_matches_plain(dev, case, dtype):
     feats, idx, N = _scatter_case(case, dev)
+    feats = feats.to(dtype)
     got, got_count = scatter_mean_cuda(feats, idx, N)
     again, _ = scatter_mean_cuda(feats, idx, N)
     torch.cuda.synchronize()
     assert torch.equal(got, again)  # a fixed order of the sum: no run-to-run difference
     want, want_count = scatter_mean_plain(feats, idx, N)
+    assert got.dtype == want.dtype == dtype and got_count.dtype == torch.float32
     assert torch.equal(got_count, want_count)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_rtol(1e-5, dtype), atol=1e-5)
     cpu, cpu_count = scatter_mean_plain(feats.cpu(), idx.cpu(), N)
     assert torch.equal(got_count.cpu(), cpu_count)
     assert torch.equal(got.cpu(), cpu)  # the sequential order, bit for bit

@@ -394,10 +394,14 @@ def test_partseg_registry_and_unported_options():
         assert MarkovPartSeg(neighbor_mode=mode).keep_high.neighbor_mode == mode
     with pytest.raises(ValueError, match="neighbor_mode"):
         MarkovPartSeg(neighbor_mode="ball")
-    with pytest.raises(NotImplementedError):
-        MarkovPartSeg(compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        KeepHighResolutionPartSeg(dtype=torch.bfloat16)
+    # Mixed precision is ported in the exact mode (tests/test_torch_port_bf16.py);
+    # the windowed kernels take float32 only, so the window modes refuse it.
+    assert MarkovPartSeg(compute_dtype=torch.bfloat16).keep_high.la0.xyz_trans.dtype == torch.bfloat16
+    for mode in ("window", "window_all"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            MarkovPartSeg(compute_dtype=torch.bfloat16, neighbor_mode=mode)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            KeepHighResolutionPartSeg(dtype=torch.bfloat16, neighbor_mode=mode)
     # Keyed FPS starts are ported: the forward takes them in train mode
     # (tests/test_torch_port_model_options.py), so no constructor switch.
     with pytest.raises(TypeError):
