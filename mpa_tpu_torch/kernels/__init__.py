@@ -12,8 +12,10 @@ are counted and recorded there; the scatter-means' backward launches
 modes (``ops/window.py``); ``ball_query_kernel`` the set abstraction of
 ``repsurf_ssg_2x`` (``ops/ball_query.py``).
 
-Five kernels also take bf16 storage, the mixed precision models'
-(``compute_dtype=torch.bfloat16``): ``BF16_KERNELS``. ``LAUNCHES`` counts
+Eight kernels also take bf16 storage, the mixed precision models'
+(``compute_dtype=torch.bfloat16``): ``BF16_KERNELS``, the five of the
+exact path and the three windowed ones that ``markov_partseg``'s window
+modes run in bf16. ``LAUNCHES`` counts
 every launch of a kernel, whatever its storage; ``LAUNCHES_BF16`` counts
 the bf16 ones among them, so a path's float32 launches are the difference.
 """
@@ -43,6 +45,9 @@ BF16_KERNELS = (
     "scatter_add_rows_kernel",
     "transition_attention_bwd_kernel",
     "scatter_mean_kernel",
+    "windowed_attention_fwd_kernel",
+    "windowed_attention_bwd_kernel",
+    "windowed_scatter_mean_kernel",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

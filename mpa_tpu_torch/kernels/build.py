@@ -122,9 +122,9 @@ _SIGNATURES = {
     "mpa_transition_attention_bwd": [_VP] * 7 + [_I] * 7 + [_VP],
     "mpa_scatter_mean": [_VP] * 5 + [_I] * 8 + [_VP],
     "mpa_windowed_knn": [_VP] * 4 + [_I] * 10 + [_VP],
-    "mpa_windowed_attention_fwd": [_VP, _VP, _VP, _VP] + [_I] * 7 + [_VP],
-    "mpa_windowed_attention_bwd": [_VP] * 6 + [_I] * 6 + [_VP],
-    "mpa_windowed_scatter_mean": [_VP] * 4 + [_I] * 10 + [_VP],
+    "mpa_windowed_attention_fwd": [_VP] * 4 + [_I] * 8 + [_VP],
+    "mpa_windowed_attention_bwd": [_VP] * 7 + [_I] * 7 + [_VP],
+    "mpa_windowed_scatter_mean": [_VP] * 5 + [_I] * 11 + [_VP],
     "mpa_ball_query": [_VP, _VP, _VP] + [_I] * 5 + [ctypes.c_float, _I, _VP],
     "mpa_empty": [_VP],
 }

@@ -10,7 +10,13 @@
 // the denominator's gradient) -> dpacked [B,N,nB*2C] f32 and, with shifts,
 // dshift [B,S,nB*C] = sum_k dV_k, for an idx inside its chunk's Morton
 // window (window.cuh). An index outside the window is read and added like
-// any other, so the result stays right.
+// any other, so the result stays right. bf16 storage (the mixed precision
+// models'): packed, shifts and gctx bf16 -> dshift bf16, rounded once, and
+// dpacked summed in f32 and rounded once into bf16 by a second pass
+// (window_attention.py:339,353 and :465-466,504 with _wattn_bwd_rule's
+// cast). The TPU kernel's bf16 rounding of each edge gradient before its
+// one-hot matmul scatter (GRAD_SCATTER_PRECISION, :367-368) is a
+// matrix-unit workaround and is not carried over: every add is f32.
 //
 // What bounds it on the H100: bytes (packed, idx and gctx and shifts read
 // once, dpacked and dshift written once). Design: the one pass of
@@ -35,30 +41,44 @@
 
 namespace {
 
-template <int KMAX>
+template <int KMAX, typename T>
 __global__ void windowed_attention_bwd_kernel(
-    const float* __restrict__ packed, const int* __restrict__ idx,
-    const float* __restrict__ shifts, const float* __restrict__ gctx,
-    float* __restrict__ dpacked, float* __restrict__ dshift,
+    const T* __restrict__ packed, const int* __restrict__ idx,
+    const T* __restrict__ shifts, const T* __restrict__ gctx,
+    float* __restrict__ dpacked, T* __restrict__ dshift,
     int N, int S, int K, int n_branches, int C) {
   mpa::attention_bwd_body<KMAX>(packed, idx, shifts, gctx, dpacked, dshift, N, S, K, n_branches,
                                 C);
 }
 
+template <typename T>
+cudaError_t launch(const void* packed, const void* idx, const void* shifts, const void* gctx,
+                   void* dpacked, void* dpacked16, void* dshift, int B, int N, int S, int K,
+                   int n_branches, int C, cudaStream_t st) {
+  static const mpa::AttentionBwdKernel<T> kernels[4] = {
+      windowed_attention_bwd_kernel<8, T>, windowed_attention_bwd_kernel<16, T>,
+      windowed_attention_bwd_kernel<32, T>, windowed_attention_bwd_kernel<64, T>};
+  return mpa::launch_attention_bwd(kernels, packed, idx, shifts, gctx, dpacked, dpacked16, dshift,
+                                   B, N, S, K, n_branches, C, st);
+}
+
 }  // namespace
 
 // packed [B,N,nB*2C], idx [B,S,K] int32 in [0, N), shifts [B,S,nB*C] or null,
-// gctx [B,S,nB*C], dpacked [B,N,nB*2C], dshift [B,S,nB*C] (null exactly when
-// shifts is null); all contiguous f32 except idx. dpacked is zeroed here, on
-// the same stream, before the adds. Requires 1 <= K <= 64 (checked by the
-// Python wrapper).
+// gctx [B,S,nB*C], dpacked [B,N,nB*2C] f32, dshift [B,S,nB*C] (null exactly
+// when shifts is null); all contiguous; packed, shifts, gctx and dshift f32
+// (bf16 == 0) or bf16 (bf16 == 1, then dpacked16 [B,N,nB*2C] bf16 receives
+// dpacked rounded; null for f32). dpacked is zeroed here, on the same
+// stream, before the adds. Requires 1 <= K <= 64 (checked by the Python
+// wrapper).
 MPA_EXPORT int mpa_windowed_attention_bwd(const void* packed, const void* idx,
                                           const void* shifts, const void* gctx, void* dpacked,
-                                          void* dshift, int B, int N, int S, int K, int n_branches,
-                                          int C, void* stream) {
-  static const mpa::AttentionBwdKernel<float> kernels[4] = {
-      windowed_attention_bwd_kernel<8>, windowed_attention_bwd_kernel<16>,
-      windowed_attention_bwd_kernel<32>, windowed_attention_bwd_kernel<64>};
-  return mpa::launch_attention_bwd(kernels, packed, idx, shifts, gctx, dpacked, nullptr, dshift, B,
-                                   N, S, K, n_branches, C, mpa::as_stream(stream));
+                                          void* dpacked16, void* dshift, int B, int N, int S,
+                                          int K, int n_branches, int C, int bf16, void* stream) {
+  if (bf16 && dpacked16 == nullptr) return cudaErrorInvalidValue;
+  if (bf16)
+    return launch<mpa::bf16>(packed, idx, shifts, gctx, dpacked, dpacked16, dshift, B, N, S, K,
+                             n_branches, C, mpa::as_stream(stream));
+  return launch<float>(packed, idx, shifts, gctx, dpacked, nullptr, dshift, B, N, S, K,
+                       n_branches, C, mpa::as_stream(stream));
 }

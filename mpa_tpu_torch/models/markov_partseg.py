@@ -12,8 +12,8 @@ put back in the input order. In train mode the encoder's FPS takes keyed
 starts when ``fps_generator`` or ``fps_starts`` is given
 (``nn/keephigh_partseg.py``), as ``mpa_tpu``'s takes them from ``rng``.
 
-``compute_dtype=torch.bfloat16`` is ``mpa_tpu``'s mixed precision, in the
-exact neighbour mode: the parameters stay float32, the encoder-decoder and
+``compute_dtype=torch.bfloat16`` is ``mpa_tpu``'s mixed precision, in every
+neighbour mode: the parameters stay float32, the encoder-decoder and
 ``conv8`` .. ``conv10`` compute in bf16, and ``conv11`` takes their output
 widened to float32 (``mpa_tpu/models/markov_partseg.py:64-75``).
 """

@@ -70,7 +70,8 @@ class MarkovPartSegFP(nn.Module):
         for s in range(levels - 1, -1, -1):
             setattr(self, f"upla{s + 1}",
                     LocalMerge(ch[s + 1], ch[s + 1], K, False, single_branch=True))
-            setattr(self, f"up{s + 2}_{s + 1}", PointNetFeaturePropagation(ch[s + 1], ch[s]))
+            setattr(self, f"up{s + 2}_{s + 1}",
+                    PointNetFeaturePropagation(ch[s + 1], ch[s], act=True))
         self.conv6 = LinearUnit(ch[0], 256)
         self.conv7 = LinearUnit(num_categories, 64)
         self.head1 = LinearUnit(320 + ch[0], 512)

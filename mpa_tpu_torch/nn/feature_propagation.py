@@ -5,9 +5,9 @@ Counterpart of ``mpa_tpu/nn/feature_propagation.py::PointNetFeaturePropagation``
 coarse features interpolated onto the fine positions
 (``ops/interp.py::three_nn_interpolate``; a single coarse point is broadcast
 to every fine one), the optional fine-scale ``skip`` features concatenated
-in front, then ``conv``, a BatchNorm ``LinearUnit`` with its LeakyReLU:
-flax's ``act=True``, the one form ``markov_partseg_fp`` builds (the port's
-``LinearUnit`` always acts).
+in front, then ``conv``, a BatchNorm ``LinearUnit`` whose LeakyReLU is off
+by default, as in ``mpa_tpu`` (``act=False``); ``markov_partseg_fp``
+builds it with ``act=True``.
 """
 
 from __future__ import annotations
@@ -26,11 +26,12 @@ class PointNetFeaturePropagation(nn.Module):
       in_channels: width of the coarse features plus that of ``skip``, if
         the caller passes one.
       out_channels: width of the output.
+      act: the LeakyReLU after the BatchNorm.
     """
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, act: bool = False):
         super().__init__()
-        self.conv = LinearUnit(in_channels, out_channels)
+        self.conv = LinearUnit(in_channels, out_channels, act=act)
 
     def forward(self, xyz_fine: torch.Tensor, xyz_coarse: torch.Tensor,
                 feat_coarse: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -25,9 +25,9 @@ scale), or starts drawn from ``fps_generator`` (``draw_starts``, in ladder
 order).
 
 ``dtype`` (``torch.bfloat16``: ``mpa_tpu``'s mixed precision) gives every
-state, Fuse and LinearUnit bf16 compute, in the exact mode; with
-``window`` or ``window_all`` it raises ``NotImplementedError``, as the
-windowed kernels take float32 only.
+state, Fuse and LinearUnit bf16 compute, in every neighbour mode: the
+windowed attention and scatter-mean take bf16 rows as the exact ones do,
+and the windowed kNN widens bf16 features to float32 (``ops/window.py``).
 """
 
 from __future__ import annotations
@@ -69,10 +69,6 @@ class KeepHighResolutionPartSeg(WindowModes, nn.Module):
         if len(channels) != len(npoints) + 1 or len(residuals) != len(channels):
             raise ValueError("channels and residuals need one entry more than npoints")
         self.neighbor_mode = check_mode("neighbor_mode", neighbor_mode, NEIGHBOR_MODES)
-        if dtype is not None and self.windowed:
-            raise NotImplementedError(
-                f"mixed precision (dtype) with neighbor_mode={neighbor_mode!r} is not ported: "
-                "bf16 storage in the windowed kernels is queued in ROADMAP.md")
         self.fps_min_band, self.fps_min_samples = fps_min_band, fps_min_samples
         self.npoints = tuple(npoints)
         ch = self.channels = tuple(channels)

@@ -11,7 +11,9 @@ that biased variance, not the unbiased one, in its running statistics. Given
 a process group (``mpa_tpu_torch/parallel``), its statistics are those of
 the global batch, as ``mpa_tpu``'s are under a data-parallel ``jit``.
 ``norm="layer"`` is flax's ``nn.LayerNorm(epsilon=1e-5)`` (the reference's
-``norm1``).
+``norm1``). ``act=False`` leaves the LeakyReLU out, as flax's ``act`` field
+does (``mpa_tpu/nn/linear.py:30,60``); it has no parameters, so the
+parameter names are the same either way.
 
 ``dtype`` (``torch.bfloat16``: the mixed precision models) is flax's
 ``nn.Dense(dtype=...)`` inside the unit: the parameters stay float32 and are
@@ -151,13 +153,14 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
 
 
 class LinearUnit(nn.Module):
-    """Linear -> {BatchNorm | LayerNorm | none} -> LeakyReLU(0.2); with
-    ``dtype``, the mixed precision form of the module doc."""
+    """Linear -> {BatchNorm | LayerNorm | none} -> LeakyReLU(0.2) (where
+    ``act``); with ``dtype``, the mixed precision form of the module doc."""
 
     def __init__(self, in_features: int, features: int, norm: Optional[str] = "batch",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, act: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.act = act
         self.linear = nn.Linear(in_features, features)
         if norm == "batch":
             self.norm = BatchNorm(features)
@@ -182,5 +185,6 @@ class LinearUnit(nn.Module):
             x = mid_op(x - bias) + bias
         if self.norm is not None:
             x = self.norm(x if self.dtype is None else x.float())
-        x = leaky_relu(x)
+        if self.act:
+            x = leaky_relu(x)
         return x if self.dtype is None else x.to(self.dtype)

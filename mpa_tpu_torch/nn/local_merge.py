@@ -30,9 +30,10 @@ branches then run unpacked (``mpa_tpu/nn/local_merge.py:178-200``).
 
 ``dtype`` (``torch.bfloat16``) gives every LocalTrans and ``fc2`` bf16
 compute (``mpa_tpu/nn/local_merge.py:47``): ``center_feat`` is a bf16
-gather, the feature-space kNN upcasts its bf16 features to float32 before
-any distance (``ops/knn.py``), and the spatial kNN stays on the float32
-coordinates.
+gather, the feature-space kNN, exact or windowed, upcasts its bf16
+features to float32 before any distance (``ops/knn.py``,
+``ops/window.py``), the spatial kNN stays on the float32 coordinates, and
+the attention, exact or windowed, takes the bf16 ``[E || V]`` rows.
 """
 
 from __future__ import annotations

@@ -50,7 +50,7 @@ MANY_BLOCKS, GATHER_THREADS = 32 * 132, 256
 # kMaxTile); a bf16 launch with more claims than that keeps the sums of its
 # passes before the last in an f32 scratch.
 MAX_TILE = 4096
-# The storage types the five kernels of the mixed precision path take.
+# The storage types the eight kernels of the mixed precision path take.
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -15,6 +15,15 @@ lies in padded chunk ``(s + sq/2) // sq``.
 - :func:`windowed_transition_attention` and :func:`windowed_scatter_mean`:
   the exact ops' functions, for an index that lies in its row's window.
 
+bf16 storage (the mixed precision models'): the attention and the
+scatter-mean keep bf16 rows bf16 on both devices, as the exact ops do
+(``ops/attention.py``, ``ops/scatter.py``): float32 arithmetic and sums, the
+context, ``dpacked``, ``dshift`` and the mean rounded to bf16 once
+(``window_attention.py:311,353,465-466,504,581,674``). The windowed kNN
+widens bf16 rows to float32 before any distance, as ``mpa_tpu``'s kernel
+does (``:166-168``) and as the exact kNN does (``ops/knn.py``):
+``windowed_knn_kernel`` stays float32, and the distances are float32.
+
 On a CUDA tensor each is a ``torch.autograd.Function`` over a hand-written
 kernel (``kernels/csrc/window_*.cu``: ``windowed_knn_kernel``,
 ``windowed_attention_fwd_kernel`` / ``windowed_attention_bwd_kernel``,
@@ -42,10 +51,12 @@ from torch.autograd.function import once_differentiable
 
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
-from mpa_tpu_torch.ops.attention import attention_fwd_form, attention_plain
+from mpa_tpu_torch.ops.attention import attention_fwd_form, transition_attention
 from mpa_tpu_torch.ops.attention import check_args as check_attention
 from mpa_tpu_torch.ops.attention import check_cuda_args as check_attention_cuda
-from mpa_tpu_torch.ops.gather import MIN_ROW_SLOTS, index_form
+from mpa_tpu_torch.ops.gather import (
+    KERNEL_DTYPES, MIN_ROW_SLOTS, index_form, partial_sums, stored,
+)
 from mpa_tpu_torch.ops.knn import MAX_C, aligned, knn_distance_grads
 from mpa_tpu_torch.ops.pairwise import dot_in_channel_order
 from mpa_tpu_torch.ops.scatter import MAX_B, scatter_mean_bwd_cuda, scatter_mean_plain
@@ -90,13 +101,6 @@ class WindowSpec:
         s = torch.arange(self.S, device=device)
         g = torch.clamp((s + self.pad) // self.sq - 1, 0, self.n_chunks - 2)
         return g * self.bn
-
-
-def refuse_bf16(t: torch.Tensor, what: str) -> None:
-    """Raise for bf16 storage, which the windowed kernels do not take yet."""
-    if t.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{what}: bf16 storage in the windowed kernels is not ported yet (ROADMAP.md)")
 
 
 def make_window_spec(S: int, N: int, sq: int = 128) -> WindowSpec:
@@ -317,20 +321,22 @@ def windowed_knn_with_spec(
 
 
 def _check_window_attention(name, packed, idx, shifts, n_branches, c, spec, gctx=None) -> None:
-    check_attention_cuda(name, packed, idx, shifts, n_branches, c, gctx)
+    check_attention_cuda(name, packed, idx, shifts, n_branches, c, gctx, dtypes=KERNEL_DTYPES)
     _spec_for(spec, idx.shape[1], packed.shape[1], name)
 
 
 def windowed_attention_cuda(packed, idx, shifts, n_branches: int, c: int,
                             spec: WindowSpec) -> torch.Tensor:
-    """Launch ``windowed_attention_fwd_kernel``, with ``attention_fwd_form``'s
+    """Launch ``windowed_attention_fwd_kernel`` (float32, or bf16 ``packed``
+    and ``shifts`` for a bf16 context), with ``attention_fwd_form``'s
     channels a thread; the function of ``attention_plain``."""
     name = "windowed_attention_fwd_kernel"
     _check_window_attention(name, packed, idx, shifts, n_branches, c, spec)
     B, N, _ = packed.shape
     S, K = idx.shape[1], idx.shape[2]
     vec = attention_fwd_form(packed, shifts, K, c)
-    out = torch.empty((B, S, n_branches * c), dtype=torch.float32, device=packed.device)
+    bf16 = packed.dtype == torch.bfloat16
+    out = torch.empty((B, S, n_branches * c), dtype=packed.dtype, device=packed.device)
     lib = build.load()
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -338,23 +344,27 @@ def windowed_attention_cuda(packed, idx, shifts, n_branches: int, c: int,
             lib.mpa_windowed_attention_fwd(
                 packed.data_ptr(), idx.data_ptr(),
                 None if shifts is None else shifts.data_ptr(), out.data_ptr(),
-                B, N, S, K, n_branches, c, vec, stream),
+                B, N, S, K, n_branches, c, vec, int(bf16), stream),
             f"{name} (K={K}, c={c}, {vec} channels a thread)",
         )
     kernels.launched(name, {"packed": packed, "idx": idx, "shifts": shifts,
-                            "n_branches": n_branches, "c": c, "spec": spec})
+                            "n_branches": n_branches, "c": c, "spec": spec}, bf16=bf16)
     return out
 
 
 def windowed_attention_bwd_cuda(packed, idx, shifts, gctx, n_branches: int, c: int,
                                 spec: WindowSpec) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch ``windowed_attention_bwd_kernel``; returns ``(dpacked, dshift or
-    None)``, the function of ``attention_bwd_plain``."""
+    None)``, the function of ``attention_bwd_plain``. For bf16 ``packed``,
+    ``shifts`` and ``gctx`` the kernel adds into a float32 ``dpacked`` and
+    rounds it into the bf16 one it returns."""
     name = "windowed_attention_bwd_kernel"
     _check_window_attention(name, packed, idx, shifts, n_branches, c, spec, gctx)
     B, N, W = packed.shape
     S, K = idx.shape[1], idx.shape[2]
-    dpacked = torch.empty((B, N, W), dtype=torch.float32, device=packed.device)
+    bf16 = packed.dtype == torch.bfloat16
+    acc = torch.empty((B, N, W), dtype=torch.float32, device=packed.device)
+    dpacked = torch.empty_like(packed) if bf16 else acc
     dshift = None if shifts is None else torch.empty_like(shifts)
     lib = build.load()
     with torch.cuda.device(packed.device):
@@ -363,12 +373,13 @@ def windowed_attention_bwd_cuda(packed, idx, shifts, gctx, n_branches: int, c: i
             lib.mpa_windowed_attention_bwd(
                 packed.data_ptr(), idx.data_ptr(),
                 None if shifts is None else shifts.data_ptr(), gctx.data_ptr(),
-                dpacked.data_ptr(), None if dshift is None else dshift.data_ptr(),
-                B, N, S, K, n_branches, c, stream),
+                acc.data_ptr(), dpacked.data_ptr() if bf16 else None,
+                None if dshift is None else dshift.data_ptr(),
+                B, N, S, K, n_branches, c, int(bf16), stream),
             name,
         )
     kernels.launched(name, {"packed": packed, "idx": idx, "shifts": shifts, "gctx": gctx,
-                            "n_branches": n_branches, "c": c, "spec": spec})
+                            "n_branches": n_branches, "c": c, "spec": spec}, bf16=bf16)
     return dpacked, dshift
 
 
@@ -388,7 +399,8 @@ class _WindowedAttention(torch.autograd.Function):
     def backward(ctx, gctx):
         packed, idx, shifts = ctx.saved_tensors
         dpacked, dshift = windowed_attention_bwd_cuda(
-            packed, idx, shifts, gctx.float().contiguous(), ctx.n_branches, ctx.c, ctx.spec)
+            packed, idx, shifts, gctx.to(packed.dtype).contiguous(), ctx.n_branches, ctx.c,
+            ctx.spec)
         return dpacked, None, dshift, None, None, None
 
 
@@ -400,18 +412,21 @@ def windowed_transition_attention(
     c: int,
     spec: WindowSpec,
 ) -> torch.Tensor:
-    """``transition_attention`` (same arguments and result) for an ``idx``
-    inside its rows' windows of ``spec``, the windowed kNN's guarantee.
-    float32 only: bf16 storage in the windowed kernels is not ported."""
-    refuse_bf16(packed, "windowed attention")
+    """``transition_attention`` (same arguments and result, bf16 storage
+    included) for an ``idx`` inside its rows' windows of ``spec``, the
+    windowed kNN's guarantee. On a CPU tensor it is that op's plain path."""
+    bf16 = packed.dtype == torch.bfloat16
+    if bf16 and shifts is not None and shifts.dtype != packed.dtype:
+        raise ValueError(f"windowed attention: bf16 packed needs bf16 shifts, got {shifts.dtype}")
     if on_cuda(packed, "packed"):
+        store = torch.bfloat16 if bf16 else torch.float32
         out = _WindowedAttention.apply(
-            packed.float().contiguous(), idx.to(torch.int32).contiguous(),
-            None if shifts is None else shifts.float().contiguous(), n_branches, c, spec)
+            packed.to(store).contiguous(), idx.to(torch.int32).contiguous(),
+            None if shifts is None else shifts.to(store).contiguous(), n_branches, c, spec)
         return out.to(packed.dtype)
     check_attention(packed, idx, shifts, n_branches, c)
     _spec_for(spec, idx.shape[1], packed.shape[1], "windowed attention")
-    return attention_plain(packed, idx, shifts, n_branches, c)
+    return transition_attention(packed, idx, shifts, n_branches, c)
 
 
 # -- the windowed scatter-mean -------------------------------------------------------------
@@ -429,15 +444,16 @@ def windowed_scatter_mean_form(features: torch.Tensor, num_fine: int) -> Tuple[i
 def windowed_scatter_mean_cuda(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int,
                                spec: WindowSpec) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``windowed_scatter_mean_kernel`` in
-    :func:`windowed_scatter_mean_form`'s form: ``(mean [B,N,C], count
-    [B,N])`` f32, the function of ``scatter_mean_plain`` for an in-window
-    index."""
+    :func:`windowed_scatter_mean_form`'s form: features ``[B,S,C]`` f32 or
+    bf16 -> ``(mean [B,N,C]`` of the features' type``, count [B,N]`` f32),
+    the function of ``scatter_mean_plain`` for an in-window index."""
     name = "windowed_scatter_mean_kernel"
     check_scatter(features, knn_idx, num_fine)
     _spec_for(spec, features.shape[1], num_fine, name)
-    for arg, t, dt in (("features", features, torch.float32), ("knn_idx", knn_idx, torch.int32)):
-        if t.device.type != "cuda" or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be a contiguous {dt} CUDA tensor")
+    for arg, t, dts in (("features", features, KERNEL_DTYPES), ("knn_idx", knn_idx, (torch.int32,))):
+        if t.device.type != "cuda" or t.dtype not in dts or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous "
+                             f"{' or '.join(map(str, dts))} CUDA tensor")
     if features.device != knn_idx.device:
         raise ValueError(f"{name}: features and knn_idx on different devices")
     B, S, C = features.shape
@@ -446,26 +462,31 @@ def windowed_scatter_mean_cuda(features: torch.Tensor, knn_idx: torch.Tensor, nu
         raise ValueError(f"{name}: B <= {MAX_B}, C >= 1, K >= 1 and S*K < 2^31 expected, "
                          f"got B={B}, S={S}, K={K}, C={C}")
     slots, vec = windowed_scatter_mean_form(features, num_fine)
-    out = torch.empty((B, num_fine, C), dtype=torch.float32, device=features.device)
+    bf16 = features.dtype == torch.bfloat16
+    out = torch.empty((B, num_fine, C), dtype=features.dtype, device=features.device)
     count = torch.empty((B, num_fine), dtype=torch.float32, device=features.device)
+    part = partial_sums(out, S * K)
     lib = build.load()
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(
             lib.mpa_windowed_scatter_mean(features.data_ptr(), knn_idx.data_ptr(), out.data_ptr(),
+                                          None if part is None else part.data_ptr(),
                                           count.data_ptr(), B, S, K, num_fine, C, slots, vec,
-                                          *_spec_args(spec), stream),
+                                          *_spec_args(spec), int(bf16), stream),
             f"{name} ({slots} slots a block, {vec} channels a lane)",
         )
     kernels.launched(name, {"features": features, "knn_idx": knn_idx, "num_fine": num_fine,
-                            "spec": spec})
+                            "spec": spec}, bf16=bf16)
     return out, count
 
 
 class _WindowedScatterMean(torch.autograd.Function):
     """``windowed_scatter_mean_kernel`` forward; the backward of the exact
     op (``window_attention.py::_wscatter_bwd``): the gradient divided by
-    the count, gathered through ``gather_rows_kernel``, summed over K."""
+    the count, gathered through ``gather_rows_kernel``, summed over K, all
+    in float32 (a bf16 gradient over the float32 count is float32), and
+    rounded once to the gradient's type."""
 
     @staticmethod
     def forward(ctx, features, knn_idx, num_fine: int, spec: WindowSpec):
@@ -477,20 +498,20 @@ class _WindowedScatterMean(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad):
         knn_idx, count = ctx.saved_tensors
-        return scatter_mean_bwd_cuda(grad.float(), knn_idx, count), None, None, None
+        return stored(scatter_mean_bwd_cuda(grad, knn_idx, count), grad), None, None, None
 
 
 def windowed_scatter_mean(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int,
                           spec: WindowSpec) -> torch.Tensor:
     """``scatter_mean_upsample`` (same arguments and result) for a
     ``knn_idx`` inside its coarse rows' windows of ``spec``, the windowed
-    kNN's guarantee (differentiable in ``features``). float32 only, as
-    :func:`windowed_transition_attention`."""
-    refuse_bf16(features, "windowed scatter-mean")
+    kNN's guarantee (differentiable in ``features``; bf16 features give a
+    bf16 mean, the float32 one rounded once)."""
     check_scatter(features, knn_idx, num_fine)
     if on_cuda(features, "features"):
-        out = _WindowedScatterMean.apply(features.float().contiguous(),
-                                         knn_idx.to(torch.int32).contiguous(), num_fine, spec)
+        rows = features if features.dtype == torch.bfloat16 else features.float()
+        out = _WindowedScatterMean.apply(rows.contiguous(), knn_idx.to(torch.int32).contiguous(),
+                                         num_fine, spec)
         return out.to(features.dtype)
     _spec_for(spec, features.shape[1], num_fine, "windowed scatter-mean")
     return scatter_mean_plain(features, knn_idx, num_fine)[0].to(features.dtype)

@@ -155,8 +155,8 @@ def load_segmenter(
     ``markov_partseg``, ``neighbor_mode`` (``"exact"``, ``"window"`` or
     ``"window_all"``), so the Morton-window segmenter is
     ``load_segmenter(neighbor_mode="window")``. ``compute_dtype``:
-    ``torch.bfloat16`` for ``markov_partseg``'s mixed precision (exact mode
-    only), or None."""
+    ``torch.bfloat16`` for ``markov_partseg``'s mixed precision (in every
+    neighbour mode), or None."""
     return Segmenter(*_load(preset, "partseg", variables, device, seed, compute_dtype,
                             **overrides))
 

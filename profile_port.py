@@ -4,6 +4,7 @@
     python3 profile_port.py [--model MODEL] [--batch B] [--requests 5] [--trace t.json]
     python3 profile_port.py [--model MODEL] --train [--batch B] [--requests 5]
     python3 profile_port.py --model cls|partseg --bf16 [--train]
+    python3 profile_port.py --model partseg --neighbor_mode window|window_all [--bf16] [--train]
 
 Loads the model's preset of the PyTorch port on ``cuda`` (``scanobjectnn_cls``
 at 1024 points, batch 64; ``shapenetpart`` at 2048 points, batch 32;
@@ -22,8 +23,9 @@ peak of allocated device memory. With
 ``--train`` the unit is the preset's train step (its optimizer, dropout 0.5,
 train-mode BatchNorm) on the training CLI's synthetic clouds instead of a
 request. ``--bf16`` builds ``markov_cls`` or ``markov_partseg`` with
-``compute_dtype=torch.bfloat16``. Needs a CUDA card; exits non-zero without
-one.
+``compute_dtype=torch.bfloat16``; ``--neighbor_mode`` builds
+``markov_partseg`` in that Morton-window mode. Needs a CUDA card; exits
+non-zero without one.
 
     python3 profile_port.py --kernels [--bf16] [--names a,b] [--inputs PATH] [--against DIR ...]
 
@@ -138,7 +140,7 @@ def make_requests(model: str, batch: int, points: int, dtype_kw: dict):
         def make(i):
             return (clouds,)
     elif model in ("partseg", "partseg_fp"):
-        serve = load_segmenter(PRESETS[model], seed=0, **dtype_kw)
+        serve = load_segmenter(PRESETS[model], seed=0, **OVERRIDES.get(model, {}), **dtype_kw)
 
         def make(i):
             pts, cats, _ = realistic_partseg(batch, points, seed=i)
@@ -402,6 +404,8 @@ def main() -> int:
     ap.add_argument("--bf16", action="store_true",
                     help="cls or partseg with compute_dtype=torch.bfloat16 (with --kernels: "
                          "their bf16 launches)")
+    ap.add_argument("--neighbor_mode", default=None, choices=["exact", "window", "window_all"],
+                    help="partseg: its neighbour mode (default: the preset's, exact)")
     ap.add_argument("--kernels", action="store_true",
                     help="time the kernels' launches of the main paths")
     ap.add_argument("--against", nargs="*", default=None,
@@ -435,6 +439,10 @@ def main() -> int:
         points //= 2  # the partial clouds: the half of each with the lowest x
     if args.bf16 and args.model not in ("cls", "partseg"):
         ap.error("--bf16 takes --model cls or partseg")
+    if args.neighbor_mode:
+        if args.model != "partseg":
+            ap.error("--neighbor_mode takes --model partseg")
+        OVERRIDES["partseg"] = dict(neighbor_mode=args.neighbor_mode)
     dtype_kw = {"compute_dtype": torch.bfloat16} if args.bf16 else {}
     run = (make_train_steps(args.model, batch, dtype_kw) if args.train
            else make_requests(args.model, batch, points, dtype_kw))
@@ -481,7 +489,8 @@ def main() -> int:
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card}")
     unit = "train step" if args.train else "request"
-    print(f"{cfg.model}{' (bf16)' if args.bf16 else ''}: batch {batch} x {points} points, "
+    mode = f" {args.neighbor_mode}" if args.neighbor_mode else ""
+    print(f"{cfg.model}{mode}{' (bf16)' if args.bf16 else ''}: batch {batch} x {points} points, "
           f"{n} traced {unit}s")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"wall per {unit} (profiler on): {wall_ms:.3f} ms; peak allocated {peak_gb:.2f} GB")
@@ -493,7 +502,8 @@ def main() -> int:
     print(f"top kernels by device time per {unit}:")
     for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {v:8.3f} ms  x{count[name] / n:5.1f}  {name[:110]}")
-    print(json.dumps({"model": cfg.model, "unit": unit, "wall_ms": wall_ms, "busy_ms": busy / 1e3 / n,
+    print(json.dumps({"model": cfg.model, "neighbor_mode": args.neighbor_mode, "bf16": args.bf16,
+                      "unit": unit, "wall_ms": wall_ms, "busy_ms": busy / 1e3 / n,
                       "by_kind_ms": dict(by_kind), "kernels_per_unit": len(kernels) / n,
                       "peak_allocated_gb": peak_gb}))
     return 0

@@ -761,28 +761,31 @@ def test_markov_partseg_bf16_gradient_gap_over_the_seeds(monkeypatch):
 
 
 def test_window_modes_and_other_dtypes_refuse():
-    """bf16 storage in the windowed kernels is not ported: the window modes
-    refuse ``compute_dtype`` and the windowed ops refuse bf16 tensors, naming
-    ``ROADMAP.md``; a compute dtype other than bf16 is refused too."""
+    """The window modes take ``compute_dtype`` (bf16 storage in the windowed
+    kernels is ported: ``tests/test_torch_port_bf16_window.py``) and the
+    windowed ops keep bf16 rows bf16; a compute dtype other than bf16 is
+    refused, and so are bf16 ``packed`` with float32 ``shifts``."""
     from mpa_tpu_torch.ops.window import (
         make_window_spec, windowed_scatter_mean, windowed_transition_attention,
     )
 
     for mode in ("window", "window_all"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            KeepHighResolutionPartSeg(dtype=TBF, neighbor_mode=mode)
+        keep = KeepHighResolutionPartSeg(dtype=TBF, neighbor_mode=mode)
+        assert keep.windowed and keep.la2.feature_trans2.dtype == TBF
     spec = make_window_spec(64, 128)
     packed = torch.ones((1, 128, 32), dtype=TBF)
     idx = torch.zeros((1, 64, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        windowed_transition_attention(packed, idx, None, 1, 16, spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        windowed_scatter_mean(torch.ones((1, 64, 16), dtype=TBF), idx, 128, spec)
+    assert windowed_transition_attention(packed, idx, None, 1, 16, spec).dtype == TBF
+    assert windowed_scatter_mean(torch.ones((1, 64, 16), dtype=TBF), idx, 128, spec).dtype == TBF
+    with pytest.raises(ValueError, match="bf16 shifts"):
+        windowed_transition_attention(packed, idx, torch.zeros((1, 64, 16)), 1, 16, spec)
     for dt in (torch.float16, torch.float32):
         with pytest.raises(ValueError, match="compute_dtype"):
             MarkovClassifier(compute_dtype=dt)
         with pytest.raises(ValueError, match="compute_dtype"):
             MarkovPartSeg(compute_dtype=dt)
+        with pytest.raises(ValueError, match="compute_dtype"):
+            MarkovPartSeg(compute_dtype=dt, neighbor_mode="window")
 
 
 def test_activation_dtypes_and_no_launch_on_the_cpu():

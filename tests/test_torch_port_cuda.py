@@ -62,13 +62,15 @@ on NaN rows and centres. The gather is held bit for bit in each form
 thread) at W = 1 to 512, E = 1, B = 1 and 64 and views 4, 8 and 12 bytes
 off, and its entry refuses the forms it does not take.
 
-The five kernels of the mixed precision path (gather, scatter-add, both
-attention kernels, scatter-mean) are held in bf16 storage too, each test
-of them parametrised over the dtype (``DTYPES``), with the gather's bf16
-forms apart and the bf16 channel forms of the attention forward, the
-scatter-mean and the scatter-add (eight, four, two and one a thread or
-lane) apart; and the bf16 ``markov_cls`` and ``markov_partseg`` against the
-CPU with their launch counts by dtype.
+The eight kernels of the mixed precision path (gather, scatter-add, both
+attention kernels, scatter-mean, and the windowed attention forward and
+backward and scatter-mean) are held in bf16 storage too, each test of them
+parametrised over the dtype (``DTYPES``), with the gather's bf16 forms
+apart and the bf16 channel forms of the attention forwards, the
+scatter-means and the scatter-add (eight, four, two and one a thread or
+lane) apart; and the bf16 ``markov_cls`` and ``markov_partseg`` (exact,
+``window`` and ``window_all``) against the CPU with their launch counts by
+dtype.
 
 Run on a machine with an H100:
     python -m pytest tests/test_torch_port_cuda.py -q
@@ -234,10 +236,11 @@ def test_fps_kernel_all_coincident(dev):
     assert torch.equal(fps_cuda(pts, 8), fps_plain(pts, 8))
 
 
-# The storage types of the five kernels of the mixed precision path
-# (gather, scatter-add, both attention kernels, scatter-mean): each of their
-# tests below runs in both. In bf16 the gather, the attention forward, the
-# scatter-add and the scatter-mean on the CPU are bit-equal, as in float32;
+# The storage types of the eight kernels of the mixed precision path
+# (gather, scatter-add, both attention kernels, scatter-mean, the three
+# windowed ones): each of their tests below runs in both. In bf16 the
+# gather, the attention forwards, the scatter-add and the scatter-means on
+# the CPU are bit-equal, as in float32;
 # where float32 allows a relative error (atomic or reordered sums) bf16
 # allows that plus one bf16 ulp (BF16_ULP of the magnitude), the rounding
 # of a sum that lies that close to a rounding boundary.
@@ -293,16 +296,20 @@ def bf16_view(t: torch.Tensor, offset: int, dev) -> torch.Tensor:
     return flat[offset:].view(t.shape)
 
 
-# bf16 storage in each channel form of the attention forward, the
-# scatter-mean and the scatter-add: eight values a thread or lane (one
+# bf16 storage in each channel form of the attention forwards, the
+# scatter-means and the scatter-add: eight values a thread or lane (one
 # 16-byte load), four (8 bytes), two (the scatter-add's float2 form) and
 # one, reached by the width and by views 2 and 8 bytes into their buffers.
 # (kernel, width, offset in values, vec)
 BF16_FORM_CASES = [
     ("attention", 24, 0, 8), ("attention", 12, 0, 4), ("attention", 24, 4, 4),
     ("attention", 24, 1, 1), ("attention", 7, 0, 1),
+    ("windowed_attention", 64, 0, 8), ("windowed_attention", 12, 0, 4),
+    ("windowed_attention", 64, 4, 4), ("windowed_attention", 64, 1, 1),
     ("scatter_mean", 64, 0, 8), ("scatter_mean", 12, 0, 4), ("scatter_mean", 64, 4, 4),
     ("scatter_mean", 64, 1, 1),
+    ("windowed_scatter_mean", 64, 0, 8), ("windowed_scatter_mean", 12, 0, 4),
+    ("windowed_scatter_mean", 64, 4, 4), ("windowed_scatter_mean", 64, 1, 1),
     ("scatter_add", 64, 0, 8), ("scatter_add", 12, 0, 4), ("scatter_add", 6, 0, 2),
     ("scatter_add", 64, 1, 1), ("scatter_add", 5, 0, 1),
 ]
@@ -322,6 +329,25 @@ def test_bf16_channel_forms_match_plain(dev, kernel, width, offset, vec):
         got = attention_cuda(packed, idx, shifts, 2, width)
         want = attention_plain(packed, idx, shifts, 2, width)
         name = "transition_attention_fwd_kernel"
+    elif kernel == "windowed_attention":
+        spec, packed, idx, shifts, _ = _window_attention_inputs("cpu", 2, True, 512, 1024, width,
+                                                                seed=width)
+        packed, shifts, idx = bf16_view(packed, offset, dev), bf16_view(shifts, offset, dev), \
+            idx.to(dev)
+        assert attention_fwd_form(packed, shifts, 8, width) == vec
+        got = windowed_attention_cuda(packed, idx, shifts, 2, width, spec)
+        want = attention_plain(packed, idx, shifts, 2, width)
+        name = "windowed_attention_fwd_kernel"
+    elif kernel == "windowed_scatter_mean":
+        fine, coarse = _morton_pair(width, 2, 512, 1024, 3, "cpu", dup=True)
+        spec = make_window_spec(512, 1024)
+        _, idx = windowed_knn_plain(8, fine, coarse, spec)
+        feats = torch.randn((2, 512, width), generator=torch.Generator().manual_seed(width))
+        f = bf16_view(feats, offset, dev)
+        assert windowed_scatter_mean_form(f, 1024)[1] == vec
+        got, _ = windowed_scatter_mean_cuda(f, idx.to(dev), 1024, spec)
+        want, _ = scatter_mean_plain(f.cpu(), idx, 1024)
+        name = "windowed_scatter_mean_kernel"
     elif kernel == "scatter_mean":
         feats, idx = (torch.from_numpy(a) for a in scatter_mean_case("plain", 2, 300, 8, 500,
                                                                      width))
@@ -775,15 +801,16 @@ def test_classifier_on_cuda_matches_cpu_and_counts_launches(dev):
     torch.testing.assert_close(got.cpu(), cpu(x), rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("path", ["cls", "partseg"])
+@pytest.mark.parametrize("path", list(chip_smoke.BF16_PATHS))
 def test_bf16_model_on_cuda_matches_cpu_and_counts_launches(dev, path):
-    """The bf16 model (``compute_dtype=torch.bfloat16``) served at full
-    width: its launches exactly the float32 path's in all and
-    ``chip_smoke.BF16_PATHS``' in bf16; on ``parity_batch`` clouds against
-    the CPU's bf16 model within ``chip_smoke.BF16_LIMITS``; one train step
-    against the CPU's, its launches, its loss and its gradients in bf16
-    units within ``chip_smoke.BF16_TRAIN_LIMITS``."""
-    spec = chip_smoke.PATHS[path]
+    """The bf16 model (``compute_dtype=torch.bfloat16``; part-seg also in
+    ``window`` and ``window_all``) served at full width: its launches
+    exactly the float32 path's in all and ``chip_smoke.BF16_PATHS``' in
+    bf16; on ``parity_batch`` clouds against the CPU's bf16 model within
+    ``chip_smoke.BF16_LIMITS``; one train step against the CPU's, its
+    launches, its loss and its gradients in bf16 units within
+    ``chip_smoke.BF16_TRAIN_LIMITS``."""
+    spec = chip_smoke.path_spec(path)
     req = chip_smoke.request_inputs(path)[1]
     serve = chip_smoke.serve_loader(path, compute_dtype=torch.bfloat16)
     kernels.reset_launch_counts()
@@ -1123,20 +1150,29 @@ WINDOW_ATTENTION = [(1, True, 16384, 16384, 64), (2, True, 8192, 16384, 64),
                     (1, True, 1024, 16384, 24), (1, True, 64, 128, 3)]
 
 
+@DTYPES
 @pytest.mark.parametrize("n_branches,with_shift,S,N,c", WINDOW_ATTENTION)
-def test_windowed_attention_kernels_match_plain(dev, n_branches, with_shift, S, N, c):
+def test_windowed_attention_kernels_match_plain(dev, n_branches, with_shift, S, N, c, dtype):
     spec, packed, idx, shifts, gctx = _window_attention_inputs(
         dev, n_branches, with_shift, S, N, c, seed=S + c)
+    packed, gctx = packed.to(dtype), gctx.to(dtype)
+    shifts = None if shifts is None else shifts.to(dtype)
+    kernels.reset_launch_counts()
     got = windowed_attention_cuda(packed, idx, shifts, n_branches, c, spec)
     want = attention_plain(packed, idx, shifts, n_branches, c)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert got.dtype == dtype and torch.equal(got, want)
     got_p, got_s = windowed_attention_bwd_cuda(packed, idx, shifts, gctx, n_branches, c, spec)
     want_p, want_s = attention_bwd_plain(packed, idx, shifts, gctx, n_branches, c)
     torch.cuda.synchronize()
-    _close(got_p, want_p, rtol=1e-4)
+    assert got_p.dtype == dtype
+    bf16 = int(dtype == torch.bfloat16)
+    assert (kernels.LAUNCHES_BF16["windowed_attention_fwd_kernel"],
+            kernels.LAUNCHES_BF16["windowed_attention_bwd_kernel"]) == (bf16, bf16)
+    _close(got_p.float(), want_p.float(), rtol=_rtol(1e-4, dtype))
     if with_shift:
-        _close(got_s, want_s, rtol=1e-5)
+        assert got_s.dtype == dtype
+        _close(got_s.float(), want_s.float(), rtol=_rtol(1e-5, dtype))
     else:
         assert got_s is None
 
@@ -1216,10 +1252,11 @@ def test_windowed_attention_fwd_kernel_misaligned_view(dev, misaligned):
     assert torch.equal(got, attention_plain(packed, idx, shifts, 2, 32))
 
 
+@DTYPES
 @pytest.mark.parametrize("K", [8, 16, 32])
 @pytest.mark.parametrize("with_shift", [False, True])
 @pytest.mark.parametrize("case", ["in_window", "outside", "ties"])
-def test_windowed_attention_bwd_kernel_cases(dev, K, with_shift, case):
+def test_windowed_attention_bwd_kernel_cases(dev, K, with_shift, case, dtype):
     """The backward at K = 8, 16 and 32 (its register templates), with and
     without shifts: in-window indices, indices anywhere in [0, N), and
     packed rows repeated in pairs, so that many queries meet neighbours tied
@@ -1235,12 +1272,15 @@ def test_windowed_attention_bwd_kernel_cases(dev, K, with_shift, case):
             v = v + shifts.reshape(2, S, 1, n_branches, c)
         w = (e / e.sum(2, keepdim=True) - 1) * v
         assert int(((w == w.amax(2, keepdim=True)).sum(2) > 1).sum()) > 1000  # many ties
+    packed, gctx = packed.to(dtype), gctx.to(dtype)
+    shifts = None if shifts is None else shifts.to(dtype)
     got_p, got_s = windowed_attention_bwd_cuda(packed, idx, shifts, gctx, n_branches, c, spec)
     want_p, want_s = attention_bwd_plain(packed, idx, shifts, gctx, n_branches, c)
     torch.cuda.synchronize()
-    _close(got_p, want_p, rtol=1e-4)
+    assert got_p.dtype == dtype
+    _close(got_p.float(), want_p.float(), rtol=_rtol(1e-4, dtype))
     if with_shift:
-        _close(got_s, want_s, rtol=1e-5)
+        _close(got_s.float(), want_s.float(), rtol=_rtol(1e-5, dtype))
     else:
         assert got_s is None
 
@@ -1250,17 +1290,21 @@ WINDOW_SCATTER = [(8192, 16384, 64), (1024, 16384, 64), (2048, 8192, 128), (256,
                   (16, 32, 300), (64, 64, 1)]
 
 
-def test_windowed_scatter_mean_kernel_block_over_several_base_blocks(dev):
+@DTYPES
+def test_windowed_scatter_mean_kernel_block_over_several_base_blocks(dev, dtype):
     """A launch whose 256-slot blocks each span two base blocks (bn = 128)
     and read their claims from the union of their windows' rows, and one
     whose blocks' claim ranges take two passes of 4096 indices (sq = 128,
-    K = 24)."""
+    K = 24; in bf16 the first pass's sums kept in the float32 scratch)."""
     for B, S, N, C, K, form in ((16, 8192, 8192, 64, 8, (256, 4)),
                                 (1, 2048, 4096, 12, 24, (8, 4))):
         fine, coarse = _morton_pair(S + N + C, B, S, N, 3, dev, dup=True)
         spec = make_window_spec(S, N)
         _, idx = windowed_knn_plain(K, fine, coarse, spec)
         feats = torch.randn((B, S, C), generator=torch.Generator().manual_seed(C)).to(dev)
+        feats = feats.to(dtype)
+        if dtype == torch.bfloat16 and C % 8 == 0:
+            form = (form[0], 8)  # eight bf16 channels a lane
         assert windowed_scatter_mean_form(feats, N) == form
         rows = max(hi - lo for lo, hi in (block_claim_rows(spec, n0, form[0])
                                           for n0 in range(0, N, form[0])))
@@ -1274,26 +1318,34 @@ def test_windowed_scatter_mean_kernel_block_over_several_base_blocks(dev):
         assert torch.equal(got, again)
 
 
+@DTYPES
 @pytest.mark.parametrize("S,N,C", WINDOW_SCATTER)
-def test_windowed_scatter_mean_kernel_matches_plain(dev, S, N, C):
+def test_windowed_scatter_mean_kernel_matches_plain(dev, S, N, C, dtype):
+    """Forward bit for bit against the plain version on the CPU, and the
+    backward (a float32 gather of the gradient over the count, in bf16
+    storage too, rounded once) against autograd of the plain version."""
     fine, coarse = _morton_pair(S + N, 2, S, N, 3, dev, dup=True)
     spec = make_window_spec(S, N)
     _, idx = windowed_knn_plain(8, fine, coarse, spec)
-    feats = torch.randn((2, S, C), generator=torch.Generator().manual_seed(C)).to(dev)
+    feats = torch.randn((2, S, C), generator=torch.Generator().manual_seed(C)).to(dev).to(dtype)
     got, got_count = windowed_scatter_mean_cuda(feats, idx, N, spec)
     torch.cuda.synchronize()
     cpu, cpu_count = scatter_mean_plain(feats.cpu(), idx.cpu(), N)
+    assert got.dtype == dtype and got_count.dtype == torch.float32
     assert torch.equal(got_count.cpu(), cpu_count)
     assert torch.equal(got.cpu(), cpu)  # the sequential order, bit for bit
     kernels.reset_launch_counts()
     f = feats.clone().requires_grad_(True)
-    g = torch.randn((2, N, C), generator=torch.Generator().manual_seed(1)).to(dev)
+    g = torch.randn((2, N, C), generator=torch.Generator().manual_seed(1)).to(dev).to(dtype)
     (grad,) = torch.autograd.grad(windowed_scatter_mean(f, idx, N, spec), f, g)
     assert kernels.LAUNCHES["windowed_scatter_mean_kernel"] == 1
+    assert kernels.LAUNCHES_BF16["windowed_scatter_mean_kernel"] == (dtype == torch.bfloat16)
     assert kernels.LAUNCHES["gather_rows_kernel"] == 1
+    assert kernels.LAUNCHES_BF16["gather_rows_kernel"] == 0  # float32, as in mpa_tpu
     f = feats.clone().requires_grad_(True)
     (want,) = torch.autograd.grad(scatter_mean_plain(f, idx, N)[0], f, g)
-    torch.testing.assert_close(grad, want, rtol=1e-5, atol=1e-6)
+    assert grad.dtype == dtype
+    torch.testing.assert_close(grad.float(), want.float(), rtol=_rtol(1e-5, dtype), atol=1e-6)
 
 
 def test_semantic_segmenter_on_cuda_matches_cpu_and_counts_launches(dev):

@@ -394,14 +394,18 @@ def test_partseg_registry_and_unported_options():
         assert MarkovPartSeg(neighbor_mode=mode).keep_high.neighbor_mode == mode
     with pytest.raises(ValueError, match="neighbor_mode"):
         MarkovPartSeg(neighbor_mode="ball")
-    # Mixed precision is ported in the exact mode (tests/test_torch_port_bf16.py);
-    # the windowed kernels take float32 only, so the window modes refuse it.
+    # Mixed precision is ported in every neighbour mode (tests/test_torch_port_bf16.py,
+    # tests/test_torch_port_bf16_window.py); any other compute dtype is refused.
     assert MarkovPartSeg(compute_dtype=torch.bfloat16).keep_high.la0.xyz_trans.dtype == torch.bfloat16
     for mode in ("window", "window_all"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            MarkovPartSeg(compute_dtype=torch.bfloat16, neighbor_mode=mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            KeepHighResolutionPartSeg(dtype=torch.bfloat16, neighbor_mode=mode)
+        model = MarkovPartSeg(compute_dtype=torch.bfloat16, neighbor_mode=mode)
+        assert model.keep_high.neighbor_mode == mode
+        assert model.keep_high.la1.feature_trans.dtype == torch.bfloat16
+        keep = KeepHighResolutionPartSeg(dtype=torch.bfloat16, neighbor_mode=mode)
+        assert keep.fuse1.conv4.dtype == torch.bfloat16
+        for dt in (torch.float16, torch.float32):
+            with pytest.raises(ValueError, match="compute_dtype"):
+                MarkovPartSeg(compute_dtype=dt, neighbor_mode=mode)
     # Keyed FPS starts are ported: the forward takes them in train mode
     # (tests/test_torch_port_model_options.py), so no constructor switch.
     with pytest.raises(TypeError):

@@ -127,7 +127,7 @@ def test_feature_propagation_matches_mpa_tpu(S, skip):
     jm = JaxFeaturePropagation(out, act=True)
     flat = jax_variables(jm, fine, coarse, feats, sk)
     want = np.asarray(jm.apply(_nest(flat), fine, coarse, feats, sk, train=False))
-    tm, unused = port(PointNetFeaturePropagation(C + (Cs if skip else 0), out), flat)
+    tm, unused = port(PointNetFeaturePropagation(C + (Cs if skip else 0), out, act=True), flat)
     assert unused == []
     t = [None if a is None else torch.from_numpy(np.array(a)) for a in (fine, coarse, feats, sk)]
     with torch.inference_mode():
