@@ -186,6 +186,22 @@ S3DIS rooms through ``cli.train`` and the sliding scene inference (phase
    recorded launch; (d) the request and step medians of bf16 beside
    float32 (for the window modes phase 2o's requests and five float32
    steps taken here, their launches exact) and each bf16 kernel's time;
+9. inference export (run after phase 8): ``markov_cls``
+   (``scanobjectnn_cls``, B = 64 x 1024), ``markov_partseg`` (``shapenetpart``,
+   B = 32 x 2048) exact and in ``window_all``, ``repsurf_ssg_2x`` (B = 64 x
+   1024) and the bf16 ``markov_cls``, each the serving loader's model,
+   exported on the card through the kernels' custom ops
+   (``serve.export_inference``) and saved, its export seconds, graph nodes
+   and artifact bytes logged; ``python -m mpa_tpu_torch.cli.export`` on
+   phase 5's ``modelnet40_cls`` checkpoint (B = 64); every program answers
+   two warm-up and ten timed requests eagerly (the cli's: the model restored
+   from the checkpoint), then one child process, which imports
+   ``mpa_tpu_torch.ops`` and no model code (it asserts so), loads every
+   artifact with ``serve.load_inference`` and answers the same requests:
+   the answers bit-equal to the eager ones, each request's launches of each
+   kernel (and of bf16 storage) exactly the eager request's, the nine
+   forward kernels launched among the programs, and the request medians of
+   both logged;
 4. a ``{"kernels": [...]}`` JSON line (the bf16 launches as entries of
    their own, ``NAME[bf16]``), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -1870,7 +1886,8 @@ def recipe_phase(path: str, tag: str, work: Path) -> dict:
         f"over the median of the pass seconds {res['pass_seconds']}); train epoch seconds "
         f"{out['epoch_seconds']}, clouds/s {out['clouds_per_s']}")
     return {"train": train_launches, "eval": launches, "clouds_s": clouds_s,
-            "epoch_seconds": out["epoch_seconds"], "clouds_per_s": out["clouds_per_s"]}
+            "epoch_seconds": out["epoch_seconds"], "clouds_per_s": out["clouds_per_s"],
+            "checkpoint": ckpt_dir}
 
 
 # Faults for ``--planted-faults``, a line or two each: (path whose --parity
@@ -2875,12 +2892,197 @@ def phase8() -> tuple:
     return results, rows, counts, f32_rows
 
 
+# Phase 9's exported paths: (the serving path, its loader's keyword arguments).
+EXPORT_PATHS = {
+    "cls": ("cls", {}),
+    "partseg": ("partseg", {}),
+    "partseg_window_all": ("partseg_window_all", {}),
+    "repsurf": ("repsurf", {}),
+    "cls_bf16": ("cls", {"compute_dtype": torch.bfloat16}),
+}
+EXPORT_TIMED = 10  # timed requests of each program, eager and exported, after two warm-ups
+FORWARD = ("knn_kernel", "fps_kernel", "gather_rows_kernel", "transition_attention_fwd_kernel",
+           "scatter_mean_kernel", "windowed_knn_kernel", "windowed_attention_fwd_kernel",
+           "windowed_scatter_mean_kernel", "ball_query_kernel")
+
+
+def model_inputs(path: str, request: tuple):
+    """A request of ``path`` as its model takes it, on the card: the
+    points, or ``(points, category one-hot)`` for part-seg."""
+    x = torch.from_numpy(request[0]).cuda()
+    if not path.startswith("partseg"):
+        return x
+    onehot = torch.nn.functional.one_hot(torch.from_numpy(request[1]).long().cuda(), 16)
+    return x, onehot.float()
+
+
+def timed_program(fn, inputs: list) -> dict:
+    """Two warm-up calls of ``fn`` on ``inputs[0]``, then ``EXPORT_TIMED``
+    timed ones cycling through ``inputs[1:]``: their ms, each request's
+    launch counts (all, and bf16), and the answers of the first pass."""
+    from mpa_tpu_torch import kernels
+
+    for _ in range(2):
+        fn(inputs[0])
+    torch.cuda.synchronize()
+    ms, launches, answers = [], [], []
+    for i in range(EXPORT_TIMED):
+        x = inputs[1 + i % (len(inputs) - 1)]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(x)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append((dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_BF16)))
+        if i < len(inputs) - 1:
+            answers.append(out)
+    return {"ms": ms, "launches": launches, "answers": answers}
+
+
+def exported_child(work: Path) -> None:
+    """Phase 9's child process: load every artifact listed in
+    ``work/programs.json`` with ``mpa_tpu_torch.serve.load_inference`` (no
+    model code imported), answer its requests as :func:`timed_program`
+    does, hold the answers against the eager ones saved beside it, and write
+    the readings to ``work/child.json``."""
+    import mpa_tpu_torch.ops  # noqa: F401  (registers the mpa:: ops)
+    from mpa_tpu_torch.serve import load_inference
+
+    out = {}
+    for name in json.loads((work / "programs.json").read_text()):
+        saved = torch.load(work / f"{name}.io.pt", weights_only=True)
+        inputs = [tuple(t.cuda() for t in x) if isinstance(x, (list, tuple)) else x.cuda()
+                  for x in saved["inputs"]]
+        t0 = time.perf_counter()
+        infer = load_inference(str(work / f"{name}.pt2"))
+        load_s = time.perf_counter() - t0
+        run = timed_program(infer, inputs)
+        pairs = [(got.cpu(), want) for got, want in zip(run["answers"], saved["answers"])]
+        diffs = [(got.float() - want.float()).abs().max().item() for got, want in pairs]
+        equal = [torch.equal(got, want) for got, want in pairs]
+        out[name] = {"load_s": load_s, "ms": run["ms"], "launches": run["launches"],
+                     "equal": equal, "max_abs": diffs}
+    out["imports_models"] = "mpa_tpu_torch.models" in sys.modules
+    (work / "child.json").write_text(json.dumps(out))
+
+
+def export_program(name: str, model: torch.nn.Module, inputs: list, work: Path,
+                   manifest: dict) -> dict:
+    """Export ``model`` on ``inputs[0]``, save it to ``work/NAME.pt2`` and
+    answer ``inputs`` eagerly (:func:`timed_program`), saving the inputs and
+    answers for the child; returns the export's readings and the eager
+    run's."""
+    from mpa_tpu_torch.serve import export_inference, save_exported
+    from mpa_tpu_torch.serve.export import custom_ops
+
+    t0 = time.perf_counter()
+    ep = export_inference(model, inputs[0])
+    export_s = time.perf_counter() - t0
+    path = work / f"{name}.pt2"
+    save_exported(ep, str(path), manifest=manifest)
+    with torch.inference_mode():
+        eager = timed_program(model, inputs)
+    torch.save({"inputs": [tuple(t.cpu() for t in x) if isinstance(x, tuple) else x.cpu()
+                           for x in inputs],
+                "answers": [a.cpu() for a in eager["answers"]]}, work / f"{name}.io.pt")
+    return {"export_s": export_s, "nodes": len(ep.graph.nodes), "ops": custom_ops(ep),
+            "bytes": path.stat().st_size, "eager": eager}
+
+
+def phase9(tag: str, work: Path, cls_checkpoint: str) -> dict:
+    """Phase 9: each of ``EXPORT_PATHS`` at its path's batch and width,
+    exported (``serve.export_inference``) from the serving loader's model,
+    saved, and answered eagerly; ``python -m mpa_tpu_torch.cli.export`` on
+    phase 5's ``modelnet40_cls`` checkpoint, answered by the eager model
+    restored from it; then one child process loads every artifact, with no
+    model code, and answers the same requests: bit for bit the eager
+    answers, each request's launches of each kernel exactly the eager
+    request's, and the nine forward kernels launched among them. Returns
+    each program's readings."""
+    from mpa_tpu_torch.cli import eval as cli_eval
+    from mpa_tpu_torch.configs import PRESETS
+    from mpa_tpu_torch.train import BestCheckpointer
+
+    results = {}
+    for name, (path, kw) in EXPORT_PATHS.items():
+        model = serve_loader(path, **kw).model
+        inputs = [model_inputs(path, r) for r in request_inputs(path)]
+        manifest = {"path": path, "seed": SEED, **{k: str(v) for k, v in kw.items()}}
+        results[name] = export_program(name, model, inputs, work, manifest)
+        del model, inputs
+        torch.cuda.empty_cache()
+
+    # cli.export on phase 5's checkpoint, and the eager model restored from it.
+    spec = PATHS["cls"]
+    out = work / "cli_cls.pt2"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mpa_tpu_torch.cli.export", "--preset",
+                           RECIPE["cls"]["preset"], "--checkpoint", cls_checkpoint,
+                           "--serve_batch", str(spec["batch"]), "--out", str(out)],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[{tag}] cli.export failed:\n{proc.stdout}\n{proc.stderr}")
+    log(f"[{tag}] cli.export ({cli_s:.1f} s with its start): {proc.stdout.strip()}")
+    state = cli_eval.eval_state(PRESETS[RECIPE["cls"]["preset"]], torch.device("cuda"))
+    if BestCheckpointer(cls_checkpoint).restore(state, restore_optimizer=False) is None:
+        raise AssertionError(f"[{tag}] no checkpoint under {cls_checkpoint}")
+    inputs = [model_inputs("cls", r) for r in request_inputs("cls")]
+    with torch.inference_mode():
+        eager = timed_program(state.model, inputs)
+    torch.save({"inputs": [x.cpu() for x in inputs],
+                "answers": [a.cpu() for a in eager["answers"]]}, work / "cli_cls.io.pt")
+    manifest = json.loads((work / "cli_cls.pt2.json").read_text())
+    results["cli_cls"] = {"export_s": cli_s, "nodes": manifest["graph_nodes"],
+                          "ops": manifest["custom_ops"], "bytes": out.stat().st_size,
+                          "eager": eager}
+    del state, inputs
+    torch.cuda.empty_cache()
+
+    # One child process loads every artifact and answers the same requests.
+    (work / "programs.json").write_text(json.dumps(list(results)))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--exported-child",
+                           str(work)], cwd=REPO, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"[{tag}] the child failed:\n{proc.stdout}\n{proc.stderr}")
+    child = json.loads((work / "child.json").read_text())
+    log(f"[{tag}] child process ({time.perf_counter() - t0:.1f} s with its start) imported "
+        f"mpa_tpu_torch.models: {child['imports_models']}")
+    if child["imports_models"]:
+        raise AssertionError(f"[{tag}] loading the artifacts imported the model code")
+    launched = set()
+    for name, r in results.items():
+        c = child[name]
+        eager_launches = r["eager"]["launches"]
+        launched |= {k for lc, _ in c["launches"] for k, v in lc.items() if v}
+        eager_ms, exported_ms = statistics.median(r["eager"]["ms"]), statistics.median(c["ms"])
+        log(f"[{tag} {name}] export {r['export_s']:.2f} s, {r['nodes']} graph nodes, "
+            f"{r['bytes']} bytes, ops {r['ops']}; loaded in {c['load_s']:.2f} s; request median "
+            f"ms exported {exported_ms:.3f} against eager {eager_ms:.3f} (exported {c['ms']}, "
+            f"eager {r['eager']['ms']}); answers bit-equal {c['equal']}, max |d| {c['max_abs']}; "
+            f"launches a request {c['launches'][0][0]} (bf16 {c['launches'][0][1]})")
+        if not all(c["equal"]):
+            raise AssertionError(f"[{tag} {name}] exported answers differ from eager: "
+                                 f"max |d| {c['max_abs']}")
+        if [tuple(x) for x in c["launches"]] != [tuple(x) for x in eager_launches]:
+            raise AssertionError(f"[{tag} {name}] exported launches {c['launches']} against "
+                                 f"eager {eager_launches}")
+        r.update(exported_ms=c["ms"], load_s=c["load_s"])
+        del r["eager"]["answers"]
+    if launched != set(FORWARD):
+        raise AssertionError(f"[{tag}] the exported programs launched {sorted(launched)}, "
+                             f"want the nine forward kernels {sorted(FORWARD)}")
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parity", nargs="?", const="partseg",
                     choices=["partseg", "semseg", "repsurf", "partseg_fp", "pose", "completion",
                              "dp", "bf16"],
                     help="only that path's card-against-CPU readings, as JSON")
+    ap.add_argument("--exported-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--planted-faults", nargs="?", const="all",
                     choices=["all", "partseg", "semseg", "repsurf", "dp", "bf16"],
                     help="the --parity readings of copies with one fault planted in each "
@@ -2895,6 +3097,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if args.exported_child:
+        exported_child(Path(args.exported_child))
+        return 0
     from mpa_tpu_torch import kernels
     from mpa_tpu_torch.kernels import build
 
@@ -2972,8 +3177,9 @@ def main() -> int:
         f"{floor:.4f} ms a launch")
 
     # -- 5: the recipe, cli.train -> checkpoint -> cli.eval, on data trees -------
-    with tempfile.TemporaryDirectory() as work:
-        recipe = {path: recipe_phase(path, f"5 {path} recipe", Path(work)) for path in RECIPE}
+    recipe_work = tempfile.TemporaryDirectory()  # kept for phase 9's cli.export
+    recipe = {path: recipe_phase(path, f"5 {path} recipe", Path(recipe_work.name))
+              for path in RECIPE}
     torch.cuda.empty_cache()
 
     # -- 6: S3DIS rooms through cli.train and the sliding scene inference ------------
@@ -2991,6 +3197,12 @@ def main() -> int:
     # -- 8: mixed precision, bf16 cls and part-seg served, trained, replayed --------
     bf16, bf16_rows, bf16_counts, f32_window_rows = phase8()
     rows += f32_window_rows
+    torch.cuda.empty_cache()
+
+    # -- 9: inference export, the artifacts loaded in a child process ---------------
+    with tempfile.TemporaryDirectory() as work:
+        exported = phase9("9 export", Path(work), recipe["cls"]["checkpoint"])
+    recipe_work.cleanup()
 
     counts = {f"{path}_serve": served[path]["launches"] for path in PATHS}
     counts.update({f"{path}_train": trained[path]["launches"] for path in PATHS})
@@ -3042,6 +3254,11 @@ def main() -> int:
                 t = row["by_path"][path]
                 log(f"[8 {path}] {row['name']} per {row['per']}: {t['launches_per_unit']} "
                     f"launches, {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    for name, r in exported.items():
+        log(f"[9 {name}] ({card}) export {r['export_s']:.2f} s, {r['nodes']} graph nodes, "
+            f"{r['bytes'] / 2**20:.2f} MiB; request median ms exported "
+            f"{statistics.median(r['exported_ms']):.3f}, eager "
+            f"{statistics.median(r['eager']['ms']):.3f}")
     print(card, flush=True)  # the card, exactly as nvidia-smi reports it
     log(f"[4 total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": summary}), flush=True)

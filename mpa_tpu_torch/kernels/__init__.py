@@ -1,9 +1,11 @@
 """Hand-written Hopper kernels of the port and their launch counts.
 
 The CUDA C++ sources live in ``csrc/``; ``build.py`` compiles them at first
-use. Each op wrapper in ``mpa_tpu_torch.ops`` calls :func:`launched` right
-where it launches its kernel, and nowhere else, so a run can show that its
-path went through the kernels: reset the counts, drive the path, read them.
+use. Each kernel's entry, a custom op's CUDA implementation in
+``mpa_tpu_torch.ops`` (``ops/library.py``), calls :func:`launched` right
+where it launches its kernel, and nowhere else (not in the op's fake, which
+a trace calls), so a run can show that its path went through the kernels,
+eager or exported: reset the counts, drive the path, read them.
 The backward kernels (``scatter_add_rows_kernel``,
 ``transition_attention_bwd_kernel``, ``windowed_attention_bwd_kernel``) are
 launched from the ``backward`` of their ops' ``torch.autograd.Function`` and

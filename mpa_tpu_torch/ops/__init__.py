@@ -2,7 +2,9 @@
 
 Each op with a kernel has a plain PyTorch version (taken for CPU tensors, and
 the reference its kernel is held against) and a CUDA wrapper (taken for CUDA
-tensors; it launches the kernel or raises).
+tensors; it launches the kernel or raises). Every kernel entry is a
+``torch.library`` custom op, ``mpa::NAME`` (``ops/library.py``): importing
+this package registers them, which an exported program needs.
 """
 
 from mpa_tpu_torch.ops.pairwise import square_distance

@@ -17,10 +17,16 @@ the context, ``dpacked`` and ``dshift`` are rounded to bf16 once
 ``torch.autograd.Function`` gives the bf16 forward :func:`attention_bwd_plain`
 as its backward, whose scatter-add sums in float32 (autograd's own would add
 the gathered rows' gradients in bf16).
+
+The kernels' entries are the custom ops ``mpa::attention`` and
+``mpa::attention_bwd`` (``ops/library.py``), which :func:`attention_cuda`
+and :func:`attention_bwd_cuda` call; :func:`transition_attention` calls
+the forward directly where no gradient is needed.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -29,6 +35,7 @@ from torch.autograd.function import once_differentiable
 
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
+from mpa_tpu_torch.ops import library
 from mpa_tpu_torch.ops.gather import KERNEL_DTYPES, scatter_add_plain, stored
 from mpa_tpu_torch.utils.device import on_cuda
 
@@ -162,7 +169,7 @@ def check_cuda_args(name, packed, idx, shifts, n_branches, c, gctx,
     for arg, t, dt in named:
         if t.device != packed.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be a contiguous {dt} tensor on {packed.device}")
-    if packed.device.type != "cuda":
+    if not library.kernel_device(packed):
         raise ValueError(f"{name}: tensors must lie on a CUDA device")
 
 
@@ -185,16 +192,10 @@ def attention_fwd_form(packed: torch.Tensor, shifts: Optional[torch.Tensor], K: 
     return next((v for v in (16 // es, 4) if c % v == 0 and aligned(v)), 1)
 
 
-def attention_cuda(
-    packed: torch.Tensor,
-    idx: torch.Tensor,
-    shifts: Optional[torch.Tensor],
-    n_branches: int,
-    c: int,
-) -> torch.Tensor:
-    """Launch ``transition_attention_fwd_kernel`` on CUDA tensors (float32,
-    or bf16 ``packed`` and ``shifts`` for a bf16 context), with
-    :func:`attention_fwd_form`'s channels a thread."""
+def _attention_impl(packed: torch.Tensor, idx: torch.Tensor, shifts: Optional[torch.Tensor],
+                    n_branches: int, c: int) -> torch.Tensor:
+    """``mpa::attention`` on the card: launch ``transition_attention_fwd_kernel``
+    with :func:`attention_fwd_form`'s channels a thread."""
     check_cuda_args("transition_attention_fwd_kernel", packed, idx, shifts, n_branches, c,
                     gctx=None, dtypes=KERNEL_DTYPES)
     B, N, _ = packed.shape
@@ -221,18 +222,36 @@ def attention_cuda(
     return out
 
 
-def attention_bwd_cuda(
+def attention_fake(name: str, packed, idx, shifts, n_branches: int, c: int) -> torch.Tensor:
+    """The forward ops' fake: the context ``[B, S, n_branches * c]`` in
+    ``packed``'s type."""
+    check_cuda_args(name, packed, idx, shifts, n_branches, c, gctx=None, dtypes=KERNEL_DTYPES)
+    return packed.new_empty((packed.shape[0], idx.shape[1], n_branches * c))
+
+
+attention_op = library.define(
+    "attention(Tensor packed, Tensor idx, Tensor? shifts, int n_branches, int c) -> Tensor",
+    _attention_impl, functools.partial(attention_fake, "transition_attention_fwd_kernel"))
+
+
+def attention_cuda(
     packed: torch.Tensor,
     idx: torch.Tensor,
     shifts: Optional[torch.Tensor],
-    gctx: torch.Tensor,
     n_branches: int,
     c: int,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch ``transition_attention_bwd_kernel`` on CUDA tensors; returns
-    ``(dpacked, dshift or None)`` as :func:`attention_bwd_plain`. For bf16
-    ``packed``, ``shifts`` and ``gctx`` the kernel adds into a float32
-    ``dpacked`` and rounds it into the bf16 one it returns."""
+) -> torch.Tensor:
+    """``transition_attention_fwd_kernel`` on CUDA tensors (float32, or bf16
+    ``packed`` and ``shifts`` for a bf16 context), through ``mpa::attention``."""
+    library.check_device("transition_attention_fwd_kernel", packed, idx, shifts)
+    return attention_op(packed, idx, shifts, n_branches, c)
+
+
+def _attention_bwd_impl(packed, idx, shifts, gctx, n_branches: int, c: int):
+    """``mpa::attention_bwd`` on the card: launch
+    ``transition_attention_bwd_kernel``. For bf16 ``packed``, ``shifts`` and
+    ``gctx`` the kernel adds into a float32 ``dpacked`` and rounds it into the
+    bf16 one it returns."""
     check_cuda_args("transition_attention_bwd_kernel", packed, idx, shifts, n_branches, c, gctx,
                     dtypes=KERNEL_DTYPES)
     B, N, W = packed.shape
@@ -261,6 +280,34 @@ def attention_bwd_cuda(
         bf16=bf16,
     )
     return dpacked, dshift
+
+
+def attention_bwd_fake(name: str, packed, idx, shifts, gctx, n_branches: int, c: int):
+    """The backward ops' fake: ``dpacked`` of ``packed``'s shape and type,
+    ``dshift`` of ``shifts``' or None."""
+    check_cuda_args(name, packed, idx, shifts, n_branches, c, gctx, dtypes=KERNEL_DTYPES)
+    return torch.empty_like(packed), None if shifts is None else torch.empty_like(shifts)
+
+
+attention_bwd_op = library.define(
+    "attention_bwd(Tensor packed, Tensor idx, Tensor? shifts, Tensor gctx, int n_branches, "
+    "int c) -> (Tensor, Tensor?)",
+    _attention_bwd_impl, functools.partial(attention_bwd_fake, "transition_attention_bwd_kernel"))
+
+
+def attention_bwd_cuda(
+    packed: torch.Tensor,
+    idx: torch.Tensor,
+    shifts: Optional[torch.Tensor],
+    gctx: torch.Tensor,
+    n_branches: int,
+    c: int,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``transition_attention_bwd_kernel`` on CUDA tensors, through
+    ``mpa::attention_bwd``; returns ``(dpacked, dshift or None)`` as
+    :func:`attention_bwd_plain`."""
+    library.check_device("transition_attention_bwd_kernel", packed, idx, shifts, gctx)
+    return attention_bwd_op(packed, idx, shifts, gctx, n_branches, c)
 
 
 class _TransitionAttention(torch.autograd.Function):
@@ -327,14 +374,11 @@ def transition_attention(
         raise ValueError(f"transition_attention: bf16 packed needs bf16 shifts, got {shifts.dtype}")
     if on_cuda(packed, "packed"):
         store = torch.bfloat16 if bf16 else torch.float32
-        out = _TransitionAttention.apply(
-            packed.to(store).contiguous(),
-            idx.to(torch.int32).contiguous(),
-            None if shifts is None else shifts.to(store).contiguous(),
-            n_branches,
-            c,
-        )
-        return out.to(packed.dtype)
+        args = (packed.to(store).contiguous(), idx.to(torch.int32).contiguous(),
+                None if shifts is None else shifts.to(store).contiguous(), n_branches, c)
+        if library.needs_grad(args[0], args[2]):
+            return _TransitionAttention.apply(*args).to(packed.dtype)
+        return attention_cuda(*args).to(packed.dtype)
     check_args(packed, idx, shifts, n_branches, c)
     if bf16:
         return _AttentionPlainBf16.apply(packed, idx, shifts, n_branches, c)

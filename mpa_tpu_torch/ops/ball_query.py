@@ -15,6 +15,8 @@ Membership must agree where a distance lies within a last bit of the radius:
 both stages take the distance of ``ops/pairwise.py::square_distance`` and
 compare it with ``radius * radius`` taken in double and rounded once to
 float32, as JAX does (:func:`radius_squared`). The indices carry no gradient.
+The kernel's entry is the custom op ``mpa::ball_query`` (``ops/library.py``),
+which :func:`ball_query_cuda` calls.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
+from mpa_tpu_torch.ops import library
 from mpa_tpu_torch.ops.pairwise import square_distance
 from mpa_tpu_torch.utils.device import on_cuda
 
@@ -76,9 +79,7 @@ def _check(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> None:
         raise ValueError(f"ball_query: nsample={nsample} must be in [1, N={xyz.shape[1]}]")
 
 
-def ball_query_cuda(radius: float, nsample: int, xyz: torch.Tensor,
-                    new_xyz: torch.Tensor) -> torch.Tensor:
-    """Launch ``ball_query_kernel``: the sentinel stage on CUDA tensors."""
+def _check_kernel(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> None:
     _check(nsample, xyz, new_xyz)
     B, N, C = xyz.shape
     S = new_xyz.shape[1]
@@ -86,10 +87,19 @@ def ball_query_cuda(radius: float, nsample: int, xyz: torch.Tensor,
         raise ValueError(f"ball_query_kernel supports C <= {MAX_C}, 1 <= B <= {MAX_B} and "
                          f"S >= 1, got C={C}, B={B}, S={S}")
     for name, t in (("xyz", xyz), ("new_xyz", new_xyz)):
-        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+        if not library.kernel_device(t) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"ball_query_kernel: {name} must be a contiguous float32 CUDA tensor")
     if xyz.device != new_xyz.device:
         raise ValueError("ball_query_kernel: xyz and new_xyz on different devices")
+
+
+def _ball_query_impl(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor) -> torch.Tensor:
+    """``mpa::ball_query`` on the card: launch ``ball_query_kernel``, the
+    sentinel stage, in :func:`ball_query_form`'s form."""
+    _check_kernel(nsample, xyz, new_xyz)
+    B, N, C = xyz.shape
+    S = new_xyz.shape[1]
     g = ball_query_form(B, S)
     out = torch.empty((B, S, nsample), dtype=torch.int32, device=xyz.device)
     lib = build.load()
@@ -103,6 +113,25 @@ def ball_query_cuda(radius: float, nsample: int, xyz: torch.Tensor,
     kernels.launched("ball_query_kernel",
                      {"radius": radius, "nsample": nsample, "xyz": xyz, "new_xyz": new_xyz})
     return out
+
+
+def _ball_query_fake(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor) -> torch.Tensor:
+    _check_kernel(nsample, xyz, new_xyz)
+    return xyz.new_empty((xyz.shape[0], new_xyz.shape[1], nsample), dtype=torch.int32)
+
+
+ball_query_op = library.define(
+    "ball_query(float radius, int nsample, Tensor xyz, Tensor new_xyz) -> Tensor",
+    _ball_query_impl, _ball_query_fake)
+
+
+def ball_query_cuda(radius: float, nsample: int, xyz: torch.Tensor,
+                    new_xyz: torch.Tensor) -> torch.Tensor:
+    """``ball_query_kernel``, the sentinel stage on CUDA tensors, through
+    ``mpa::ball_query``."""
+    library.check_device("ball_query_kernel", xyz, new_xyz)
+    return ball_query_op(float(radius), nsample, xyz, new_xyz)
 
 
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor,

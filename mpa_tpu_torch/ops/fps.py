@@ -7,7 +7,9 @@ channel order; the running minimum starts at ``inf``; the argmax takes the
 first maximum. Each cloud starts at its own index (``mpa_tpu`` draws them
 with ``jax.random.randint(key, (B,), 0, N)``; a caller passes the drawn
 ``[B]`` tensor) or every cloud at one ``start_idx``. On a CUDA tensor it
-launches ``fps_kernel`` (``kernels/csrc/fps.cu``); on a CPU tensor it takes
+launches ``fps_kernel`` (``kernels/csrc/fps.cu``) through the custom op
+``mpa::fps`` (``ops/library.py``; a start tensor is its ``starts``
+argument, else the index ``start``); on a CPU tensor it takes
 :func:`fps_plain`.
 
 :func:`banded_farthest_point_sample` is the window modes' FPS
@@ -24,6 +26,7 @@ import torch
 
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
+from mpa_tpu_torch.ops import library
 from mpa_tpu_torch.utils.device import on_cuda
 
 Start = Union[int, torch.Tensor]
@@ -58,14 +61,19 @@ def fps_plain(points: torch.Tensor, npoint: int, start: Start = 0) -> torch.Tens
     return out
 
 
+def _check_shape(points: torch.Tensor, npoint: int) -> None:
+    if points.dim() != 3:
+        raise ValueError(f"farthest_point_sample: points must be [B,N,C], got {tuple(points.shape)}")
+    N = points.shape[1]
+    if not 1 <= npoint <= N:
+        raise ValueError(f"farthest_point_sample: npoint={npoint} must be in [1, N={N}]")
+
+
 def _check(points: torch.Tensor, npoint: int, start: Start) -> None:
     """Shapes and starts; the values of a start tensor on the card are left to
     :func:`_device_start`, which checks them there without waiting for it."""
-    if points.dim() != 3:
-        raise ValueError(f"farthest_point_sample: points must be [B,N,C], got {tuple(points.shape)}")
+    _check_shape(points, npoint)
     B, N = points.shape[:2]
-    if not 1 <= npoint <= N:
-        raise ValueError(f"farthest_point_sample: npoint={npoint} must be in [1, N={N}]")
     if not torch.is_tensor(start):
         if not 0 <= start < N:
             raise ValueError(f"farthest_point_sample: start_idx={start} out of [0, {N})")
@@ -146,11 +154,32 @@ def _launch(points: torch.Tensor, npoint: int, start: Start, chain: bool) -> tor
     return out
 
 
-def fps_cuda(points: torch.Tensor, npoint: int, start: Start = 0) -> torch.Tensor:
-    """Launch ``fps_kernel`` on a CUDA tensor."""
-    out = _launch(points, npoint, start, chain=False)
-    kernels.launched("fps_kernel", {"points": points, "npoint": npoint, "start": start})
+def _fps_impl(points: torch.Tensor, npoint: int, start: int,
+              starts: Optional[torch.Tensor]) -> torch.Tensor:
+    """``mpa::fps`` on the card: ``fps_kernel`` from ``starts`` (``[B]``
+    integer indices) where given, else from index ``start`` in every cloud."""
+    chosen = start if starts is None else starts
+    out = _launch(points, npoint, chosen, chain=False)
+    kernels.launched("fps_kernel", {"points": points, "npoint": npoint, "start": chosen})
     return out
+
+
+def _fps_fake(points: torch.Tensor, npoint: int, start: int,
+              starts: Optional[torch.Tensor]) -> torch.Tensor:
+    _check_shape(points, npoint)
+    return points.new_empty((points.shape[0], npoint), dtype=torch.int32)
+
+
+fps_op = library.define("fps(Tensor points, int npoint, int start, Tensor? starts) -> Tensor",
+                        _fps_impl, _fps_fake)
+
+
+def fps_cuda(points: torch.Tensor, npoint: int, start: Start = 0) -> torch.Tensor:
+    """``fps_kernel`` on a contiguous float32 CUDA tensor, through ``mpa::fps``."""
+    library.check_device("fps_kernel", points)
+    if torch.is_tensor(start):
+        return fps_op(points, npoint, 0, start)
+    return fps_op(points, npoint, int(start), None)
 
 
 def fps_chain_cuda(points: torch.Tensor, npoint: int, start: Start = 0) -> torch.Tensor:

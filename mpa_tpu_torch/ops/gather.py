@@ -17,6 +17,11 @@ rows in float32 and rounds each sum to bf16 once, as ``mpa_tpu``'s
 ``scatter_add_rmw`` and the cast of the gather's VJP do
 (``gather_pallas.py:202,332``); on the CPU a ``torch.autograd.Function``
 gives :func:`gather_plain` that backward (autograd's own would add in bf16).
+
+The kernels' entries are the custom ops ``mpa::gather`` and
+``mpa::scatter_add`` (``ops/library.py``), which :func:`gather_cuda` and
+:func:`scatter_add_cuda` call; :func:`index_points` calls the gather
+directly where no gradient is needed.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from torch.autograd.function import once_differentiable
 
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
+from mpa_tpu_torch.ops import library
 from mpa_tpu_torch.utils.device import on_cuda
 
 MAX_B = 65535  # the inverse-index kernels' grids run the batch along y
@@ -151,16 +157,14 @@ def _check_cuda(name: str, tensors) -> None:
     device = tensors[0][1].device
     for arg, t, dt in tensors:
         dts = dt if isinstance(dt, tuple) else (dt,)
-        if t.device.type != "cuda" or t.dtype not in dts or not t.is_contiguous():
+        if not library.kernel_device(t) or t.dtype not in dts or not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be a contiguous "
                              f"{' or '.join(map(str, dts))} CUDA tensor")
         if t.device != device:
             raise ValueError(f"{name}: {tensors[0][0]} and {arg} on different devices")
 
 
-def gather_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch ``gather_rows_kernel``: points ``[B,N,W]`` f32 or bf16, idx
-    ``[B,E]`` int32 in ``[0, N)`` -> ``[B,E,W]`` of points' type."""
+def _check_gather(points: torch.Tensor, idx: torch.Tensor) -> None:
     _check(points, idx)
     if idx.dim() != 2:
         raise ValueError("gather_rows_kernel: idx must be [B, E]")
@@ -171,6 +175,14 @@ def gather_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if B * N >= 2**31 or B * E * W >= 2**31:
         raise ValueError(f"gather_rows_kernel: B * N and B * E * W below 2^31 expected, got "
                          f"B={B}, N={N}, E={E}, W={W}")
+
+
+def _gather_impl(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``mpa::gather`` on the card: launch ``gather_rows_kernel`` in
+    :func:`gather_form`'s form."""
+    _check_gather(points, idx)
+    B, N, W = points.shape
+    E = idx.shape[1]
     vec, elems = gather_form(points, B * E)
     out = torch.empty((B, E, W), dtype=points.dtype, device=points.device)
     lib = build.load()
@@ -186,11 +198,24 @@ def gather_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def scatter_add_cuda(grads: torch.Tensor, idx: torch.Tensor, num_points: int) -> torch.Tensor:
-    """Launch ``scatter_add_rows_kernel`` in :func:`scatter_add_form`'s form:
-    grads ``[B,E,W]`` f32 or bf16, idx ``[B,E]`` int32 -> ``[B,num_points,W]``
-    of grads' type (out-of-range targets dropped; bf16: float32 sums, each
-    rounded once)."""
+def _gather_fake(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    _check_gather(points, idx)
+    return points.new_empty((points.shape[0], idx.shape[1], points.shape[2]))
+
+
+gather_op = library.define("gather(Tensor points, Tensor idx) -> Tensor", _gather_impl,
+                           _gather_fake)
+
+
+def gather_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``gather_rows_kernel`` through ``mpa::gather``: points ``[B,N,W]`` f32
+    or bf16, idx ``[B,E]`` int32 in ``[0, N)`` -> ``[B,E,W]`` of points'
+    type."""
+    library.check_device("gather_rows_kernel", points, idx)
+    return gather_op(points, idx)
+
+
+def _check_scatter_add(grads: torch.Tensor, idx: torch.Tensor, num_points: int) -> None:
     name = "scatter_add_rows_kernel"
     if grads.dim() != 3 or idx.dim() != 2 or tuple(idx.shape) != tuple(grads.shape[:2]):
         raise ValueError(
@@ -200,9 +225,17 @@ def scatter_add_cuda(grads: torch.Tensor, idx: torch.Tensor, num_points: int) ->
     if num_points < 0:
         raise ValueError(f"{name}: num_points={num_points} < 0")
     _check_cuda(name, (("grads", grads, KERNEL_DTYPES), ("idx", idx, torch.int32)))
-    B, E, W = grads.shape
+    B, _, W = grads.shape
     if B > MAX_B or W < 1:
         raise ValueError(f"{name}: B <= {MAX_B} and W >= 1 expected, got B={B}, W={W}")
+
+
+def _scatter_add_impl(grads: torch.Tensor, idx: torch.Tensor, num_points: int) -> torch.Tensor:
+    """``mpa::scatter_add`` on the card: launch ``scatter_add_rows_kernel`` in
+    :func:`scatter_add_form`'s form."""
+    name = "scatter_add_rows_kernel"
+    _check_scatter_add(grads, idx, num_points)
+    B, E, W = grads.shape
     slots, vec = scatter_add_form(grads, num_points)
     bf16 = grads.dtype == torch.bfloat16
     out = torch.empty((B, num_points, W), dtype=grads.dtype, device=grads.device)
@@ -218,6 +251,25 @@ def scatter_add_cuda(grads: torch.Tensor, idx: torch.Tensor, num_points: int) ->
         )
     kernels.launched(name, {"grads": grads, "idx": idx, "num_points": num_points}, bf16=bf16)
     return out
+
+
+def _scatter_add_fake(grads: torch.Tensor, idx: torch.Tensor, num_points: int) -> torch.Tensor:
+    _check_scatter_add(grads, idx, num_points)
+    return grads.new_empty((grads.shape[0], num_points, grads.shape[2]))
+
+
+scatter_add_op = library.define(
+    "scatter_add(Tensor grads, Tensor idx, SymInt num_points) -> Tensor", _scatter_add_impl,
+    _scatter_add_fake)
+
+
+def scatter_add_cuda(grads: torch.Tensor, idx: torch.Tensor, num_points: int) -> torch.Tensor:
+    """``scatter_add_rows_kernel`` through ``mpa::scatter_add``: grads
+    ``[B,E,W]`` f32 or bf16, idx ``[B,E]`` int32 -> ``[B,num_points,W]`` of
+    grads' type (out-of-range targets dropped; bf16: float32 sums, each
+    rounded once)."""
+    library.check_device("scatter_add_rows_kernel", grads, idx)
+    return scatter_add_op(grads, idx, num_points)
 
 
 def partial_sums(out: torch.Tensor, claims: int):
@@ -280,7 +332,11 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if on_cuda(points, "points"):
         flat = idx.reshape(B, -1).to(torch.int32).contiguous()
         rows = points if points.dtype == torch.bfloat16 else points.float()
-        out = _GatherRows.apply(rows.contiguous(), flat)
+        rows = rows.contiguous()
+        if library.needs_grad(rows):
+            out = _GatherRows.apply(rows, flat)
+        else:
+            out = gather_cuda(rows, flat)
         return out.reshape(tuple(idx.shape) + (C,)).to(points.dtype)
     if points.dtype == torch.bfloat16:
         out = _GatherPlainBf16.apply(points, idx.reshape(B, -1))

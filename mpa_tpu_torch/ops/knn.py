@@ -4,6 +4,9 @@ Counterpart of ``mpa_tpu/ops/knn.py::knn``: exact squared distances in
 float32, the k smallest per query in ascending order, ties to the lowest
 index (``lax.top_k``'s order). On a CUDA tensor it launches ``knn_kernel``
 (``kernels/csrc/knn.cu``); on a CPU tensor it takes :func:`knn_plain`.
+The kernel's entry is the custom op ``mpa::knn`` (``ops/library.py``),
+which :func:`knn_cuda` calls; :func:`knn` calls it directly where no
+gradient is needed, and through ``_KnnCuda`` where one is.
 
 The distances are differentiable on both paths, as in ``mpa_tpu``. On CUDA
 the kernel's values are kept, and the backward is that of
@@ -29,6 +32,7 @@ from torch.autograd.function import once_differentiable
 
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
+from mpa_tpu_torch.ops import library
 from mpa_tpu_torch.ops.gather import gather_cuda, scatter_add_cuda
 from mpa_tpu_torch.ops.pairwise import square_distance
 from mpa_tpu_torch.utils.device import on_cuda
@@ -56,22 +60,26 @@ def _check(k: int, base: torch.Tensor, query: torch.Tensor) -> None:
         raise ValueError(f"knn: k={k} must be in [1, N={base.shape[1]}]")
 
 
-def knn_cuda(
-    k: int, base: torch.Tensor, query: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``knn_kernel`` on CUDA tensors."""
+def _check_kernel(k: int, base: torch.Tensor, query: torch.Tensor) -> None:
+    """``knn_kernel``'s limits and arguments, read from shapes and types."""
     _check(k, base, query)
-    B, N, C = base.shape
-    S = query.shape[1]
+    C = base.shape[2]
     if k > MAX_K or C > MAX_C:
         raise ValueError(f"knn_kernel supports k <= {MAX_K} and C <= {MAX_C}, got k={k}, C={C}")
     for name, t in (("base", base), ("query", query)):
-        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+        if not library.kernel_device(t) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"knn_kernel: {name} must be a contiguous float32 CUDA tensor")
-        if t.data_ptr() % 16:  # the kernel reads rows as float4s
-            raise ValueError(f"knn_kernel: {name} must start on a 16-byte boundary")
     if base.device != query.device:
         raise ValueError("knn_kernel: base and query on different devices")
+
+
+def _knn_impl(k: int, base: torch.Tensor, query: torch.Tensor):
+    """``mpa::knn`` on the card: launch ``knn_kernel``; a view off a 16-byte
+    boundary is copied first (the kernel reads rows as float4s)."""
+    _check_kernel(k, base, query)
+    base, query = aligned(base), aligned(query)
+    B, N, C = base.shape
+    S = query.shape[1]
     dist = torch.empty((B, S, k), dtype=torch.float32, device=base.device)
     idx = torch.empty((B, S, k), dtype=torch.int32, device=base.device)
     norms = torch.empty((B, N), dtype=torch.float32, device=base.device)  # scratch: |b|^2
@@ -85,6 +93,24 @@ def knn_cuda(
         )
     kernels.launched("knn_kernel", {"k": k, "base": base, "query": query})
     return dist, idx
+
+
+def _knn_fake(k: int, base: torch.Tensor, query: torch.Tensor):
+    _check_kernel(k, base, query)
+    shape = (base.shape[0], query.shape[1], k)
+    return base.new_empty(shape), base.new_empty(shape, dtype=torch.int32)
+
+
+knn_op = library.define("knn(int k, Tensor base, Tensor query) -> (Tensor, Tensor)",
+                        _knn_impl, _knn_fake)
+
+
+def knn_cuda(
+    k: int, base: torch.Tensor, query: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``knn_kernel`` on contiguous float32 CUDA tensors, through ``mpa::knn``."""
+    library.check_device("knn_kernel", base, query)
+    return knn_op(k, base, query)
 
 
 def knn_distance_grads(base, query, idx, g_dist, need_base: bool, need_query: bool):
@@ -107,9 +133,8 @@ def knn_distance_grads(base, query, idx, g_dist, need_base: bool, need_query: bo
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as a contiguous float32 tensor starting on a 16-byte boundary,
-    copied only where it is not one already."""
-    t = t.float().contiguous()
+    """``t`` itself where it starts on a 16-byte boundary, else a copy that
+    does (inside an op's implementation: it reads ``data_ptr()``)."""
     return t.clone() if t.data_ptr() % 16 else t
 
 
@@ -147,6 +172,9 @@ def knn(
       ``(sqr_dists [B, S, k] float32, idx [B, S, k] int32)``, ascending.
     """
     if on_cuda(base, "base"):
-        return _KnnCuda.apply(k, aligned(base), aligned(query))
+        base, query = base.float().contiguous(), query.float().contiguous()
+        if library.needs_grad(base, query):
+            return _KnnCuda.apply(k, base, query)
+        return knn_cuda(k, base, query)
     _check(k, base, query)
     return knn_plain(k, base, query)

@@ -22,10 +22,16 @@ once (``mpa_tpu/ops/scatter.py:46-51``). The backward is ``mpa_tpu``'s:
 the bf16 gradient divided by the float32 count is float32 (JAX's type
 promotion in ``scatter_pallas.py::_bwd``), so its gather and its sum over K
 run in float32, and the result is rounded to bf16 once.
+
+The kernel's entry is the custom op ``mpa::scatter_mean``
+(``ops/library.py``), which :func:`scatter_mean_cuda` calls;
+:func:`scatter_mean_upsample` calls it directly where no gradient is
+needed.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -33,6 +39,7 @@ from torch.autograd.function import once_differentiable
 
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
+from mpa_tpu_torch.ops import library
 from mpa_tpu_torch.ops.gather import (
     KERNEL_DTYPES, MAX_B, gather_cuda, index_form, partial_sums, stored,
 )
@@ -85,24 +92,42 @@ def scatter_mean_form(features: torch.Tensor, num_fine: int) -> Tuple[int, int]:
     return index_form(features, num_fine)
 
 
-def scatter_mean_cuda(
-    features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``scatter_mean_kernel`` in :func:`scatter_mean_form`'s form:
-    features ``[B,S,C]`` f32 or bf16, knn_idx ``[B,S,K]`` int32 -> ``(mean
-    [B,num_fine,C]`` of features' type``, count [B,num_fine]`` f32)."""
+def check_cuda_args(name: str, features: torch.Tensor, knn_idx: torch.Tensor,
+                    num_fine: int) -> None:
+    """The scatter-mean kernels' arguments: features ``[B,S,C]`` f32 or bf16,
+    knn_idx ``[B,S,K]`` int32, contiguous on one CUDA device, in the
+    kernels' limits."""
     check_args(features, knn_idx, num_fine)
-    for arg, t, dts in (("features", features, KERNEL_DTYPES), ("knn_idx", knn_idx, (torch.int32,))):
-        if t.device.type != "cuda" or t.dtype not in dts or not t.is_contiguous():
-            raise ValueError(f"scatter_mean_kernel: {arg} must be a contiguous "
+    for arg, t, dts in (("features", features, KERNEL_DTYPES),
+                        ("knn_idx", knn_idx, (torch.int32,))):
+        if not library.kernel_device(t) or t.dtype not in dts or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous "
                              f"{' or '.join(map(str, dts))} CUDA tensor")
     if features.device != knn_idx.device:
-        raise ValueError("scatter_mean_kernel: features and knn_idx on different devices")
+        raise ValueError(f"{name}: features and knn_idx on different devices")
     B, S, C = features.shape
     K = knn_idx.shape[2]
     if B > MAX_B or C < 1 or K < 1 or S * K >= 2 ** 31:
-        raise ValueError(f"scatter_mean_kernel: B <= {MAX_B}, C >= 1, K >= 1 and S*K < 2^31 "
+        raise ValueError(f"{name}: B <= {MAX_B}, C >= 1, K >= 1 and S*K < 2^31 "
                          f"expected, got B={B}, S={S}, K={K}, C={C}")
+
+
+def scatter_mean_fake(name: str, features: torch.Tensor, knn_idx: torch.Tensor,
+                      num_fine: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scatter-mean ops' fake: ``(mean [B,num_fine,C]`` of the features'
+    type, ``count [B,num_fine]`` f32)."""
+    check_cuda_args(name, features, knn_idx, num_fine)
+    B, _, C = features.shape
+    return (features.new_empty((B, num_fine, C)),
+            features.new_empty((B, num_fine), dtype=torch.float32))
+
+
+def _scatter_mean_impl(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int):
+    """``mpa::scatter_mean`` on the card: launch ``scatter_mean_kernel`` in
+    :func:`scatter_mean_form`'s form."""
+    check_cuda_args("scatter_mean_kernel", features, knn_idx, num_fine)
+    B, S, C = features.shape
+    K = knn_idx.shape[2]
     slots, vec = scatter_mean_form(features, num_fine)
     bf16 = features.dtype == torch.bfloat16
     out = torch.empty((B, num_fine, C), dtype=features.dtype, device=features.device)
@@ -120,6 +145,21 @@ def scatter_mean_cuda(
     kernels.launched("scatter_mean_kernel",
                      {"features": features, "knn_idx": knn_idx, "num_fine": num_fine}, bf16=bf16)
     return out, count
+
+
+scatter_mean_op = library.define(
+    "scatter_mean(Tensor features, Tensor knn_idx, SymInt num_fine) -> (Tensor, Tensor)",
+    _scatter_mean_impl, functools.partial(scatter_mean_fake, "scatter_mean_kernel"))
+
+
+def scatter_mean_cuda(
+    features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``scatter_mean_kernel`` through ``mpa::scatter_mean``: features
+    ``[B,S,C]`` f32 or bf16, knn_idx ``[B,S,K]`` int32 -> ``(mean
+    [B,num_fine,C]`` of features' type``, count [B,num_fine]`` f32)."""
+    library.check_device("scatter_mean_kernel", features, knn_idx)
+    return scatter_mean_op(features, knn_idx, num_fine)
 
 
 def scatter_mean_bwd_cuda(
@@ -171,8 +211,9 @@ def scatter_mean_upsample(
     """
     check_args(features, knn_idx, num_fine)
     if on_cuda(features, "features"):
-        rows = features if features.dtype == torch.bfloat16 else features.float()
-        out = _ScatterMean.apply(rows.contiguous(), knn_idx.to(torch.int32).contiguous(),
-                                 num_fine)
-        return out.to(features.dtype)
+        rows = (features if features.dtype == torch.bfloat16 else features.float()).contiguous()
+        idx = knn_idx.to(torch.int32).contiguous()
+        if library.needs_grad(rows):
+            return _ScatterMean.apply(rows, idx, num_fine).to(features.dtype)
+        return scatter_mean_cuda(rows, idx, num_fine)[0].to(features.dtype)
     return scatter_mean_plain(features, knn_idx, num_fine)[0].to(features.dtype)

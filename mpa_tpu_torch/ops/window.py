@@ -38,6 +38,13 @@ memory; the scatter-mean kernel sees such a claim only where its row lies
 among the rows that can claim the block's slots (:func:`block_claim_rows`).
 :func:`check_in_window` checks an index with torch ops (``chip_smoke.py``
 checks every recorded one).
+
+The kernels' entries are the custom ops ``mpa::windowed_knn``,
+``mpa::windowed_attention``, ``mpa::windowed_attention_bwd`` and
+``mpa::windowed_scatter_mean`` (``ops/library.py``), the spec passed as its
+ints ``(sq, bn, n_chunks)``; the ``*_cuda`` functions call them, and the
+model-facing functions call the forwards directly where no gradient is
+needed.
 """
 
 from __future__ import annotations
@@ -51,7 +58,10 @@ from torch.autograd.function import once_differentiable
 
 from mpa_tpu_torch import kernels
 from mpa_tpu_torch.kernels import build
-from mpa_tpu_torch.ops.attention import attention_fwd_form, transition_attention
+from mpa_tpu_torch.ops import library
+from mpa_tpu_torch.ops.attention import (
+    attention_bwd_fake, attention_fake, attention_fwd_form, transition_attention,
+)
 from mpa_tpu_torch.ops.attention import check_args as check_attention
 from mpa_tpu_torch.ops.attention import check_cuda_args as check_attention_cuda
 from mpa_tpu_torch.ops.gather import (
@@ -59,8 +69,9 @@ from mpa_tpu_torch.ops.gather import (
 )
 from mpa_tpu_torch.ops.knn import MAX_C, aligned, knn_distance_grads
 from mpa_tpu_torch.ops.pairwise import dot_in_channel_order
-from mpa_tpu_torch.ops.scatter import MAX_B, scatter_mean_bwd_cuda, scatter_mean_plain
+from mpa_tpu_torch.ops.scatter import scatter_mean_bwd_cuda, scatter_mean_fake, scatter_mean_plain
 from mpa_tpu_torch.ops.scatter import check_args as check_scatter
+from mpa_tpu_torch.ops.scatter import check_cuda_args as check_scatter_cuda
 from mpa_tpu_torch.utils.device import on_cuda
 
 # windowed_knn_kernel's limits: each thread's list of k in registers (32
@@ -163,6 +174,15 @@ def _spec_args(spec: WindowSpec):
     return spec.sq, spec.bn, spec.n_chunks
 
 
+def _spec_from(S: int, N: int, sq: int, bn: int, n_chunks: int, what: str) -> WindowSpec:
+    """The spec an op's ints ``(sq, bn, n_chunks)`` give for S queries over N
+    nodes; raises ValueError unless they tile both."""
+    if n_chunks < 2 or sq * n_chunks != S or bn * n_chunks != N:
+        raise ValueError(f"{what}: sq={sq}, bn={bn}, n_chunks={n_chunks} do not tile "
+                         f"(S, N) = ({S}, {N})")
+    return WindowSpec(S=S, N=N, sq=sq, bn=bn, n_chunks=n_chunks)
+
+
 # -- the windowed kNN ------------------------------------------------------------
 
 
@@ -234,25 +254,30 @@ def windowed_knn_form(B: int, C: int, spec: WindowSpec) -> Tuple[bool, int]:
     return False, 4 if wide else 1
 
 
-def windowed_knn_cuda(
-    k: int, base: torch.Tensor, query: torch.Tensor, spec: WindowSpec
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``windowed_knn_kernel`` on CUDA tensors, in
-    :func:`windowed_knn_form`'s form."""
+def _check_knn_kernel(k: int, base: torch.Tensor, query: torch.Tensor, spec: WindowSpec) -> None:
     _check_knn(k, base, query, spec)
-    B, N, C = base.shape
-    S = query.shape[1]
+    C = base.shape[2]
     if k > MAX_KNN_K or C > MAX_KNN_C:
         raise ValueError(f"windowed_knn_kernel supports k <= {MAX_KNN_K} and C <= {MAX_KNN_C}, "
                          f"got k={k}, C={C}")
     for name, t in (("base", base), ("query", query)):
-        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+        if not library.kernel_device(t) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
                 f"windowed_knn_kernel: {name} must be a contiguous float32 CUDA tensor")
-        if t.data_ptr() % 16:  # the streaming form reads rows as float4s
-            raise ValueError(f"windowed_knn_kernel: {name} must start on a 16-byte boundary")
     if base.device != query.device:
         raise ValueError("windowed_knn_kernel: base and query on different devices")
+
+
+def _windowed_knn_impl(k: int, base: torch.Tensor, query: torch.Tensor, sq: int, bn: int,
+                       n_chunks: int):
+    """``mpa::windowed_knn`` on the card: launch ``windowed_knn_kernel`` in
+    :func:`windowed_knn_form`'s form; a view off a 16-byte boundary is
+    copied first (the streaming form reads rows as float4s)."""
+    spec = _spec_from(query.shape[1], base.shape[1], sq, bn, n_chunks, "windowed_knn_kernel")
+    _check_knn_kernel(k, base, query, spec)
+    base, query = aligned(base), aligned(query)
+    B, N, C = base.shape
+    S = query.shape[1]
     resident, par = windowed_knn_form(B, C, spec)
     dist = torch.empty((B, S, k), dtype=torch.float32, device=base.device)
     idx = torch.empty((B, S, k), dtype=torch.int32, device=base.device)
@@ -267,6 +292,28 @@ def windowed_knn_cuda(
         )
     kernels.launched("windowed_knn_kernel", {"k": k, "base": base, "query": query, "spec": spec})
     return dist, idx
+
+
+def _windowed_knn_fake(k: int, base: torch.Tensor, query: torch.Tensor, sq: int, bn: int,
+                       n_chunks: int):
+    spec = _spec_from(query.shape[1], base.shape[1], sq, bn, n_chunks, "windowed_knn_kernel")
+    _check_knn_kernel(k, base, query, spec)
+    shape = (base.shape[0], query.shape[1], k)
+    return base.new_empty(shape), base.new_empty(shape, dtype=torch.int32)
+
+
+windowed_knn_op = library.define(
+    "windowed_knn(int k, Tensor base, Tensor query, SymInt sq, SymInt bn, SymInt n_chunks) "
+    "-> (Tensor, Tensor)", _windowed_knn_impl, _windowed_knn_fake)
+
+
+def windowed_knn_cuda(
+    k: int, base: torch.Tensor, query: torch.Tensor, spec: WindowSpec
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``windowed_knn_kernel`` on contiguous float32 CUDA tensors, through
+    ``mpa::windowed_knn``."""
+    library.check_device("windowed_knn_kernel", base, query)
+    return windowed_knn_op(k, base, query, *_spec_args(spec))
 
 
 class _WindowedKnnCuda(torch.autograd.Function):
@@ -310,7 +357,11 @@ def windowed_knn_with_spec(
     """
     spec = make_window_spec(query.shape[1], base.shape[1], sq=sq)
     if on_cuda(base, "base"):
-        dist, idx = _WindowedKnnCuda.apply(k, aligned(base), aligned(query), spec)
+        base, query = base.float().contiguous(), query.float().contiguous()
+        if library.needs_grad(base, query):
+            dist, idx = _WindowedKnnCuda.apply(k, base, query, spec)
+        else:
+            dist, idx = windowed_knn_cuda(k, base, query, spec)
         return dist, idx, spec
     _check_knn(k, base, query, spec)
     dist, idx = windowed_knn_plain(k, base, query, spec)
@@ -320,18 +371,15 @@ def windowed_knn_with_spec(
 # -- the windowed transition attention --------------------------------------------------
 
 
-def _check_window_attention(name, packed, idx, shifts, n_branches, c, spec, gctx=None) -> None:
-    check_attention_cuda(name, packed, idx, shifts, n_branches, c, gctx, dtypes=KERNEL_DTYPES)
-    _spec_for(spec, idx.shape[1], packed.shape[1], name)
-
-
-def windowed_attention_cuda(packed, idx, shifts, n_branches: int, c: int,
-                            spec: WindowSpec) -> torch.Tensor:
-    """Launch ``windowed_attention_fwd_kernel`` (float32, or bf16 ``packed``
-    and ``shifts`` for a bf16 context), with ``attention_fwd_form``'s
-    channels a thread; the function of ``attention_plain``."""
+def _windowed_attention_impl(packed, idx, shifts, n_branches: int, c: int, sq: int, bn: int,
+                             n_chunks: int) -> torch.Tensor:
+    """``mpa::windowed_attention`` on the card: launch
+    ``windowed_attention_fwd_kernel`` (float32, or bf16 ``packed`` and
+    ``shifts`` for a bf16 context), with ``attention_fwd_form``'s channels a
+    thread; the function of ``attention_plain``."""
     name = "windowed_attention_fwd_kernel"
-    _check_window_attention(name, packed, idx, shifts, n_branches, c, spec)
+    spec = _spec_from(idx.shape[1], packed.shape[1], sq, bn, n_chunks, name)
+    check_attention_cuda(name, packed, idx, shifts, n_branches, c, None, dtypes=KERNEL_DTYPES)
     B, N, _ = packed.shape
     S, K = idx.shape[1], idx.shape[2]
     vec = attention_fwd_form(packed, shifts, K, c)
@@ -352,14 +400,37 @@ def windowed_attention_cuda(packed, idx, shifts, n_branches: int, c: int,
     return out
 
 
-def windowed_attention_bwd_cuda(packed, idx, shifts, gctx, n_branches: int, c: int,
-                                spec: WindowSpec) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch ``windowed_attention_bwd_kernel``; returns ``(dpacked, dshift or
-    None)``, the function of ``attention_bwd_plain``. For bf16 ``packed``,
-    ``shifts`` and ``gctx`` the kernel adds into a float32 ``dpacked`` and
-    rounds it into the bf16 one it returns."""
+def _windowed_attention_fake(packed, idx, shifts, n_branches: int, c: int, sq: int, bn: int,
+                             n_chunks: int) -> torch.Tensor:
+    name = "windowed_attention_fwd_kernel"
+    _spec_from(idx.shape[1], packed.shape[1], sq, bn, n_chunks, name)
+    return attention_fake(name, packed, idx, shifts, n_branches, c)
+
+
+windowed_attention_op = library.define(
+    "windowed_attention(Tensor packed, Tensor idx, Tensor? shifts, int n_branches, int c, "
+    "SymInt sq, SymInt bn, SymInt n_chunks) -> Tensor",
+    _windowed_attention_impl, _windowed_attention_fake)
+
+
+def windowed_attention_cuda(packed, idx, shifts, n_branches: int, c: int,
+                            spec: WindowSpec) -> torch.Tensor:
+    """``windowed_attention_fwd_kernel`` through ``mpa::windowed_attention``;
+    the function of ``attention_plain``."""
+    library.check_device("windowed_attention_fwd_kernel", packed, idx, shifts)
+    return windowed_attention_op(packed, idx, shifts, n_branches, c, *_spec_args(spec))
+
+
+def _windowed_attention_bwd_impl(packed, idx, shifts, gctx, n_branches: int, c: int, sq: int,
+                                 bn: int, n_chunks: int):
+    """``mpa::windowed_attention_bwd`` on the card: launch
+    ``windowed_attention_bwd_kernel``; returns ``(dpacked, dshift or None)``,
+    the function of ``attention_bwd_plain``. For bf16 ``packed``, ``shifts``
+    and ``gctx`` the kernel adds into a float32 ``dpacked`` and rounds it
+    into the bf16 one it returns."""
     name = "windowed_attention_bwd_kernel"
-    _check_window_attention(name, packed, idx, shifts, n_branches, c, spec, gctx)
+    spec = _spec_from(idx.shape[1], packed.shape[1], sq, bn, n_chunks, name)
+    check_attention_cuda(name, packed, idx, shifts, n_branches, c, gctx, dtypes=KERNEL_DTYPES)
     B, N, W = packed.shape
     S, K = idx.shape[1], idx.shape[2]
     bf16 = packed.dtype == torch.bfloat16
@@ -381,6 +452,28 @@ def windowed_attention_bwd_cuda(packed, idx, shifts, gctx, n_branches: int, c: i
     kernels.launched(name, {"packed": packed, "idx": idx, "shifts": shifts, "gctx": gctx,
                             "n_branches": n_branches, "c": c, "spec": spec}, bf16=bf16)
     return dpacked, dshift
+
+
+def _windowed_attention_bwd_fake(packed, idx, shifts, gctx, n_branches: int, c: int, sq: int,
+                                 bn: int, n_chunks: int):
+    name = "windowed_attention_bwd_kernel"
+    _spec_from(idx.shape[1], packed.shape[1], sq, bn, n_chunks, name)
+    return attention_bwd_fake(name, packed, idx, shifts, gctx, n_branches, c)
+
+
+windowed_attention_bwd_op = library.define(
+    "windowed_attention_bwd(Tensor packed, Tensor idx, Tensor? shifts, Tensor gctx, "
+    "int n_branches, int c, SymInt sq, SymInt bn, SymInt n_chunks) -> (Tensor, Tensor?)",
+    _windowed_attention_bwd_impl, _windowed_attention_bwd_fake)
+
+
+def windowed_attention_bwd_cuda(packed, idx, shifts, gctx, n_branches: int, c: int,
+                                spec: WindowSpec) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``windowed_attention_bwd_kernel`` through
+    ``mpa::windowed_attention_bwd``; returns ``(dpacked, dshift or None)``,
+    the function of ``attention_bwd_plain``."""
+    library.check_device("windowed_attention_bwd_kernel", packed, idx, shifts, gctx)
+    return windowed_attention_bwd_op(packed, idx, shifts, gctx, n_branches, c, *_spec_args(spec))
 
 
 class _WindowedAttention(torch.autograd.Function):
@@ -420,10 +513,11 @@ def windowed_transition_attention(
         raise ValueError(f"windowed attention: bf16 packed needs bf16 shifts, got {shifts.dtype}")
     if on_cuda(packed, "packed"):
         store = torch.bfloat16 if bf16 else torch.float32
-        out = _WindowedAttention.apply(
-            packed.to(store).contiguous(), idx.to(torch.int32).contiguous(),
-            None if shifts is None else shifts.to(store).contiguous(), n_branches, c, spec)
-        return out.to(packed.dtype)
+        args = (packed.to(store).contiguous(), idx.to(torch.int32).contiguous(),
+                None if shifts is None else shifts.to(store).contiguous(), n_branches, c, spec)
+        if library.needs_grad(args[0], args[2]):
+            return _WindowedAttention.apply(*args).to(packed.dtype)
+        return windowed_attention_cuda(*args).to(packed.dtype)
     check_attention(packed, idx, shifts, n_branches, c)
     _spec_for(spec, idx.shape[1], packed.shape[1], "windowed attention")
     return transition_attention(packed, idx, shifts, n_branches, c)
@@ -441,26 +535,18 @@ def windowed_scatter_mean_form(features: torch.Tensor, num_fine: int) -> Tuple[i
     return index_form(features, num_fine, min_slots=MIN_ROW_SLOTS)
 
 
-def windowed_scatter_mean_cuda(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int,
-                               spec: WindowSpec) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``windowed_scatter_mean_kernel`` in
-    :func:`windowed_scatter_mean_form`'s form: features ``[B,S,C]`` f32 or
-    bf16 -> ``(mean [B,N,C]`` of the features' type``, count [B,N]`` f32),
-    the function of ``scatter_mean_plain`` for an in-window index."""
+def _windowed_scatter_mean_impl(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int,
+                                sq: int, bn: int, n_chunks: int):
+    """``mpa::windowed_scatter_mean`` on the card: launch
+    ``windowed_scatter_mean_kernel`` in :func:`windowed_scatter_mean_form`'s
+    form: features ``[B,S,C]`` f32 or bf16 -> ``(mean [B,N,C]`` of the
+    features' type``, count [B,N]`` f32), the function of
+    ``scatter_mean_plain`` for an in-window index."""
     name = "windowed_scatter_mean_kernel"
-    check_scatter(features, knn_idx, num_fine)
-    _spec_for(spec, features.shape[1], num_fine, name)
-    for arg, t, dts in (("features", features, KERNEL_DTYPES), ("knn_idx", knn_idx, (torch.int32,))):
-        if t.device.type != "cuda" or t.dtype not in dts or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be a contiguous "
-                             f"{' or '.join(map(str, dts))} CUDA tensor")
-    if features.device != knn_idx.device:
-        raise ValueError(f"{name}: features and knn_idx on different devices")
+    spec = _spec_from(features.shape[1], num_fine, sq, bn, n_chunks, name)
+    check_scatter_cuda(name, features, knn_idx, num_fine)
     B, S, C = features.shape
     K = knn_idx.shape[2]
-    if B > MAX_B or C < 1 or K < 1 or S * K >= 2 ** 31:
-        raise ValueError(f"{name}: B <= {MAX_B}, C >= 1, K >= 1 and S*K < 2^31 expected, "
-                         f"got B={B}, S={S}, K={K}, C={C}")
     slots, vec = windowed_scatter_mean_form(features, num_fine)
     bf16 = features.dtype == torch.bfloat16
     out = torch.empty((B, num_fine, C), dtype=features.dtype, device=features.device)
@@ -479,6 +565,29 @@ def windowed_scatter_mean_cuda(features: torch.Tensor, knn_idx: torch.Tensor, nu
     kernels.launched(name, {"features": features, "knn_idx": knn_idx, "num_fine": num_fine,
                             "spec": spec}, bf16=bf16)
     return out, count
+
+
+def _windowed_scatter_mean_fake(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int,
+                                sq: int, bn: int, n_chunks: int):
+    name = "windowed_scatter_mean_kernel"
+    _spec_from(features.shape[1], num_fine, sq, bn, n_chunks, name)
+    return scatter_mean_fake(name, features, knn_idx, num_fine)
+
+
+windowed_scatter_mean_op = library.define(
+    "windowed_scatter_mean(Tensor features, Tensor knn_idx, SymInt num_fine, SymInt sq, "
+    "SymInt bn, SymInt n_chunks) -> (Tensor, Tensor)",
+    _windowed_scatter_mean_impl, _windowed_scatter_mean_fake)
+
+
+def windowed_scatter_mean_cuda(features: torch.Tensor, knn_idx: torch.Tensor, num_fine: int,
+                               spec: WindowSpec) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``windowed_scatter_mean_kernel`` through ``mpa::windowed_scatter_mean``:
+    features ``[B,S,C]`` f32 or bf16 -> ``(mean [B,N,C]`` of the features'
+    type``, count [B,N]`` f32), the function of ``scatter_mean_plain`` for an
+    in-window index."""
+    library.check_device("windowed_scatter_mean_kernel", features, knn_idx)
+    return windowed_scatter_mean_op(features, knn_idx, num_fine, *_spec_args(spec))
 
 
 class _WindowedScatterMean(torch.autograd.Function):
@@ -509,9 +618,10 @@ def windowed_scatter_mean(features: torch.Tensor, knn_idx: torch.Tensor, num_fin
     bf16 mean, the float32 one rounded once)."""
     check_scatter(features, knn_idx, num_fine)
     if on_cuda(features, "features"):
-        rows = features if features.dtype == torch.bfloat16 else features.float()
-        out = _WindowedScatterMean.apply(rows.contiguous(), knn_idx.to(torch.int32).contiguous(),
-                                         num_fine, spec)
-        return out.to(features.dtype)
+        rows = (features if features.dtype == torch.bfloat16 else features.float()).contiguous()
+        idx = knn_idx.to(torch.int32).contiguous()
+        if library.needs_grad(rows):
+            return _WindowedScatterMean.apply(rows, idx, num_fine, spec).to(features.dtype)
+        return windowed_scatter_mean_cuda(rows, idx, num_fine, spec)[0].to(features.dtype)
     _spec_for(spec, features.shape[1], num_fine, "windowed scatter-mean")
     return scatter_mean_plain(features, knn_idx, num_fine)[0].to(features.dtype)

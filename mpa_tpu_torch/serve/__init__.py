@@ -12,7 +12,10 @@ a semantic-segmentation preset: ``blocks [B, N, 9] -> per-point log-probs
 ``points [B, N, 3] -> rotations [B, 3, 3]``, and ``load_completer`` for
 ``completion``: ``partial [B, N, 3] -> (coarse [B, 256, 3], fine [B, N +
 1024, 3])``. ``mpa_tpu`` serves every model through ``serve/export.py``;
-these are its counterparts.
+these are its eager counterparts, and ``export_inference``,
+``save_exported``, ``load_exported`` and ``load_inference``
+(``serve/export.py``) its exported ones. The model code is imported when a
+loader builds a model, so that loading an exported artifact imports none.
 """
 
 from __future__ import annotations
@@ -23,10 +26,10 @@ import numpy as np
 import torch
 
 from mpa_tpu_torch.configs import PRESETS, model_kwargs
-from mpa_tpu_torch.models import get_model
-from mpa_tpu_torch.utils.convert import from_jax_variables
+from mpa_tpu_torch.serve.export import (
+    export_inference, load_exported, load_inference, save_exported,
+)
 from mpa_tpu_torch.utils.device import DeviceLike, resolve_device
-from mpa_tpu_torch.utils.init import init_like_flax
 
 
 def _as_tensor(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -92,8 +95,19 @@ class SemanticSegmenter:
             return self.model(x)
 
 
+__all__ = [
+    "Classifier", "Segmenter", "SemanticSegmenter", "load_classifier", "load_segmenter",
+    "load_semantic_segmenter", "load_pose_regressor", "load_completer", "export_inference",
+    "save_exported", "load_exported", "load_inference",
+]
+
+
 def _load(preset: str, task: str, variables: Optional[Mapping], device: DeviceLike, seed: int,
           compute_dtype: Optional[torch.dtype] = None, **overrides):
+    from mpa_tpu_torch.models import get_model
+    from mpa_tpu_torch.utils.convert import from_jax_variables
+    from mpa_tpu_torch.utils.init import init_like_flax
+
     if preset not in PRESETS:
         raise KeyError(f"unknown preset {preset!r}; available: {sorted(PRESETS)}")
     cfg = PRESETS[preset].with_overrides(**overrides)

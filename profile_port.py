@@ -5,6 +5,7 @@
     python3 profile_port.py [--model MODEL] --train [--batch B] [--requests 5]
     python3 profile_port.py --model cls|partseg --bf16 [--train]
     python3 profile_port.py --model partseg --neighbor_mode window|window_all [--bf16] [--train]
+    python3 profile_port.py [--model MODEL] [--bf16] --exported
 
 Loads the model's preset of the PyTorch port on ``cuda`` (``scanobjectnn_cls``
 at 1024 points, batch 64; ``shapenetpart`` at 2048 points, batch 32;
@@ -24,8 +25,20 @@ peak of allocated device memory. With
 train-mode BatchNorm) on the training CLI's synthetic clouds instead of a
 request. ``--bf16`` builds ``markov_cls`` or ``markov_partseg`` with
 ``compute_dtype=torch.bfloat16``; ``--neighbor_mode`` builds
-``markov_partseg`` in that Morton-window mode. Needs a CUDA card; exits
-non-zero without one.
+``markov_partseg`` in that Morton-window mode. ``--exported`` answers the
+requests through the model's exported program (``serve.export_inference``
+on the first request, saved and loaded back with ``load_inference``)
+instead of the eager loader, so that the host share of the two can be
+compared. Every traced request's clouds are made, and the request answered
+once, before the trace. Needs a CUDA card; exits non-zero without one.
+
+    python3 profile_port.py --medians [--against DIR ...]
+
+The eager request and train step times of cls and part-seg (their
+presets' batches; 60 requests cycling through four made before the clock
+starts, 30 steps after two warm-ups), each root in its own process in
+turns (others, this, this, others), with medians per root and pooled over
+a root's runs; written to ``chiprun_out/medians.json`` (``--out``).
 
     python3 profile_port.py --kernels [--bf16] [--names a,b] [--inputs PATH] [--against DIR ...]
 
@@ -58,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -78,6 +92,8 @@ PORT_KERNELS = ("windowed_knn_kernel", "windowed_attention_fwd_kernel",
 PRESETS = {"cls": "scanobjectnn_cls", "partseg": "shapenetpart", "semseg": "s3dis_semseg",
            "repsurf": "scanobjectnn_2x", "partseg_fp": "shapenetpart_fp",
            "pose": "pose_modelnet40", "completion": "completion"}
+# --medians: the requests and train steps a root's process times of each model.
+MEDIAN_REQUESTS, MEDIAN_STEPS = 60, 30
 # Preset fields each model is profiled with, beyond the preset's own.
 OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="window_all")}
 
@@ -105,12 +121,36 @@ def kind(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def make_requests(model: str, batch: int, points: int, dtype_kw: dict):
+def exported_program(serve, make):
+    """``serve``'s model exported on the card (``serve.export_inference``,
+    on the first request), saved and loaded back with ``load_inference``:
+    ``(infer, make)``, the loaded program and requests as it takes them
+    (the category one-hot of part-seg made with the request)."""
+    import tempfile
+
+    from mpa_tpu_torch.serve import export_inference, load_inference, save_exported
+
+    def inputs(i):
+        args = make(i)
+        if len(args) == 1:
+            return (args[0],)
+        onehot = torch.nn.functional.one_hot(args[1].long(), serve.model.num_categories)
+        return ((args[0], onehot.float()),)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "program.pt2")
+        save_exported(export_inference(serve.model, inputs(0)[0]), path)
+        return load_inference(path), inputs
+
+
+def make_requests(model: str, batch: int, points: int, dtype_kw: dict, exported: bool = False):
     """``run(i)`` answers the i-th request of ``batch`` clouds: random ones
     for the classifier, ``surface_clouds`` for repsurf (its balls hold
     neighbours on the surface), ``realistic_partseg`` ones with their categories for the
     segmenters, ``synthetic_semseg`` blocks for semseg, the training CLI's
-    eval clouds for pose and completion (one batch, answered again)."""
+    eval clouds for pose and completion (one batch, answered again). With
+    ``exported``, through the model's exported program
+    (:func:`exported_program`) instead of the eager loader."""
     from mpa_tpu_torch.cli import train as cli_train
     from mpa_tpu_torch.data import realistic_partseg, surface_clouds, synthetic_semseg
     from mpa_tpu_torch.serve import (
@@ -151,6 +191,9 @@ def make_requests(model: str, batch: int, points: int, dtype_kw: dict):
         def make(i):
             return (torch.from_numpy(
                 rng.standard_normal((batch, points, 3)).astype(np.float32)).cuda(),)
+
+    if exported:
+        serve, make = exported_program(serve, make)
 
     def run(i: int):
         if i not in reqs:
@@ -377,7 +420,7 @@ def kernels_main(args) -> int:
     print("sums per path (ms):")
     for key, cols in sums.items():
         print(f"  {key:48s} " + " ".join(f"{c}={v:.4f}" for c, v in cols.items()))
-    out = REPO / "chiprun_out" / args.out
+    out = REPO / "chiprun_out" / (args.out or "kernel_times.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"card": card, "roots": [label for label, _ in results],
                                "launches": [{"path": p, "name": n, "shapes": s,
@@ -385,6 +428,72 @@ def kernels_main(args) -> int:
                                             for i, (p, n, s) in enumerate(meta)],
                                "sums": sums}, indent=1))
     print(json.dumps({"card": card, "sums": sums}))
+    return 0
+
+
+def medians_saved() -> dict:
+    """The eager request and train step times of cls and part-seg with the
+    ``mpa_tpu_torch`` first on ``sys.path``, in ms: ``MEDIAN_REQUESTS``
+    requests cycling through four made before the clock starts (each
+    answered once first, with two more as warm-ups), and ``MEDIAN_STEPS``
+    steps after two warm-ups (each step's batch made in it, as
+    ``cli.train`` makes it)."""
+    out = {}
+    for model in ("cls", "partseg"):
+        cfg = load_cfg(model)
+        for unit, n in (("request", MEDIAN_REQUESTS), ("step", MEDIAN_STEPS)):
+            if unit == "step":
+                run, warm, pick = make_train_steps(model, cfg.batch_size, {}), 2, lambda i: 2 + i
+            else:
+                run = make_requests(model, cfg.batch_size, cfg.num_points, {})
+                warm, pick = 6, lambda i: 2 + i % 4
+            for i in range(warm):
+                run(i)
+            torch.cuda.synchronize()
+            ms = []
+            for i in range(n):
+                t0 = time.perf_counter()
+                res = run(pick(i))
+                if unit == "step":
+                    float(res)  # waits for the step
+                else:
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[f"{model} {unit}"] = ms
+            del run
+            torch.cuda.empty_cache()
+    return out
+
+
+def medians_main(args) -> int:
+    """``--medians``: this tree's and each ``--against`` root's eager
+    request and step times, each root in its own process, in turns."""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    others = [Path(d).resolve() for d in args.against or []]
+    roots = ([(d.name, d) for d in others] + [("this", REPO), ("this", REPO)]
+             + [(d.name, d) for d in reversed(others)])
+    runs = []
+    for label, root in roots:
+        got = run_root(["--medians-saved"], root)
+        if got is None:
+            return 1
+        runs.append((label, got))
+        print(f"{label} ({root}): " + ", ".join(
+            f"{k} median {statistics.median(v):.3f} ms" for k, v in got.items()), flush=True)
+    pooled = {}
+    for label, got in runs:
+        for k, v in got.items():
+            pooled.setdefault(label, {}).setdefault(k, []).extend(v)
+    summary = {label: {k: statistics.median(v) for k, v in d.items()}
+               for label, d in pooled.items()}
+    for label, d in summary.items():
+        print(f"pooled {label}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in d.items()))
+    out = REPO / "chiprun_out" / (args.out or "medians.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"card": card, "runs": runs, "medians": summary}, indent=1))
+    print(json.dumps({"card": card, "medians": summary}))
     return 0
 
 
@@ -413,8 +522,16 @@ def main() -> int:
     ap.add_argument("--names", default=None, help="with --kernels: only these kernels (a,b)")
     ap.add_argument("--inputs", default=None,
                     help="with --kernels: keep the recording here, or reuse it")
-    ap.add_argument("--out", default="kernel_times.json",
-                    help="with --kernels: the file under chiprun_out/")
+    ap.add_argument("--out", default=None,
+                    help="with --kernels or --medians: the file under chiprun_out/ (default "
+                         "kernel_times.json, medians.json)")
+    ap.add_argument("--exported", action="store_true",
+                    help="requests through the model's exported program (serve.export_inference, "
+                         "then load_inference), not the eager loader")
+    ap.add_argument("--medians", action="store_true",
+                    help="the eager request and step medians of cls and part-seg, with "
+                         "--against: against other checkouts")
+    ap.add_argument("--medians-saved", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--time-saved", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--record-saved", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--root", default=None, help=argparse.SUPPRESS)
@@ -422,9 +539,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: needs a CUDA card", file=sys.stderr)
         return 2
-    if args.time_saved or args.record_saved:
+    if args.time_saved or args.record_saved or args.medians_saved:
         sys.path[:0] = [args.root, str(REPO)]
-        if args.record_saved:
+        if args.medians_saved:
+            print(json.dumps(medians_saved()))
+        elif args.record_saved:
             record_kernel_inputs(Path(args.record_saved), args.bf16)
             print(json.dumps("recorded"))
         else:
@@ -433,6 +552,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if args.kernels:
         return kernels_main(args)
+    if args.medians:
+        return medians_main(args)
     cfg = load_cfg(args.model)
     batch, points = args.batch or cfg.batch_size, cfg.num_points
     if args.model == "completion":
@@ -444,9 +565,14 @@ def main() -> int:
             ap.error("--neighbor_mode takes --model partseg")
         OVERRIDES["partseg"] = dict(neighbor_mode=args.neighbor_mode)
     dtype_kw = {"compute_dtype": torch.bfloat16} if args.bf16 else {}
+    if args.exported and args.train:
+        ap.error("--exported profiles requests, not train steps")
     run = (make_train_steps(args.model, batch, dtype_kw) if args.train
-           else make_requests(args.model, batch, points, dtype_kw))
-    for i in range(2):
+           else make_requests(args.model, batch, points, dtype_kw, args.exported))
+    # Warm-ups; a request's clouds are made at its first call, so every traced
+    # request is answered once before the trace, and the trace holds no data
+    # generation.
+    for i in range(2 if args.train else 2 + args.requests):
         run(i)
     torch.cuda.synchronize()
 
@@ -490,7 +616,8 @@ def main() -> int:
     print(f"card: {card}")
     unit = "train step" if args.train else "request"
     mode = f" {args.neighbor_mode}" if args.neighbor_mode else ""
-    print(f"{cfg.model}{mode}{' (bf16)' if args.bf16 else ''}: batch {batch} x {points} points, "
+    print(f"{cfg.model}{mode}{' (bf16)' if args.bf16 else ''}"
+          f"{' exported' if args.exported else ''}: batch {batch} x {points} points, "
           f"{n} traced {unit}s")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"wall per {unit} (profiler on): {wall_ms:.3f} ms; peak allocated {peak_gb:.2f} GB")
@@ -503,6 +630,7 @@ def main() -> int:
     for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {v:8.3f} ms  x{count[name] / n:5.1f}  {name[:110]}")
     print(json.dumps({"model": cfg.model, "neighbor_mode": args.neighbor_mode, "bf16": args.bf16,
+                      "exported": args.exported,
                       "unit": unit, "wall_ms": wall_ms, "busy_ms": busy / 1e3 / n,
                       "by_kind_ms": dict(by_kind), "kernels_per_unit": len(kernels) / n,
                       "peak_allocated_gb": peak_gb}))

@@ -120,7 +120,13 @@ from mpa_tpu_torch.ops.window import (
     windowed_scatter_mean_cuda,
     windowed_scatter_mean_form,
 )
-from mpa_tpu_torch.serve import load_classifier, load_segmenter
+from mpa_tpu_torch.serve import (
+    export_inference, load_classifier, load_inference, load_segmenter, save_exported,
+)
+from mpa_tpu_torch.serve.export import custom_ops
+from test_torch_port_op_cases import CASES as OP_CASES
+from test_torch_port_op_cases import case as op_case
+from test_torch_port_op_cases import case_id as op_case_id
 
 
 @pytest.fixture
@@ -208,16 +214,16 @@ def test_knn_kernel_matches_plain(dev, k, N, S, C, dup, self_query, cloud, B):
 @pytest.mark.parametrize("C", [3, 64])
 def test_knn_kernel_misaligned_view(dev, C):
     # A contiguous view 4 bytes into its storage: the kernel's float4 loads
-    # need 16-byte rows, so knn_cuda refuses it and knn copies it first.
+    # need 16-byte rows, so mpa::knn's implementation copies it first (the
+    # alignment is read there, where a trace's fake tensors never reach).
     base, query = knn_cloud("normal", 2, 500, 100, C, False, False)
     flat = torch.from_numpy(np.concatenate([[0.0], base.ravel()]).astype(np.float32)).to(dev)
     view = flat[1:].view(base.shape)
+    assert view.data_ptr() % 16
     query = torch.from_numpy(query).to(dev)
-    with pytest.raises(ValueError, match="16-byte"):
-        knn_cuda(8, view, query)
-    gd, gi = knn(8, view, query)
     wd, wi = knn_plain(8, view, query)
-    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    for gd, gi in (knn_cuda(8, view, query), knn(8, view, query)):
+        assert torch.equal(gi, wi) and torch.equal(gd, wd)
 
 
 @pytest.mark.parametrize("N,npoint,C,dup", [(1024, 512, 3, False), (2048, 1024, 3, True),
@@ -1092,18 +1098,18 @@ def test_windowed_knn_kernel_forms_match_plain(dev, S, N, C, sq, k, cloud, form)
 
 
 def test_windowed_knn_kernel_misaligned_view(dev):
-    # The streaming form reads rows as float4s: windowed_knn_cuda refuses a
-    # view 4 bytes into its storage, and windowed_knn_with_spec copies it.
+    # The streaming form reads rows as float4s: mpa::windowed_knn's
+    # implementation copies a view 4 bytes into its storage first.
     base, query = knn_cloud("normal", 2, 2048, 1024, 64, False, False)
     flat = torch.from_numpy(np.concatenate([[0.0], base.ravel()]).astype(np.float32)).to(dev)
     view = flat[1:].view(base.shape)
+    assert view.data_ptr() % 16
     query = torch.from_numpy(query).to(dev)
     spec = make_window_spec(1024, 2048)
-    with pytest.raises(ValueError, match="16-byte"):
-        windowed_knn_cuda(8, view, query, spec)
-    gd, gi, _ = windowed_knn_with_spec(8, view, query)
     wd, wi = windowed_knn_plain(8, view, query, spec)
-    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    for gd, gi in (windowed_knn_cuda(8, view, query, spec),
+                   windowed_knn_with_spec(8, view, query)[:2]):
+        assert torch.equal(gi, wi) and torch.equal(gd, wd)
 
 
 def test_windowed_knn_gradient_matches_autograd_of_plain(dev):
@@ -1676,3 +1682,68 @@ def test_repsurf_train_step_on_cuda_matches_cpu_and_counts_launches(dev):
     assert units <= chip_smoke.PATHS["repsurf"]["grad_limit"], f"grad {name}: {units:.3f} units"
     name, err = parity["stat"]
     assert err < 1e-4, f"{name}: relative error {err:.3e}"
+
+
+# -- the kernel entries as custom ops, and exported programs on the card -------
+
+
+@pytest.mark.parametrize("name,dtype,shifted", OP_CASES, ids=[op_case_id(*c) for c in OP_CASES])
+def test_opcheck_custom_op(dev, name, dtype, shifted):
+    """``torch.library.opcheck`` of each ``mpa::`` op on card tensors: its
+    schema (no input mutated or aliased by an output), its autograd
+    registration, its fake against the implementation's outputs, and a
+    trace with dynamic shapes through AOTAutograd against eager. The two
+    attention backwards add with atomics, in an order that changes from run
+    to run, so the dynamic-shape check, which compares two runs' values at
+    float32's default tolerance, is left out for them (their values are held
+    to the plain version in ``test_attention_bwd_*`` and phase 3)."""
+    args, _ = op_case(name, dtype, shifted)
+    args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    utils = ["test_schema", "test_autograd_registration", "test_faketensor"]
+    if not name.endswith("attention_bwd"):
+        utils.append("test_aot_dispatch_dynamic")
+    torch.library.opcheck(getattr(torch.ops.mpa, name).default, args, test_utils=utils)
+
+
+def _tiny_export_case(path: str, dev):
+    from mpa_tpu_torch.models import get_model
+    from mpa_tpu_torch.utils.init import init_like_flax
+
+    rng = np.random.default_rng(3)
+    if path == "cls":
+        model = get_model("markov_cls", num_classes=5, npoints=(16, 8), channels=(8, 8, 8),
+                          residuals=(True, False, False))
+        example = torch.from_numpy(rng.standard_normal((2, 32, 3)).astype(np.float32))
+    else:
+        n = 64 if path == "partseg" else 256
+        mode = "exact" if path == "partseg" else "window_all"
+        model = get_model("markov_partseg", npoints=tuple(n // 2 ** (i + 1) for i in range(4)),
+                          neighbor_mode=mode)
+        example = (torch.from_numpy(rng.standard_normal((2, n, 3)).astype(np.float32)),
+                   torch.nn.functional.one_hot(torch.tensor([0, 2]), 16).float())
+    init_like_flax(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    if isinstance(example, tuple):
+        return model, tuple(t.to(dev) for t in example)
+    return model, example.to(dev)
+
+
+@pytest.mark.parametrize("path", ["cls", "partseg", "partseg_window_all"])
+def test_exported_program_matches_eager_on_card(dev, tmp_path, path):
+    """A tiny ``markov_cls`` and ``markov_partseg`` (exact, ``window_all``)
+    exported on the card, saved and loaded: bit-equal to the eager model,
+    with the same launches of each kernel."""
+    model, example = _tiny_export_case(path, dev)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        want = model(example)
+        eager = dict(kernels.LAUNCHES)
+    ep = export_inference(model, example, device=dev)
+    assert custom_ops(ep)
+    save_exported(ep, str(tmp_path / "m.pt2"))
+    infer = load_inference(str(tmp_path / "m.pt2"))
+    kernels.reset_launch_counts()
+    got = infer(example)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == eager
+    assert torch.equal(got, want)
