@@ -18,8 +18,9 @@ partial points against 1024) served and trained, ``markov_partseg`` served
 in the ``window`` and ``window_all`` modes, the published recipe of cls
 and part-seg through ``cli.train`` and ``cli.eval`` (phase 5) and the
 S3DIS rooms through ``cli.train`` and the sliding scene inference (phase
-6). It shows that they run through the port's twelve hand-written kernels
-(nine forward, three backward):
+6), and DGCNN (``--model dgcnn``) served, trained and exported with the
+extras' other kernel users (phase 10). It shows that they run through the
+port's twelve hand-written kernels (nine forward, three backward):
 
 1. the card (``nvidia-smi`` name and power limit), then the kernel build
    from ``mpa_tpu_torch/kernels/csrc`` and its seconds;
@@ -202,6 +203,30 @@ S3DIS rooms through ``cli.train`` and the sliding scene inference (phase
    kernel (and of bf16 storage) exactly the eager request's, the nine
    forward kernels launched among the programs, and the request medians of
    both logged;
+10. DGCNN and the extras (run after phase 9): (a) ``load_classifier(model=
+   "dgcnn")`` (``scanobjectnn_cls``, k = 20, EdgeConv widths 64/64/128/256,
+   B = 64 x 1024) answers two warm-up and three timed requests, its
+   launches exactly 4 ``knn_kernel`` and 4 ``gather_rows_kernel`` a
+   request, finite logits, the request median and the device's busy share
+   (``busy_share``, under ``torch.profiler``), the logits of 4 clouds on the
+   card against the CPU within ``DGCNN_LIMITS``, and every launch of one
+   more request replayed as in phase 3 (with the kNN distance gradient);
+   (b) the preset's train step of the DGCNN, five timed with their
+   launches (3 scatter-adds a step: the first block's gather is of the
+   points, which carry no gradient) and busy share, ten steps on one batch
+   lowering the loss (read on logits, as ``mpa_tpu`` trains it), one step
+   at B = 4 against the CPU within ``DGCNN_PATH``'s own limits, and the
+   step's scatter-adds and gathers replayed; (c) ``cli.train --model
+   dgcnn`` three steps with its eval, ``cli.eval`` of its checkpoint (their
+   launches exact) and ``cli.export`` of it, the artifact loaded in phase
+   9's child process (no model code) and answering bit-equal to the
+   restored eager model with the same launches; (d) ``Disp3DEncoder`` at its
+   defaults, ``knn_surface_features``, ``inner_correlation(index=)`` and
+   the k = 5 umbrella of a train-mode ``MarkovClassifier(use_umbrella=True,
+   umbrella_k=5)`` on 8 x 1024 clouds against the CPU
+   (``OFFPATH_REL_LIMIT``), every launch replayed. Its readings print as
+   ``[10 ...]`` lines before the card line; the kernels line is phases
+   1-9's;
 4. a ``{"kernels": [...]}`` JSON line (the bf16 launches as entries of
    their own, ``NAME[bf16]``), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -401,11 +426,44 @@ WINDOW_PATHS = {
     for mode, fwd in PARTSEG_WINDOW_FORWARD.items()}
 
 
+# Phase 10's DGCNN: ``scanobjectnn_cls`` with ``--model dgcnn`` at its published
+# widths (k = 20, EdgeConv widths 64/64/128/256), B = 64 clouds of 1024 points.
+# Each EdgeConv block searches its input's feature space (C = 3, 64, 64, 128)
+# and gathers the k neighbours' rows; a train step scatter-adds their
+# gradients back, but for the first block's gather of the points, which
+# carry none. Its card-against-CPU checks at B = 4.
+DGCNN_FORWARD = {"knn_kernel": 4, "gather_rows_kernel": 4}
+DGCNN_PATH = dict(
+    preset="scanobjectnn_cls", batch=64, points=1024, parity_batch=4,
+    overrides=dict(model="dgcnn"), cli=["--model", "dgcnn"],
+    per_forward=DGCNN_FORWARD,
+    per_train_step=dict(DGCNN_FORWARD, scatter_add_rows_kernel=3),
+    # Its step against the CPU's is read against these limits, not PATHS'
+    # (correct copy / planted kNN fault, measured on one NVIDIA H100 80GB HBM3,
+    # 700.00 W): gradient units 65.5 / 1433, loss |d| 9.4e-05 / 5.6e-02, the
+    # worst statistic 1.2e-03 / 7.3e-02. Each EdgeConv's max over 20
+    # neighbours and the heads' train-mode BatchNorm over 4 clouds amplify
+    # float32 rounding, and the logits enter the loss unsquashed.
+    grad_limit=300, loss_limit=1e-3, stat_limit=1e-2,
+)
+# The served DGCNN logits on the card against the CPU's, at B = 4: the largest
+# difference of a logit (correct copy 4.9e-06, the planted kNN fault 5.3e-02,
+# measured on one H100). The argmax agreement is reported, not limited.
+DGCNN_LIMITS = {"max_abs": 1e-3}
+# Phase 10d's off-path kernel users on the card against the CPU, the largest
+# difference of an output entry over the largest entry: float32 products in
+# another order (cuBLAS against the CPU), every kNN on coordinates (exact on
+# both sides) or its indices handed over.
+OFFPATH_REL_LIMIT = 1e-4
+
+
 def path_spec(path: str) -> dict:
     """The entry of ``PATHS`` or ``WINDOW_PATHS`` for ``path``, or
-    ``S3DIS_PATH`` for ``"s3dis"``."""
+    ``S3DIS_PATH`` for ``"s3dis"``, ``DGCNN_PATH`` for ``"dgcnn"``."""
     if path == "s3dis":
         return S3DIS_PATH
+    if path == "dgcnn":
+        return DGCNN_PATH
     return WINDOW_PATHS[path] if path in WINDOW_PATHS else PATHS[path]
 
 
@@ -435,10 +493,11 @@ IMPORT_F64_LIMIT = 1e-5
 # 32 centres is positive in every cloud, so the shift passes through the max
 # to the head's train-mode BatchNorm; in markov_partseg_fp likewise the
 # BatchNorm bias of conv6, whose max over each cloud's points is broadcast
-# to every point of head1's train-mode BatchNorm). Only these get an
-# absolute floor.
+# to every point of head1's train-mode BatchNorm; in DGCNN the bias of
+# linear2, ahead of bn7). Only these get an absolute floor.
 ROUNDING_ZERO = re.compile(
-    r"(\.k\.bias|\.q\.(weight|bias)|\.linear\.bias|^fc[12]\.bias|\.final_class\.bias"
+    r"(\.k\.bias|\.q\.(weight|bias)|\.linear\.bias|^fc[12]\.bias|^linear2\.bias"
+    r"|\.final_class\.bias"
     r"|\.mlp_[lf]0\.bias|\.conv\d+\.bias|surface_constructor\.mlp[12]\.bias"
     r"|^sa4\.mlps\.bn1\.bias|^conv6\.norm\.bias)$")
 # In bf16 steps, also the value projections' biases (a shift of v passes
@@ -448,29 +507,20 @@ ROUNDING_ZERO = re.compile(
 # resolution, 2^-8 of the whole gradient's norm.
 BF16_ROUNDING_ZERO = re.compile(ROUNDING_ZERO.pattern + r"|\.v\.bias$")
 BF16_ZERO_FLOOR = 2.0 ** -8
-SOURCES = {
-    "knn_kernel": ("mpa_tpu_torch/kernels/csrc/knn.cu", "mpa_tpu/ops/pallas/knn_pallas.py:102"),
-    "fps_kernel": ("mpa_tpu_torch/kernels/csrc/fps.cu", "mpa_tpu/ops/pallas/fps_pallas.py:70"),
-    "gather_rows_kernel": ("mpa_tpu_torch/kernels/csrc/gather.cu",
-                           "mpa_tpu/ops/pallas/gather_pallas.py:97"),
-    "transition_attention_fwd_kernel": ("mpa_tpu_torch/kernels/csrc/attention.cu",
-                                        "mpa_tpu/ops/pallas/attention_pallas.py:452"),
-    "scatter_add_rows_kernel": ("mpa_tpu_torch/kernels/csrc/scatter_add.cu",
-                                "mpa_tpu/ops/pallas/gather_pallas.py:267"),
-    "transition_attention_bwd_kernel": ("mpa_tpu_torch/kernels/csrc/attention_bwd.cu",
-                                        "mpa_tpu/ops/pallas/attention_pallas.py:388"),
-    "scatter_mean_kernel": ("mpa_tpu_torch/kernels/csrc/scatter_mean.cu",
-                            "mpa_tpu/ops/pallas/scatter_pallas.py:70"),
-    "windowed_knn_kernel": ("mpa_tpu_torch/kernels/csrc/window_knn.cu",
-                            "mpa_tpu/ops/pallas/window_attention.py:153"),
-    "windowed_attention_fwd_kernel": ("mpa_tpu_torch/kernels/csrc/window_attention.cu",
-                                      "mpa_tpu/ops/pallas/window_attention.py:399"),
-    "windowed_attention_bwd_kernel": ("mpa_tpu_torch/kernels/csrc/window_attention_bwd.cu",
-                                      "mpa_tpu/ops/pallas/window_attention.py:431"),
-    "windowed_scatter_mean_kernel": ("mpa_tpu_torch/kernels/csrc/window_scatter_mean.cu",
-                                     "mpa_tpu/ops/pallas/window_attention.py:577"),
-    "ball_query_kernel": ("mpa_tpu_torch/kernels/csrc/ball_query.cu",
-                          "mpa_tpu/ops/pallas/ball_pallas.py:72"),
+# The TPU kernel each port kernel replaces (its source: ``kernels.SOURCES``).
+REPLACES = {
+    "knn_kernel": "mpa_tpu/ops/pallas/knn_pallas.py:102",
+    "fps_kernel": "mpa_tpu/ops/pallas/fps_pallas.py:70",
+    "gather_rows_kernel": "mpa_tpu/ops/pallas/gather_pallas.py:97",
+    "transition_attention_fwd_kernel": "mpa_tpu/ops/pallas/attention_pallas.py:452",
+    "scatter_add_rows_kernel": "mpa_tpu/ops/pallas/gather_pallas.py:267",
+    "transition_attention_bwd_kernel": "mpa_tpu/ops/pallas/attention_pallas.py:388",
+    "scatter_mean_kernel": "mpa_tpu/ops/pallas/scatter_pallas.py:70",
+    "windowed_knn_kernel": "mpa_tpu/ops/pallas/window_attention.py:153",
+    "windowed_attention_fwd_kernel": "mpa_tpu/ops/pallas/window_attention.py:399",
+    "windowed_attention_bwd_kernel": "mpa_tpu/ops/pallas/window_attention.py:431",
+    "windowed_scatter_mean_kernel": "mpa_tpu/ops/pallas/window_attention.py:577",
+    "ball_query_kernel": "mpa_tpu/ops/pallas/ball_pallas.py:72",
 }
 ALSO_REPLACES = {
     "gather_rows_kernel": "mpa_tpu/ops/pallas/gather_pallas.py:69",
@@ -583,7 +633,11 @@ def bound(name: str, inp: dict):
     elif name == "gather_rows_kernel":
         B, _, W = inp["points"].shape
         E = inp["idx"].shape[1]
-        nbytes = 2 * inp["points"].element_size() * B * E * W + 4 * B * E
+        # The rows the index names, each read once (this call's index: DGCNN's
+        # names each row 20 times), and the output written once.
+        s = torch.sort(inp["idx"], dim=1).values
+        named = B * min(E, 1) + int((s[:, 1:] != s[:, :-1]).sum())
+        nbytes = inp["points"].element_size() * (named + B * E) * W + 4 * B * E
         ops = 0
     elif name == "scatter_add_rows_kernel":
         B, E, W = inp["grads"].shape
@@ -1225,9 +1279,13 @@ def cloud_parity(path: str) -> dict:
 
 def check_served_output(path: str, out, B: int, points: int) -> None:
     """A served answer of ``path``: log-probs of the right shape whose rows
-    sum to 1; rotations (orthonormal, determinant 1); or the coarse and fine
-    clouds, finite."""
+    sum to 1; rotations (orthonormal, determinant 1); the coarse and fine
+    clouds, finite; or DGCNN's logits, finite."""
     cfg = path_config(path)
+    if path == "dgcnn":  # logits, as mpa_tpu's DGCNN answers
+        if tuple(out.shape) != (B, cfg.num_classes) or not torch.isfinite(out).all():
+            raise AssertionError(f"[{path}] bad logits {tuple(out.shape)}")
+        return
     if path == "pose":
         eye = torch.eye(3, device=out.device).expand(B, 3, 3)
         if tuple(out.shape) != (B, 3, 3) or not torch.isfinite(out).all():
@@ -1682,7 +1740,9 @@ def summarise(name: str, rows: list, counts: dict) -> dict:
 
     by_path = {path: sums([r for r in rows if r["name"] == name and r["path"] == path])
                for path in PATHS}
-    source, replaces = SOURCES[name]
+    from mpa_tpu_torch.kernels import SOURCES
+
+    source, replaces = SOURCES[name], REPLACES[name]
     entry = {
         "name": name,
         "route": "cuda",
@@ -1977,6 +2037,14 @@ PLANTED_FAULTS = {
         "  mpa::attention_fwd_body<KMAX, VEC>(packed, idx,\n"
         "                                     std::is_same<T, float>::value ? shifts : nullptr,\n"
         "                                     out, N, S, K, n_branches, C);"),
+    "kNN streaming form: the base norms without their last channel": (
+        "dgcnn", "mpa_tpu_torch/kernels/csrc/knn_search.cuh",
+        "for (int c = 1; c < C; ++c) n2 = __fadd_rn(n2, __fmul_rn(xr[c], xr[c]));",
+        "for (int c = 1; c < C - 1; ++c) n2 = __fadd_rn(n2, __fmul_rn(xr[c], xr[c]));"),
+    "scatter-add: each cloud's last edge left out, on DGCNN's step": (
+        "dgcnn", "mpa_tpu_torch/kernels/csrc/scatter_add.cu",
+        "idx + e0, 0, E, 1,",
+        "idx + e0, 0, E - 1, 1,"),
     "data parallel: step 2's all-reduce missed": (
         "dp", "mpa_tpu_torch/parallel/mesh.py",
         "    dist.all_reduce(flat, group=group)\n",
@@ -2043,9 +2111,9 @@ def repsurf_parity(batch: int = PATHS["repsurf"]["parity_batch"]) -> dict:
 
 def parity_readings(path: str) -> dict:
     """``--parity PATH``: the path's card-against-CPU readings (``partseg``,
-    ``semseg``, ``repsurf``, ``partseg_fp``, ``pose`` or ``completion``),
-    replays of its newest kernels (for the last three: every launch of the
-    served request) and of the card step's scatter-adds, each check's
+    ``semseg``, ``repsurf``, ``partseg_fp``, ``pose``, ``completion`` or
+    ``dgcnn``), replays of its newest kernels (for the last four: every
+    launch of the served request) and of the card step's scatter-adds, each check's
     failure caught and reported; for ``dp``, phase 7a's readings
     (``dp_readings``) and the names of the limits they exceed."""
     from mpa_tpu_torch import kernels
@@ -2057,14 +2125,16 @@ def parity_readings(path: str) -> dict:
     if path == "bf16":
         return bf16_readings()
     out = {}
-    seg, limits = {"partseg": (segmenter_parity, SEG_LIMITS),
+    seg, limits = {"dgcnn": (dgcnn_parity, DGCNN_LIMITS),
+                   "partseg": (segmenter_parity, SEG_LIMITS),
                    "semseg": (semseg_parity, SEMSEG_LIMITS),
                    "repsurf": (repsurf_parity, REPSURF_LIMITS),
                    "partseg_fp": (lambda: segmenter_parity(preset="shapenetpart_fp"), SEG_LIMITS),
                    "pose": (lambda: cloud_parity("pose"), CLOUD_LIMITS),
                    "completion": (lambda: cloud_parity("completion"), CLOUD_LIMITS)}[path]
     seg = seg()
-    out["served"] = {k: seg[k] for k in ("median_abs", "p99_abs", "max_abs", "argmax_agreement")}
+    out["served"] = {k: seg[k] for k in ("median_abs", "p99_abs", "max_abs", "argmax_agreement")
+                     if k in seg}
     out["served_within_limits"] = within(seg, limits)
     kernels.recorded = []
     parity = train_parity(path)
@@ -2072,7 +2142,7 @@ def parity_readings(path: str) -> dict:
     out["train"] = {"loss_diff": parity["loss_diff"], "grad_units": parity["grad_units"][:3],
                     "stat": parity["stat"]}
     scatter_adds = [inp for name, inp in recorded if name == "scatter_add_rows_kernel"]
-    if path in ("partseg_fp", "pose", "completion"):
+    if path in ("partseg_fp", "pose", "completion", "dgcnn"):
         checks = [(f"{len(seg['recorded'])} replays of the request", lambda: [
             check_call(name, inp) for name, inp in seg["recorded"]])]
     elif path == "repsurf":
@@ -2150,9 +2220,9 @@ def planted_faults(only: str = "all") -> None:
     that one line changed runs ``chip_smoke.py --parity`` for the fault's
     path (the copy without a fault for each such path); prints each copy's
     readings. The limits of ``SEG_LIMITS``, ``SEMSEG_LIMITS``,
-    ``REPSURF_LIMITS``, ``grad_limit`` and ``DP_LIMITS`` lie between a
-    correct copy's readings and the faulty ones'."""
-    parity_paths = ["partseg", "semseg", "repsurf", "dp", "bf16"]
+    ``REPSURF_LIMITS``, ``DGCNN_LIMITS``, ``grad_limit`` and ``DP_LIMITS``
+    lie between a correct copy's readings and the faulty ones'."""
+    parity_paths = ["partseg", "semseg", "repsurf", "dp", "bf16", "dgcnn"]
     if only != "all":
         parity_paths = [only]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2846,7 +2916,9 @@ def summarise_bf16(name: str, rows: list, counts: dict) -> dict:
                 "library_ms": None if None in libs else sum(libs)}
 
     by_path = {path: sums(path) for path in BF16_PATHS}
-    source, replaces = SOURCES[name]
+    from mpa_tpu_torch.kernels import SOURCES
+
+    source, replaces = SOURCES[name], REPLACES[name]
     return {"name": f"{name}[bf16]", "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[f"{main}_bf16_{unit}"][name],
             "per": "train step" if backward else "request", "path": f"{main}_bf16",
@@ -3076,15 +3148,313 @@ def phase9(tag: str, work: Path, cls_checkpoint: str) -> dict:
     return results
 
 
+# -- phase 10: DGCNN and the extras' kernel users -------------------------------------
+
+
+def busy_share(fn, n: int = 3) -> tuple:
+    """``n`` calls of ``fn`` (each ending in a synchronise) under
+    ``torch.profiler``: the mean host ms a call and the device's busy share
+    of it (the union of its kernels' intervals over the wall time)."""
+    from mpa_tpu_torch.utils.profiling import device_events
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in device_events(prof)):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return wall * 1e3 / n, busy / 1e6 / wall
+
+
+def dgcnn_parity(batch: int = DGCNN_PATH["parity_batch"]) -> dict:
+    """The DGCNN served on the card against the CPU (plain ops) from the
+    same weights on ``batch`` request clouds: the largest logit difference,
+    the share of clouds whose argmax agrees, the CPU's seconds and every
+    launch of the card request (``recorded``)."""
+    from mpa_tpu_torch import kernels
+
+    x = request_inputs("dgcnn")[1][0][:batch]
+    kernels.recorded = []
+    try:
+        got = serve_loader("dgcnn")(x).cpu()
+    finally:
+        recorded, kernels.recorded = kernels.recorded, None
+    cpu = serve_loader("dgcnn", device="cpu")
+    t0 = time.perf_counter()
+    want = cpu(x)
+    return {"max_abs": (got - want).abs().max().item(),
+            "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+            "cpu_s": time.perf_counter() - t0, "recorded": recorded}
+
+
+def dgcnn_served(tag: str) -> tuple:
+    """Phase 10a: the DGCNN's requests, launches, answers, busy share, the
+    card against the CPU, and every launch of a request replayed."""
+    spec = DGCNN_PATH
+    B, points = spec["batch"], spec["points"]
+    serve = serve_loader("dgcnn")
+    latencies, outputs, (launches, _), recorded = timed_requests(serve, "dgcnn")
+    for i, lat in enumerate(latencies):
+        log(f"[{tag}] request {i}: B={B} x {points} pts, {lat * 1e3:.3f} ms, "
+            f"{B / lat:.1f} clouds/s")
+    log(f"[{tag}] launches over {REQUESTS} requests: {launches}")
+    check_launches(tag, launches, spec["per_forward"], REQUESTS, "request")
+    for out in outputs:
+        check_served_output("dgcnn", out, B, points)
+    x = request_inputs("dgcnn")[1][0]
+    wall, busy = busy_share(lambda: (serve(x), torch.cuda.synchronize()))
+    log(f"[{tag}] median request {statistics.median(latencies) * 1e3:.3f} ms; under the "
+        f"profiler {wall:.3f} ms a request, device busy {100 * busy:.1f}%")
+    report = dgcnn_parity()
+    log(f"[{tag}] cuda vs cpu at B={spec['parity_batch']} x {points} pts (plain ops, "
+        f"{report['cpu_s']:.1f} s on the host): max |dlogit| {report['max_abs']:.3e}, argmax "
+        f"agreement {report['argmax_agreement']:.4f} (limits {DGCNN_LIMITS})")
+    if not within(report, DGCNN_LIMITS):
+        raise AssertionError(f"[{tag}] cuda and cpu logits differ: {report}")
+    del serve
+    return {"launches": launches, "recorded": recorded, "busy": busy,
+            "latency_ms": [t * 1e3 for t in latencies]}
+
+
+def dgcnn_trained(tag: str) -> dict:
+    """Phase 10b: the DGCNN's train step on the card (five timed, their
+    launches and busy share), ten steps on one batch, and one step at B = 4
+    against the CPU's."""
+    from mpa_tpu_torch.cli import train as cli_train
+    from mpa_tpu_torch.train import create_train_state
+
+    spec, cfg = DGCNN_PATH, path_config("dgcnn")
+    B = spec["batch"]
+    run = timed_steps("dgcnn", fresh_model("dgcnn"))
+    log(f"[{tag}] step ms {[round(t * 1e3, 3) for t in run['times']]}, losses "
+        f"{[round(v, 4) for v in run['losses']]}, launches over {TRAIN_STEPS} steps "
+        f"{run['launches'][0]}; peak memory {run['peak'] / 2**30:.3f} GiB")
+    check_launches(tag, run["launches"][0], spec["per_train_step"], TRAIN_STEPS, "train step")
+    if not all(np.isfinite(run["losses"])):
+        raise AssertionError(f"[{tag}] non-finite train losses {run['losses']}")
+    arrays = train_arrays("dgcnn", cfg)
+    step = make_step("dgcnn", len(arrays[0]) // B)
+    x, y = cli_train.make_inputs(cfg, tuple(a[:B] for a in arrays), torch.device("cuda"))
+    wall, busy = busy_share(lambda: float(step(run["state"], x, y)))
+    log(f"[{tag}] under the profiler {wall:.3f} ms a step, device busy {100 * busy:.1f}%")
+    del run["state"]
+    state = create_train_state(fresh_model("dgcnn"), cfg, torch.device("cuda"))
+    fixed = [float(step(state, x, y)) for _ in range(FIXED_STEPS)]
+    log(f"[{tag}] {FIXED_STEPS} steps on one batch: loss {fixed[0]:.4f} -> {fixed[-1]:.4f} "
+        "(the cls loss read on logits, as mpa_tpu trains dgcnn)")
+    if not fixed[-1] < fixed[0]:
+        raise AssertionError(f"[{tag}] the loss did not fall on a fixed batch: {fixed}")
+    del state
+    parity = train_parity("dgcnn")
+    log(f"[{tag}] cuda vs cpu, one step at B={spec['parity_batch']} ({parity['cpu_s']:.1f} s "
+        f"on the host): loss |d| {parity['loss_diff']:.3e} (limit {spec['loss_limit']}); "
+        f"gradient error in "
+        f"units (limit {spec['grad_limit']}), largest: "
+        + ", ".join(f"{n} {u:.3f}" for n, u in parity["grad_units"][:3])
+        + f"; worst statistic {parity['stat'][0]} rel {parity['stat'][1]:.3e} (limit "
+          f"{spec['stat_limit']}); launches {parity['launches']}")
+    if (not parity["loss_diff"] <= spec["loss_limit"]
+            or parity["grad_units"][0][1] > spec["grad_limit"]
+            or parity["stat"][1] > spec["stat_limit"] or parity["launches"] != spec["per_train_step"]):
+        raise AssertionError(f"[{tag}] the CUDA train step differs from the CPU step")
+    return {"launches": run["launches"][0], "recorded": run["recorded"], "busy": busy,
+            "step_ms": [t * 1e3 for t in run["times"]]}
+
+
+def dgcnn_clis(tag: str, work: Path) -> dict:
+    """Phase 10c: ``cli.train --model dgcnn`` three steps on synthetic clouds
+    with its eval, ``cli.eval`` of its checkpoint, ``cli.export`` of it, and
+    the artifact loaded in phase 9's child process (no model code) against
+    the restored eager model: bit-equal answers, the same launches."""
+    from mpa_tpu_torch import kernels
+    from mpa_tpu_torch.cli import eval as cli_eval
+    from mpa_tpu_torch.cli import train as cli_train
+    from mpa_tpu_torch.train import BestCheckpointer
+
+    spec = DGCNN_PATH
+    args = ["--preset", spec["preset"], "--dataset", "synthetic", "--device", "cuda",
+            "--log_dir", str(work / "runs"), "--seed", str(SEED), *spec["cli"]]
+    kernels.reset_launch_counts()
+    _, out = cli_train.run(cli_train.parse_args(args + ["--max_steps", str(RECIPE_STEPS)]))
+    torch.cuda.synchronize()
+    train_launches = dict(kernels.LAUNCHES)
+    cfg = cli_train.config_from_args(cli_train.parse_args(args))
+    batches = -(-cli_train.DATASET_SIZES["cls"][1] // cfg.batch_size)
+    want = {k: RECIPE_STEPS * spec["per_train_step"].get(k, 0)
+            + cfg.num_votes * batches * spec["per_forward"].get(k, 0) for k in kernels.KERNELS}
+    log(f"[{tag}] cli.train --model dgcnn: {out['steps']} steps, losses {out['losses']}, eval "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items() if isinstance(v, float))
+        + f"; launches {train_launches}")
+    check_launches(f"{tag} train", train_launches, want, 1, "run")
+    if out["steps"] != RECIPE_STEPS or not np.isfinite(out["losses"]).all():
+        raise AssertionError(f"[{tag}] cli.train: {out}")
+    ckpt = cli_train.checkpoint_dir(cfg, spec["preset"])
+
+    kernels.reset_launch_counts()
+    res = cli_eval.main(args + ["--checkpoint", ckpt, "--num_votes", str(RECIPE_VOTES)])
+    launches = dict(kernels.LAUNCHES)
+    log(f"[{tag}] cli.eval --checkpoint: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in res.items() if isinstance(v, float)) + f"; launches {launches}")
+    check_launches(f"{tag} eval", launches, spec["per_forward"],
+                   len(res["pass_seconds"]) * RECIPE_VOTES * batches, "forward")
+    if not all(0.0 <= v <= 1.0 for v in res.values() if isinstance(v, float)):
+        raise AssertionError(f"[{tag}] eval metrics {res}")
+
+    export = work / "export"
+    export.mkdir()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mpa_tpu_torch.cli.export", *args[:6],
+                           *spec["cli"], "--checkpoint", ckpt, "--serve_batch",
+                           str(spec["batch"]), "--out", str(export / "cli_dgcnn.pt2")],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[{tag}] cli.export failed:\n{proc.stdout}\n{proc.stderr}")
+    log(f"[{tag}] cli.export ({cli_s:.1f} s with its start): {proc.stdout.strip()}")
+    state = cli_eval.eval_state(cfg, torch.device("cuda"))
+    if BestCheckpointer(ckpt).restore(state, restore_optimizer=False) is None:
+        raise AssertionError(f"[{tag}] no checkpoint under {ckpt}")
+    inputs = [model_inputs("dgcnn", r) for r in request_inputs("dgcnn")]
+    with torch.inference_mode():
+        eager = timed_program(state.model, inputs)
+    torch.save({"inputs": [x.cpu() for x in inputs],
+                "answers": [a.cpu() for a in eager["answers"]]}, export / "cli_dgcnn.io.pt")
+    (export / "programs.json").write_text(json.dumps(["cli_dgcnn"]))
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--exported-child",
+                           str(export)], cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"[{tag}] the child failed:\n{proc.stdout}\n{proc.stderr}")
+    child = json.loads((export / "child.json").read_text())
+    c = child["cli_dgcnn"]
+    manifest = json.loads((export / "cli_dgcnn.pt2.json").read_text())
+    log(f"[{tag}] exported: {manifest['graph_nodes']} graph nodes, ops "
+        f"{manifest['custom_ops']}; loaded in {c['load_s']:.2f} s in a child that imported "
+        f"mpa_tpu_torch.models: {child['imports_models']}; request median ms exported "
+        f"{statistics.median(c['ms']):.3f} against eager {statistics.median(eager['ms']):.3f}; "
+        f"answers bit-equal {c['equal']}; launches a request {c['launches'][0][0]}")
+    if child["imports_models"]:
+        raise AssertionError(f"[{tag}] loading the artifact imported the model code")
+    if not all(c["equal"]):
+        raise AssertionError(f"[{tag}] exported answers differ from eager: {c['max_abs']}")
+    if [tuple(x) for x in c["launches"]] != [tuple(x) for x in eager["launches"]]:
+        raise AssertionError(f"[{tag}] exported launches {c['launches']} against eager "
+                             f"{eager['launches']}")
+    return {"train": train_launches, "eval": launches,
+            "exported_ms": c["ms"], "eager_ms": eager["ms"]}
+
+
+def recorded_run(fn):
+    """``fn()`` with every launch recorded and counted: ``(result, launches,
+    recorded)``."""
+    from mpa_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    kernels.recorded = []
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        recorded, kernels.recorded = kernels.recorded, None
+    return out, {k: v for k, v in kernels.LAUNCHES.items() if v}, recorded
+
+
+def offpath_phase(tag: str) -> tuple:
+    """Phase 10d: the extras' and the off-path functions' kernel users on a
+    batch of 1024-point clouds, each on the card against the CPU (the
+    largest difference over the largest entry within
+    ``OFFPATH_REL_LIMIT``), its launches counted and every one replayed:
+    ``Disp3DEncoder`` at its defaults (widths 32/64/128, k = 16),
+    ``knn_surface_features`` (k = 3), ``inner_correlation`` of gathered rows,
+    and a train-mode forward of ``MarkovClassifier(use_umbrella=True,
+    umbrella_k=5)`` (the umbrella runs in train mode only, and its output
+    is unused: its answer is its BatchNorm's running statistics), with fixed
+    normal flips and dropout 0."""
+    from mpa_tpu_torch.extras import Disp3DEncoder
+    from mpa_tpu_torch.geometry import knn_surface_features
+    from mpa_tpu_torch.models import MarkovClassifier
+    from mpa_tpu_torch.ops import inner_correlation
+    from mpa_tpu_torch.utils.init import init_like_flax
+
+    gen = torch.Generator().manual_seed(SEED)
+    pts = torch.randn((8, 1024, 3), generator=gen)
+    feats = torch.randn((8, 1024, 64), generator=gen)
+    index = torch.randint(0, 1024, (8, 256), generator=gen, dtype=torch.int32)
+    enc = init_like_flax(Disp3DEncoder(), torch.Generator().manual_seed(SEED)).eval()
+    cls = init_like_flax(MarkovClassifier(use_umbrella=True, umbrella_k=5, dropout=0.0),
+                         torch.Generator().manual_seed(SEED)).train()
+    flips = torch.tensor([1.0 - 2.0 * (i % 2) for i in range(8)])
+
+    def umbrella_stats(m, d):
+        m(pts.to(d), flips=flips.to(d))
+        sc = m.surface_constructor
+        return torch.cat([sc.bn0.running_mean, sc.bn0.running_var, sc.bn1.running_mean,
+                          sc.bn1.running_var])
+
+    cases = {
+        "disp3d": (enc, lambda m, d: m(pts.to(d))),
+        "knn_surface_features": (None, lambda m, d: torch.cat(knn_surface_features(
+            pts.to(d), pts.to(d), k=3, return_dist=True), -1)),
+        "inner_correlation": (None, lambda m, d: inner_correlation(feats.to(d), index.to(d))),
+        "umbrella_k5": (cls, umbrella_stats),
+    }
+    rows, counts = [], {}
+    for name, (model, fn) in cases.items():
+        card = copy.deepcopy(model).cuda() if model is not None else None
+        with torch.no_grad():
+            got, launches, recorded = recorded_run(lambda: fn(card, "cuda"))
+            want = fn(copy.deepcopy(model), "cpu")
+        err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        log(f"[{tag} {name}] output {tuple(got.shape)}: cuda vs cpu max |d| / max |ref| "
+            f"{err:.3e} (limit {OFFPATH_REL_LIMIT}); launches {launches}")
+        if not err <= OFFPATH_REL_LIMIT:
+            raise AssertionError(f"[{tag} {name}] cuda and cpu differ: {err}")
+        if name == "umbrella_k5" and not any(n == "knn_kernel" and inp["k"] == 5
+                                             for n, inp in recorded):
+            raise AssertionError(f"[{tag}] the umbrella's kNN at k = 5 was not launched")
+        counts[name] = launches
+        rows += [replay_call(f"offpath_{name}", n, inp) for n, inp in recorded]
+        del card
+    return counts, rows
+
+
+def phase10(work: Path) -> dict:
+    """Phase 10: the DGCNN served, trained and through its CLIs, every
+    launch of a request and of a step's backward replayed; then the
+    extras' other kernel users (``offpath_phase``)."""
+    served = dgcnn_served("10a dgcnn served")
+    rows = replay("dgcnn", served, {"recorded": []})
+    del served["recorded"]
+    torch.cuda.empty_cache()
+    trained = dgcnn_trained("10b dgcnn trained")
+    rows += [replay_call("dgcnn" if name in BACKWARD else "dgcnn_train", name, inp)
+             for name, inp in trained.pop("recorded")]
+    torch.cuda.empty_cache()
+    clis = dgcnn_clis("10c dgcnn clis", work)
+    torch.cuda.empty_cache()
+    offpath, off_rows = offpath_phase("10d offpath")
+    torch.cuda.empty_cache()
+    return {"served": served, "trained": trained, "clis": clis, "offpath": offpath,
+            "rows": rows, "offpath_rows": off_rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parity", nargs="?", const="partseg",
                     choices=["partseg", "semseg", "repsurf", "partseg_fp", "pose", "completion",
-                             "dp", "bf16"],
+                             "dp", "bf16", "dgcnn"],
                     help="only that path's card-against-CPU readings, as JSON")
     ap.add_argument("--exported-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--planted-faults", nargs="?", const="all",
-                    choices=["all", "partseg", "semseg", "repsurf", "dp", "bf16"],
+                    choices=["all", "partseg", "semseg", "repsurf", "dp", "bf16", "dgcnn"],
                     help="the --parity readings of copies with one fault planted in each "
                          "(of that path's faults only, if given)")
     args = ap.parse_args()
@@ -3203,6 +3573,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         exported = phase9("9 export", Path(work), recipe["cls"]["checkpoint"])
     recipe_work.cleanup()
+    torch.cuda.empty_cache()
+
+    # -- 10: DGCNN served, trained, its CLIs; the extras' other kernel users --------
+    t10 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        dgcnn = phase10(Path(work))
+    t10 = time.perf_counter() - t10
 
     counts = {f"{path}_serve": served[path]["launches"] for path in PATHS}
     counts.update({f"{path}_train": trained[path]["launches"] for path in PATHS})
@@ -3259,6 +3636,28 @@ def main() -> int:
             f"{r['bytes'] / 2**20:.2f} MiB; request median ms exported "
             f"{statistics.median(r['exported_ms']):.3f}, eager "
             f"{statistics.median(r['eager']['ms']):.3f}")
+    lat, step = dgcnn["served"]["latency_ms"], dgcnn["trained"]["step_ms"]
+    log(f"[10 dgcnn] ({card}) request ms {lat}, median {statistics.median(lat):.3f} ms "
+        f"({DGCNN_PATH['batch'] / statistics.median(lat) * 1e3:.1f} clouds/s), device busy "
+        f"{100 * dgcnn['served']['busy']:.1f}%; train step ms {step}, median "
+        f"{statistics.median(step):.3f} ms, device busy {100 * dgcnn['trained']['busy']:.1f}%; "
+        f"exported request median {statistics.median(dgcnn['clis']['exported_ms']):.3f} ms "
+        f"against eager {statistics.median(dgcnn['clis']['eager_ms']):.3f}")
+    for name in ("knn_kernel", "gather_rows_kernel", "scatter_add_rows_kernel"):
+        for path in ("dgcnn", "dgcnn_train", "dgcnn_knn_grad"):
+            mine = [r for r in dgcnn["rows"] if r["name"] == name and r["path"] == path]
+            unit = {"dgcnn_train": "step", "dgcnn_knn_grad": "kNN gradient"}.get(
+                path, "step" if name in BACKWARD else "request")
+            if mine:
+                log(f"[10 dgcnn] ({card}) {name} per {unit} ({path}): {len(mine)} launches, "
+                    f"{sum(r['ms'] for r in mine):.4f} ms, plain "
+                    f"{sum(r['plain_ms'] for r in mine):.4f} ms, bound "
+                    f"{sum(r['bound_ms'] for r in mine):.4f} ms, library "
+                    + (f"{sum(r['library_ms'] for r in mine):.4f}"
+                       if all(r["library_ms"] is not None for r in mine) else "none")
+                    + f" ms, max_abs_err {max(r['max_abs_err'] for r in mine):.3e}")
+    log(f"[10 offpath] launches {dgcnn['offpath']}; {len(dgcnn['offpath_rows'])} replays agree")
+    log(f"[10 total] {t10:.1f} s")
     print(card, flush=True)  # the card, exactly as nvidia-smi reports it
     log(f"[4 total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": summary}), flush=True)

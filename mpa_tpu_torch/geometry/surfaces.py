@@ -1,8 +1,11 @@
-"""Triangle surface features of the umbrella constructor: unit normals,
-centroids, plane offsets and the repair of degenerate triangles.
+"""Triangle surface features: unit normals, centroids, plane offsets,
+areas, the repair of degenerate triangles, the plain-kNN surface
+constructor and PCA.
 
-Counterpart of ``cal_normal``, ``cal_center``, ``cal_const`` and
-``check_nan_umbrella`` in ``mpa_tpu/geometry/surfaces.py``. As there, a
+Counterpart of ``mpa_tpu/geometry/surfaces.py``: ``cal_normal``,
+``cal_center``, ``cal_const`` and ``check_nan_umbrella``, which the
+umbrella constructor runs, and ``cal_area``, ``check_nan``,
+``knn_surface_features`` and ``pca``, which no model runs. As there, a
 degenerate triangle (repeated points) gets a ZERO normal rather than the
 reference's NaN, so no NaN reaches a gradient, and the repair detects a zero
 normal exactly as it detects a NaN.
@@ -19,6 +22,9 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from mpa_tpu_torch.ops.gather import index_points
+from mpa_tpu_torch.ops.knn import knn
 
 
 def random_flips(batch: int, generator: torch.Generator, device: torch.device) -> torch.Tensor:
@@ -112,3 +118,82 @@ def check_nan_umbrella(
     if pos is not None:
         return take_first(normal), take_first(center), take_first(pos)
     return take_first(normal), take_first(center)
+
+
+def cal_area(group_xyz: torch.Tensor) -> torch.Tensor:
+    """Triangle area from the three projected-plane determinants,
+    ``[..., 3pts, 3] -> [..., 1]`` (``mpa_tpu``'s ``cal_area``, off every
+    live path)."""
+    x, y, z = group_xyz[..., 0], group_xyz[..., 1], group_xyz[..., 2]
+
+    def det3(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        # | u0 v0 1 ; u1 v1 1 ; u2 v2 1 |
+        return (u[..., 0] * (v[..., 1] - v[..., 2]) - v[..., 0] * (u[..., 1] - u[..., 2])
+                + (u[..., 1] * v[..., 2] - u[..., 2] * v[..., 1]))
+
+    area = torch.sqrt(det3(x, y) ** 2 + det3(y, z) ** 2 + det3(z, x) ** 2)
+    return area[..., None]
+
+
+def check_nan(
+    normal: torch.Tensor,
+    center: torch.Tensor,
+    pos: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The repair of :func:`check_nan_umbrella` over each cloud instead of
+    each fan (``mpa_tpu``'s ``check_nan``): the points whose normal is
+    invalid (any NaN, or all zero) take the cloud's first valid point's
+    ``normal``, ``center`` and ``pos``; a cloud with none takes its point 0.
+    ``[B, N, C]`` each."""
+    bad = torch.isnan(normal).any(dim=-1) | (normal == 0.0).all(dim=-1)  # [B, N]
+    first_ok = torch.argmax((~bad).to(torch.int32), dim=-1)  # [B], the first maximum
+
+    def take_first(x: torch.Tensor) -> torch.Tensor:
+        picked = torch.gather(x, 1, first_ok[:, None, None].expand(-1, 1, x.shape[-1]))
+        return torch.where(bad[..., None], picked, x)
+
+    if pos is not None:
+        return take_first(normal), take_first(center), take_first(pos)
+    return take_first(normal), take_first(center)
+
+
+def knn_surface_features(
+    center: torch.Tensor,
+    context: torch.Tensor,
+    k: int = 3,
+    *,
+    return_dist: bool = False,
+    flips: Optional[torch.Tensor] = None,
+):
+    """The plain-kNN triangle surface constructor (``mpa_tpu``'s
+    ``knn_surface_features``, off every live path): each centre's k nearest
+    context points (``knn``: ``knn_kernel`` on the card; the indices only,
+    so no gradient flows through the search) gathered (``index_points``:
+    ``gather_rows_kernel``), their first three a triangle whose unit normal
+    (flipped per cloud by ``flips``, ``[B]`` signs, where given: the
+    train-time inversion that ``mpa_tpu`` draws from a key), centroid and,
+    with ``return_dist``, plane offset are the features, repaired by
+    :func:`check_nan`.
+
+    Returns ``(normal [B, N, 3], centroid [B, N, 3][, pos [B, N, 1]])``.
+    """
+    _, idx = knn(k, context.detach(), center.detach())
+    group_xyz = index_points(context, idx)  # [B, N, K, 3]
+    normal = cal_normal(group_xyz, flips=flips)
+    centroid = cal_center(group_xyz)
+    if return_dist:
+        return check_nan(normal, centroid, cal_const(normal, centroid))
+    return check_nan(normal, centroid)
+
+
+def pca(x: torch.Tensor, k: int, center: bool = True) -> dict:
+    """SVD principal components of ``x [n, d]`` (``mpa_tpu``'s ``pca``, off
+    every live path): ``{"X": x, "k": k, "components": [d, k], the top k
+    right singular vectors as columns, "explained_variance": [k], s^2 /
+    (n - 1)}``. Each column's sign is the SVD's, so it may be the opposite
+    of ``mpa_tpu``'s."""
+    n = x.shape[0]
+    xc = x - torch.mean(x, dim=0, keepdim=True) if center else x
+    _, s, vt = torch.linalg.svd(xc, full_matrices=False)
+    return {"X": x, "k": k, "components": vt[:k].T,
+            "explained_variance": (s[:k] ** 2) / (n - 1)}

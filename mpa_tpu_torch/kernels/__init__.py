@@ -52,6 +52,19 @@ BF16_KERNELS = (
     "windowed_scatter_mean_kernel",
 )
 
+# Each kernel's CUDA source, under ``csrc/``.
+SOURCES: Dict[str, str] = {
+    name: f"mpa_tpu_torch/kernels/csrc/{src}" for name, src in (
+        ("knn_kernel", "knn.cu"), ("fps_kernel", "fps.cu"), ("gather_rows_kernel", "gather.cu"),
+        ("transition_attention_fwd_kernel", "attention.cu"),
+        ("scatter_add_rows_kernel", "scatter_add.cu"),
+        ("transition_attention_bwd_kernel", "attention_bwd.cu"),
+        ("scatter_mean_kernel", "scatter_mean.cu"), ("windowed_knn_kernel", "window_knn.cu"),
+        ("windowed_attention_fwd_kernel", "window_attention.cu"),
+        ("windowed_attention_bwd_kernel", "window_attention_bwd.cu"),
+        ("windowed_scatter_mean_kernel", "window_scatter_mean.cu"),
+        ("ball_query_kernel", "ball_query.cu"))}
+
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 LAUNCHES_BF16: Dict[str, int] = {name: 0 for name in BF16_KERNELS}
 

@@ -12,6 +12,7 @@ from mpa_tpu_torch.models.markov_pose import (
 )
 from mpa_tpu_torch.models.markov_semseg import MarkovSemSeg
 from mpa_tpu_torch.models.repsurf_ssg_2x import RepSurfSSG2x
+import mpa_tpu_torch.extras  # noqa: F401  (registers the extra models: dgcnn)
 
 __all__ = ["register_model", "get_model", "list_models", "MarkovClassifier", "MarkovCompletion",
            "MarkovPartSeg", "MarkovPartSegFP", "MarkovPose", "MarkovSemSeg", "RepSurfSSG2x",

@@ -13,7 +13,8 @@ torch cannot reproduce JAX's random bits, so parity runs use ``dropout=0``.
 checkpoint: its output is unused, so it changes nothing but its BatchNorm
 statistics, and it runs only in train mode (in eval mode it has no effect;
 XLA drops it there too). Its normal flips come from ``flips`` or, before
-the dropout masks, from the generator.
+the dropout masks, from the generator; ``umbrella_k`` and
+``umbrella_aggr`` are its ``k`` and ``aggr_type``.
 
 ``fps_generator`` and ``fps_starts`` reach the encoder, whose FPS scales
 take them in train mode when its ``fps_random_start`` is set
@@ -52,13 +53,18 @@ class MarkovClassifier(nn.Module):
         dropout: float = 0.5,
         use_umbrella: bool = False,
         compute_dtype: Any = None,
+        umbrella_k: int = 9,
+        umbrella_aggr: str = "sum",
     ):
         super().__init__()
         check_compute_dtype(compute_dtype)
         if not 0.0 <= dropout < 1.0:
             raise ValueError(f"dropout={dropout} must be in [0, 1)")
         self.dropout = dropout
-        self.surface_constructor = UmbrellaSurfaceConstructor() if use_umbrella else None
+        self.surface_constructor = None
+        if use_umbrella:
+            self.surface_constructor = UmbrellaSurfaceConstructor(k=umbrella_k,
+                                                                  aggr_type=umbrella_aggr)
         self.keep_high = KeepHighResolutionEncoder(
             npoints=npoints, channels=channels, residuals=residuals,
             num_neighbors=num_neighbors, out_features=encoder_features, dtype=compute_dtype,

@@ -8,9 +8,11 @@ group-all one, widths 128-128-256 / 256-256-512 / 512-512-1024 /
 1024-1024-2048, then the head ``fc1 -> bn1 -> ReLU -> dropout -> fc2 -> bn2
 -> ReLU -> dropout -> fc3`` and ``log_softmax``. ``sa_npoints`` shrinks the
 ladder and ``width_div`` divides every width (at least 8), for small runs;
-both at their defaults give the published configuration. The umbrella
-(k = 9, sum over the fan, with the plane offset) and the polar position
-channels are fixed, as every ``mpa_tpu`` configuration has them.
+both at their defaults give the published configuration. ``umbrella_k``,
+``umbrella_aggr`` and ``return_dist`` are the umbrella's ``k``,
+``aggr_type`` and ``return_dist`` (9, a sum over the fan, the plane offset
+kept), ``return_polar`` the set abstractions' polar position channels
+(kept), as in ``mpa_tpu``.
 
 In train mode the caller's ``generator`` draws the umbrella's normal flips
 first and then the dropout masks; ``flips`` gives the flips instead (a test
@@ -28,7 +30,9 @@ from torch import nn
 from mpa_tpu_torch.models.registry import register_model
 from mpa_tpu_torch.nn.linear import BatchNorm, seeded_dropout
 from mpa_tpu_torch.nn.surface_abstraction import SurfaceAbstractionCD
-from mpa_tpu_torch.nn.umbrella_constructor import UMBRELLA_CHANNELS, UmbrellaSurfaceConstructor
+from mpa_tpu_torch.nn.umbrella_constructor import UmbrellaSurfaceConstructor
+
+UMBRELLA_CHANNELS = 10  # the umbrella's width, the normals the set abstractions group
 
 
 class RepSurfSSG2x(nn.Module):
@@ -38,12 +42,18 @@ class RepSurfSSG2x(nn.Module):
         dropout: float = 0.4,
         sa_npoints: Optional[Tuple[int, int, int]] = None,
         width_div: int = 1,
+        umbrella_k: int = 9,
+        umbrella_aggr: str = "sum",
+        return_dist: bool = True,
+        return_polar: bool = True,
     ):
         super().__init__()
         if not 0.0 <= dropout < 1.0:
             raise ValueError(f"dropout={dropout} must be in [0, 1)")
         self.dropout = dropout
-        self.surface_constructor = UmbrellaSurfaceConstructor()
+        self.surface_constructor = UmbrellaSurfaceConstructor(
+            k=umbrella_k, channels=UMBRELLA_CHANNELS, aggr_type=umbrella_aggr,
+            return_dist=return_dist)
         npts = tuple(sa_npoints or (512, 128, 32))
 
         def w(*chs):
@@ -54,11 +64,12 @@ class RepSurfSSG2x(nn.Module):
         feat_ch = 0
         for i, (npoint, radius, mlp) in enumerate(stages):
             setattr(self, f"sa{i + 1}", SurfaceAbstractionCD(
-                npoint, radius, 24, UMBRELLA_CHANNELS + feat_ch, mlp))
+                npoint, radius, 24, UMBRELLA_CHANNELS + feat_ch, mlp,
+                return_polar=return_polar))
             feat_ch = mlp[-1]
         mlp4 = w(1024, 1024, 2048)
         self.sa4 = SurfaceAbstractionCD(0, 0.0, 0, UMBRELLA_CHANNELS + feat_ch, mlp4,
-                                        group_all=True)
+                                        group_all=True, return_polar=return_polar)
         h1, h2 = w(512, 256)
         self.fc1 = nn.Linear(mlp4[-1], h1)
         self.bn1 = BatchNorm(h1)

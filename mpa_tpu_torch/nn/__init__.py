@@ -1,5 +1,5 @@
 """Markov transition blocks and the RepSurf blocks (umbrella surface
-constructor, set abstraction), channel-last; train mode follows the module's
+constructor, the set abstractions), channel-last; train mode follows the module's
 ``training`` flag (``BatchNorm`` reads it, and the umbrella constructor's
 random normal inversion)."""
 
@@ -11,7 +11,7 @@ from mpa_tpu_torch.nn.fuse import Fuse, compose_fps_chain
 from mpa_tpu_torch.nn.feature_propagation import PointNetFeaturePropagation
 from mpa_tpu_torch.nn.keephigh_partseg import KeepHighResolutionPartSeg
 from mpa_tpu_torch.nn.umbrella_constructor import UmbrellaSurfaceConstructor
-from mpa_tpu_torch.nn.surface_abstraction import SurfaceAbstractionCD
+from mpa_tpu_torch.nn.surface_abstraction import SurfaceAbstraction, SurfaceAbstractionCD
 
 __all__ = [
     "BatchNorm",
@@ -24,5 +24,6 @@ __all__ = [
     "PointNetFeaturePropagation",
     "KeepHighResolutionPartSeg",
     "UmbrellaSurfaceConstructor",
+    "SurfaceAbstraction",
     "SurfaceAbstractionCD",
 ]

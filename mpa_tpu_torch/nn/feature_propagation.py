@@ -27,11 +27,15 @@ class PointNetFeaturePropagation(nn.Module):
         the caller passes one.
       out_channels: width of the output.
       act: the LeakyReLU after the BatchNorm.
+      dtype: ``conv``'s compute dtype (``torch.bfloat16``: ``LinearUnit``'s
+        mixed precision form, its output bf16), as ``mpa_tpu``'s ``dtype``
+        field; None computes in float32.
     """
 
-    def __init__(self, in_channels: int, out_channels: int, act: bool = False):
+    def __init__(self, in_channels: int, out_channels: int, act: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv = LinearUnit(in_channels, out_channels, act=act)
+        self.conv = LinearUnit(in_channels, out_channels, act=act, dtype=dtype)
 
     def forward(self, xyz_fine: torch.Tensor, xyz_coarse: torch.Tensor,
                 feat_coarse: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:

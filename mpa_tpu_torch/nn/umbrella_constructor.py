@@ -8,10 +8,13 @@ BatchNorm and ReLU after the first two layers), then a sum, max or mean over
 the k - 1 triangles. BatchNorm statistics reduce over (B, N, G), as there.
 Submodule names follow the flax module.
 
-Every ``mpa_tpu`` model builds it with k = 9 and the train-time inversion
-on, so both are fixed here: in train mode each cloud's normals are flipped
-by a sign that the caller gives (``flips``, ``[B]`` of +1 or -1) or that is
-drawn from the caller's ``generator``.
+``k`` (9: the point and its 8 nearest, 8 triangles a fan), ``channels``
+(the MLP's width, 10), ``aggr_type``, ``return_dist`` (the plane offset
+among the triangle's channels, 10 of them; without it 9) and
+``random_inv`` (the train-time inversion) are ``mpa_tpu``'s fields, with
+its defaults. With ``random_inv``, in train mode each cloud's normals are
+flipped by a sign that the caller gives (``flips``, ``[B]`` of +1 or -1)
+or that is drawn from the caller's ``generator``.
 """
 
 from __future__ import annotations
@@ -34,36 +37,35 @@ from mpa_tpu_torch.geometry import (
 from mpa_tpu_torch.nn.linear import BatchNorm
 
 
-UMBRELLA_CHANNELS = 10  # centroid 3, polar 3, normal 3, plane offset 1
-UMBRELLA_K = 9  # the point and its 8 nearest: 8 triangles a fan
-
-
 class UmbrellaSurfaceConstructor(nn.Module):
-    """``mpa_tpu``'s constructor with ``return_dist=True`` and 10 channels
-    in and out, the form every ``mpa_tpu`` model builds."""
+    """``mpa_tpu``'s constructor: fans of ``k - 1`` triangles, a three-layer
+    MLP of width ``channels``, ``aggr_type`` over the fan."""
 
-    def __init__(self, aggr_type: str = "sum"):
+    def __init__(self, k: int = 9, channels: int = 10, aggr_type: str = "sum",
+                 return_dist: bool = True, random_inv: bool = True):
         super().__init__()
         if aggr_type not in ("sum", "max", "avg"):
             raise ValueError(f"aggr_type={aggr_type!r} must be 'sum', 'max' or 'avg'")
-        self.aggr_type = aggr_type
-        c = UMBRELLA_CHANNELS
-        self.mlp0 = nn.Linear(c, c, bias=False)
-        self.bn0 = BatchNorm(c)
-        self.mlp1 = nn.Linear(c, c)
-        self.bn1 = BatchNorm(c)
-        self.mlp2 = nn.Linear(c, c)
+        self.k, self.aggr_type = k, aggr_type
+        self.return_dist, self.random_inv = return_dist, random_inv
+        # centroid 3, polar 3, normal 3 (and plane offset 1)
+        c_in = 10 if return_dist else 9
+        self.mlp0 = nn.Linear(c_in, channels, bias=False)
+        self.bn0 = BatchNorm(channels)
+        self.mlp1 = nn.Linear(channels, channels)
+        self.bn1 = BatchNorm(channels)
+        self.mlp2 = nn.Linear(channels, channels)
 
     def forward(self, center: torch.Tensor, *, generator: Optional[torch.Generator] = None,
                 flips: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """center: ``[B, N, 3]`` -> ``[B, N, 10]`` surface features.
+        """center: ``[B, N, 3]`` -> ``[B, N, channels]`` surface features.
 
-        In train mode ``flips`` (``[B]`` signs) or, when it is None,
-        ``generator`` (on ``center``'s device) decides each cloud's
-        inversion; one of them is required there.
+        In train mode with ``random_inv``, ``flips`` (``[B]`` signs) or, when
+        it is None, ``generator`` (on ``center``'s device) decides each
+        cloud's inversion; one of them is required there.
         """
-        group_xyz = group_by_umbrella(center, center, k=UMBRELLA_K)  # [B, N, G, 3, 3]
-        if self.training:
+        group_xyz = group_by_umbrella(center, center, k=self.k)  # [B, N, G, 3, 3]
+        if self.training and self.random_inv:
             if flips is None:
                 if generator is None:
                     raise ValueError("train-mode normal inversion needs flips or a torch.Generator")
@@ -73,10 +75,14 @@ class UmbrellaSurfaceConstructor(nn.Module):
         group_normal = cal_normal(group_xyz, flips=flips, is_group=True)
         group_center = cal_center(group_xyz)
         group_polar = xyz2sphere(group_center)
-        group_pos = cal_const(group_normal, group_center)
-        group_normal, group_center, group_pos = check_nan_umbrella(
-            group_normal, group_center, group_pos)
-        feat = torch.cat([group_center, group_polar, group_normal, group_pos], dim=-1)
+        if self.return_dist:
+            group_pos = cal_const(group_normal, group_center)
+            group_normal, group_center, group_pos = check_nan_umbrella(
+                group_normal, group_center, group_pos)
+            feat = torch.cat([group_center, group_polar, group_normal, group_pos], dim=-1)
+        else:
+            group_normal, group_center = check_nan_umbrella(group_normal, group_center)
+            feat = torch.cat([group_center, group_polar, group_normal], dim=-1)
 
         feat = F.relu(self.bn0(self.mlp0(feat)))
         feat = F.relu(self.bn1(self.mlp1(feat)))

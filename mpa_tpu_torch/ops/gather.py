@@ -10,6 +10,7 @@ whose forward launches ``gather_rows_kernel`` (``kernels/csrc/gather.cu``, in
 backward launches ``scatter_add_rows_kernel``
 (``kernels/csrc/scatter_add.cu``, in :func:`scatter_add_form`'s form); on a
 CPU tensor it takes :func:`gather_plain`, which autograd differentiates.
+:func:`mod_index` is ``mpa_tpu``'s row scatter-replace.
 
 bf16 rows (the mixed precision models') stay bf16 on both devices: the
 gather copies them as they are, and the gradient's scatter-add sums bf16
@@ -342,6 +343,23 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         out = _GatherPlainBf16.apply(points, idx.reshape(B, -1))
         return out.reshape(tuple(idx.shape) + (C,))
     return gather_plain(points, idx)
+
+
+def mod_index(base: torch.Tensor, mod_idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Rows of ``base [B, N, D]`` at per-cloud indices ``mod_idx [B, M]``
+    replaced by ``values [B, M, D]``, in a copy (``mpa_tpu``'s
+    ``mod_index``, which nothing calls; an indexed assignment there too,
+    outside any kernel). Where ``mod_idx`` names a row twice, which of its
+    values lands is unspecified, as in ``mpa_tpu`` (a CUDA write is not
+    ordered)."""
+    if base.dim() != 3 or tuple(mod_idx.shape) != tuple(values.shape[:2]) or (
+            mod_idx.shape[0] != base.shape[0]):
+        raise ValueError(f"mod_index: base [B,N,D], mod_idx [B,M], values [B,M,D] expected, got "
+                         f"{tuple(base.shape)}, {tuple(mod_idx.shape)}, {tuple(values.shape)}")
+    out = base.clone()
+    batch = torch.arange(base.shape[0], device=base.device)[:, None]
+    out[batch, mod_idx.long()] = values.to(base.dtype)
+    return out
 
 
 def resort_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

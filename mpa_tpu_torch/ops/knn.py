@@ -2,7 +2,8 @@
 
 Counterpart of ``mpa_tpu/ops/knn.py::knn``: exact squared distances in
 float32, the k smallest per query in ascending order, ties to the lowest
-index (``lax.top_k``'s order). On a CUDA tensor it launches ``knn_kernel``
+index (``lax.top_k``'s order), and its ``knn_self`` and ``knn_point2``. On a
+CUDA tensor :func:`knn` launches ``knn_kernel``
 (``kernels/csrc/knn.cu``); on a CPU tensor it takes :func:`knn_plain`.
 The kernel's entry is the custom op ``mpa::knn`` (``ops/library.py``),
 which :func:`knn_cuda` calls; :func:`knn` calls it directly where no
@@ -178,3 +179,28 @@ def knn(
         return knn_cuda(k, base, query)
     _check(k, base, query)
     return knn_plain(k, base, query)
+
+
+def knn_self(k: int, points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`knn` of a point set against itself: each point's own match,
+    at distance 0, first (ties to the lowest index)."""
+    return knn(k, points, points)
+
+
+def knn_point2(k: int, points: torch.Tensor, generator: torch.Generator
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Self-kNN that breaks coincident duplicates at random
+    (``mpa_tpu/ops/knn.py::knn_point2``, which nothing calls, and takes no
+    kernel there either): every zero distance but a point's own becomes
+    ``10 + noise`` (standard normal noise from ``generator``, on the points'
+    device), so a duplicate no longer ties its twin; the own match stays 0
+    and first. Plain PyTorch on both devices. Returns
+    ``(sqr_dists [B, N, k] float32, idx [B, N, k] int32)``, ascending."""
+    _check(k, points, points)
+    d = square_distance(points, points)  # [B, N, N]
+    noise = torch.randn(d.shape, generator=generator, device=d.device)
+    d = torch.where(d == 0.0, 10.0 + noise, d)
+    diag = torch.eye(d.shape[-1], dtype=torch.bool, device=d.device)
+    d = torch.where(diag, torch.zeros_like(d), d)
+    dist, idx = torch.sort(d, dim=-1, stable=True)
+    return dist[..., :k].contiguous(), idx[..., :k].to(torch.int32).contiguous()

@@ -1,4 +1,5 @@
-"""Pairwise squared distance, the root op under kNN.
+"""Pairwise squared distance, the root op under kNN, and the cosine Gram
+matrix ``inner_correlation``.
 
 Counterpart of ``mpa_tpu/ops/pairwise.py::square_distance``: the expanded
 form ``|a|^2 + |b|^2 - 2 a.b^T`` in float32, clamped at 0. The clamp matters:
@@ -13,6 +14,8 @@ neighbours even where two distances differ only in their last bit.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -42,3 +45,28 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     cross = dot_in_channel_order(src.unsqueeze(-2), dst.unsqueeze(-3))  # [..., N, M]
     out = (s2.unsqueeze(-1) + d2.unsqueeze(-2)) - 2.0 * cross
     return torch.clamp_min(out, 0.0)
+
+
+def inner_correlation(z: torch.Tensor, index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cosine-similarity Gram matrix of a point or feature set
+    (``mpa_tpu/ops/pairwise.py::inner_correlation``, which nothing calls).
+
+    Args:
+      z: ``[B, N, C]`` features.
+      index: optional ``[B, S]`` or ``[B, S, K]`` rows gathered first
+        (``index_points``: ``gather_rows_kernel`` on the card).
+
+    Returns:
+      ``[B, N, N]`` (``[B, S, S]``, ``[B, S, K, K]``) float32 cosines: each
+      row normalised by its norm clamped at 1e-12 inside the square root
+      (torch ``F.normalize``'s clamp, with a zero gradient on a zero row),
+      then ``z_n @ z_n^T``.
+    """
+    if index is not None:
+        from mpa_tpu_torch.ops.gather import index_points
+
+        z = index_points(z, index)
+    z = z.float()
+    norm = torch.sqrt(torch.clamp_min(torch.sum(z * z, dim=-1, keepdim=True), 1e-24))
+    z_n = z / norm
+    return torch.matmul(z_n, z_n.transpose(-1, -2))

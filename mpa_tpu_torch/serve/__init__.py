@@ -3,6 +3,7 @@
 ``load_classifier`` builds the classifier of a preset on a device, with
 weights carried over from ``mpa_tpu`` variables or initialised from a seed,
 and returns a callable ``points [B, N, 3] -> log-probs [B, num_classes]``
+(logits for ``model="dgcnn"``)
 that runs in eval mode under ``torch.inference_mode()``. ``load_segmenter``
 does the same for a part-seg preset: ``(points [B, N, 3], category [B]) ->
 per-point log-probs [B, N, num_parts]`` (``shapenetpart_fp`` too, and the
@@ -133,6 +134,7 @@ def load_classifier(
     device: DeviceLike = None,
     seed: int = 0,
     compute_dtype: Optional[torch.dtype] = None,
+    **overrides,
 ) -> Classifier:
     """Build the preset's classifier on ``device`` (default ``cuda``).
 
@@ -147,8 +149,12 @@ def load_classifier(
         same seed gives the same weights on every device.
       compute_dtype: ``torch.bfloat16`` for ``markov_cls``'s mixed precision
         (float32 weights, bf16 activations), or None.
+      overrides: fields of the preset replaced before the model is built:
+        ``model`` (``load_classifier(model="dgcnn")``, which answers logits,
+        as ``mpa_tpu``'s DGCNN does), ``num_classes``.
     """
-    return Classifier(*_load(preset, "cls", variables, device, seed, compute_dtype))
+    return Classifier(*_load(preset, "cls", variables, device, seed, compute_dtype,
+                             **overrides))
 
 
 def load_segmenter(

@@ -5,7 +5,8 @@ mechanical. Flax path ``params/a/b/kernel`` (a Dense ``[in, out]``) becomes
 ``a.b.weight`` ``[out, in]``; ``params/a/bias`` becomes ``a.bias``; a norm's
 ``params/a/scale`` becomes ``a.weight``; ``batch_stats/a/mean`` and ``var``
 become ``a.running_mean`` and ``a.running_var`` (with ``a.num_batches_tracked``
-set to 0, a buffer flax has no counterpart for). Values become float32, but
+set to 0, a buffer flax has no counterpart for); any other ``params/a/p``, a
+raw parameter, becomes ``a.p`` as it is (no transpose). Values become float32, but
 float64 leaves (``mpa_tpu`` run with ``jax_enable_x64``) stay float64.
 """
 
@@ -34,11 +35,14 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 def _torch_entries(key: str, value: np.ndarray) -> Dict[str, torch.Tensor]:
     parts = key.split("/")
     hits = [i for i, p in enumerate(parts) if p in _COLLECTIONS]
-    if not hits or len(parts) < hits[0] + 3:
+    if not hits or len(parts) < hits[0] + 2:
         raise KeyError(f"not a flax variable path: {key!r}")
     collection = parts[hits[0]]
     path, leaf = parts[hits[0] + 1 : -1], parts[-1]
-    mod = ".".join(path)
+
+    def name(attr: str) -> str:  # a leaf of the root module keeps its bare name
+        return ".".join(path + [attr])
+
     value = np.asarray(value)
     t = torch.from_numpy(np.array(value, dtype=np.float64 if value.dtype == np.float64
                                   else np.float32))
@@ -46,17 +50,20 @@ def _torch_entries(key: str, value: np.ndarray) -> Dict[str, torch.Tensor]:
         if leaf == "kernel":
             if t.dim() != 2:
                 raise ValueError(f"{key}: Dense kernel must be 2-D, got {tuple(t.shape)}")
-            return {f"{mod}.weight": t.t().contiguous()}
+            return {name("weight"): t.t().contiguous()}
         if leaf == "bias":
-            return {f"{mod}.bias": t}
+            return {name("bias"): t}
         if leaf == "scale":
-            return {f"{mod}.weight": t}
-    else:
-        if leaf == "mean":
-            return {f"{mod}.running_mean": t,
-                    f"{mod}.num_batches_tracked": torch.tensor(0, dtype=torch.long)}
-        if leaf == "var":
-            return {f"{mod}.running_var": t}
+            return {name("weight"): t}
+        # Any other leaf is a raw parameter (``self.param`` outside a Dense or
+        # a norm): NetVLAD's ``cluster_weights2``, the displacement kernels'
+        # ``displacement`` and ``weights``. It keeps its name and shape.
+        return {name(leaf): t}
+    if leaf == "mean":
+        return {name("running_mean"): t,
+                name("num_batches_tracked"): torch.tensor(0, dtype=torch.long)}
+    if leaf == "var":
+        return {name("running_var"): t}
     raise KeyError(f"unknown flax leaf {key!r}")
 
 

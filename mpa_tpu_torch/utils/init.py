@@ -3,7 +3,8 @@
 ``mpa_tpu``'s Dense layers start from flax's ``lecun_normal`` (a normal of
 variance ``1/fan_in`` truncated at two standard deviations, rescaled to keep
 that variance) with zero bias, where they have one; BatchNorm starts at
-scale 1, bias 0, mean 0, variance 1. Torch cannot reproduce JAX's random streams, so the same seed
+scale 1, bias 0, mean 0, variance 1; a raw parameter (the extras') starts
+from its own initialiser there. Torch cannot reproduce JAX's random streams, so the same seed
 gives other numbers than in ``mpa_tpu``; tests that compare the two carry
 the weights across instead.
 
@@ -35,8 +36,12 @@ _TRUNC_STD = 0.87962566103423978
 def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise every Linear and BatchNorm of ``module`` in place, in
     module order, from ``generator`` (a CPU generator, so the weights do not
-    depend on the device the module later moves to)."""
+    depend on the device the module later moves to), and every raw
+    parameter through its module's ``reset_flax_parameters(generator)``
+    (``mpa_tpu``'s initialiser of that parameter)."""
     for m in module.modules():
+        if hasattr(m, "reset_flax_parameters"):
+            m.reset_flax_parameters(generator)
         if isinstance(m, nn.Linear):
             std = math.sqrt(1.0 / m.in_features) / _TRUNC_STD
             w = torch.empty(m.weight.shape, dtype=torch.float32)

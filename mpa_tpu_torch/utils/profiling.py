@@ -7,15 +7,18 @@ reads; :func:`estimate_flops` counts the FLOPs of one call with
 ``torch.utils.flop_counter.FlopCounterMode``, which counts the PyTorch
 operators it knows (matmuls, convolutions) and not the port's own kernels
 or elementwise work, as XLA's cost analysis in ``mpa_tpu`` counts what
-XLA compiles. ``mpa_tpu``'s xplane parsing has no counterpart: the
-profiler's ``key_averages()`` gives the breakdown by kernel
-(``profile_port.py``).
+XLA compiles. :func:`op_breakdown` and :func:`category_breakdown` read the
+device time of a finished ``torch.profiler`` profile by kernel and by
+category (:func:`kernel_category`: the port's kernels one by one, cuBLAS's
+matrix products, everything else), as ``mpa_tpu``'s read an XSpace by XLA
+op and HLO category. ``mpa_tpu``'s ``load_xspace`` has no counterpart:
+the profile is read in the process that took it, with no trace file.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Iterator
+from typing import Callable, Iterator, List, Tuple
 
 import torch
 from torch import nn
@@ -48,3 +51,70 @@ def estimate_flops(fn: Callable, *args, **kwargs) -> float:
     with FlopCounterMode(display=False) as counter:
         fn(*args, **kwargs)
     return float(counter.get_total_flops())
+
+
+# The port's kernels by launch name; the windowed ones first, since
+# "knn_kernel" and "scatter_mean_kernel" are parts of their names.
+PORT_KERNELS = ("windowed_knn_kernel", "windowed_attention_fwd_kernel",
+                "windowed_attention_bwd_kernel", "windowed_scatter_mean_kernel",
+                "knn_kernel", "fps_kernel", "gather_rows_kernel",
+                "transition_attention_fwd_kernel", "scatter_add_rows_kernel",
+                "transition_attention_bwd_kernel", "scatter_mean_kernel", "ball_query_kernel")
+MATMUL = "matmul (cuBLAS)"
+OTHER = "other PyTorch kernels"
+
+
+def kernel_category(name: str) -> str:
+    """The category of a device kernel named ``name``: the port kernel it
+    belongs to (``fps_slice_kernel``, the sliced form, is ``fps_kernel``),
+    ``MATMUL`` for cuBLAS's and CUTLASS's products, else ``OTHER``."""
+    if "fps_slice_kernel" in name:
+        return "fps_kernel"
+    for k in PORT_KERNELS:
+        if k in name:
+            return k
+    low = name.lower()
+    if "gemm" in low or "sgemm" in low or "cutlass" in low or "xmma" in low:
+        return MATMUL
+    return OTHER
+
+
+def device_events(prof: torch.profiler.profile) -> list:
+    """The device kernels of a finished profile: its CUDA events less the
+    spans that annotate a region (an optimizer's step), which overlap the
+    kernels inside them."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def op_breakdown(prof: torch.profiler.profile) -> Tuple[float, List[dict]]:
+    """Device time by kernel name of a finished profile: ``(total_ms,
+    rows)``, rows ``{"name", "category", "ms", "count", "source"}`` sorted by
+    time, largest first (``category`` by :func:`kernel_category`;
+    ``source`` the ``.cu`` file of a port kernel, else empty). ``ms`` sums
+    every launch in the profile: divide by the steps for a step's share."""
+    from mpa_tpu_torch.kernels import SOURCES
+
+    rows: dict = {}
+    total = 0.0
+    for e in device_events(prof):
+        ms = (e.time_range.end - e.time_range.start) / 1e3  # us -> ms
+        cat = kernel_category(e.name)
+        row = rows.setdefault(e.name, {"name": e.name, "category": cat, "ms": 0.0, "count": 0,
+                                       "source": SOURCES.get(cat, "")})
+        row["ms"] += ms
+        row["count"] += 1
+        total += ms
+    return total, sorted(rows.values(), key=lambda r: -r["ms"])
+
+
+def category_breakdown(prof: torch.profiler.profile) -> Tuple[float, List[dict]]:
+    """:func:`op_breakdown` summed by category: ``(total_ms, rows)``, rows
+    ``{"category", "ms", "count"}`` sorted by time, largest first."""
+    total, rows = op_breakdown(prof)
+    cats: dict = {}
+    for r in rows:
+        c = cats.setdefault(r["category"], {"category": r["category"], "ms": 0.0, "count": 0})
+        c["ms"] += r["ms"]
+        c["count"] += r["count"]
+    return total, sorted(cats.values(), key=lambda r: -r["ms"])

@@ -14,13 +14,16 @@ at 1024 points, batch 64; ``shapenetpart`` at 2048 points, batch 32;
 weights, seed 0; MODEL one of cls, partseg, semseg, repsurf, or
 ``partseg_fp``, ``pose``, ``completion``: ``shapenetpart_fp`` at 2048
 points, batch 32, ``pose_modelnet40`` at 1024 and ``completion`` on
-512-point partial clouds, batch 64, on the training CLI's eval clouds),
+512-point partial clouds, batch 64, on the training CLI's eval clouds, or
+``dgcnn``: ``scanobjectnn_cls`` with ``--model dgcnn``, 1024 points, batch
+64),
 answers two warm-up requests, then traces ``--requests``
 requests of ``--batch`` clouds with ``torch.profiler`` and prints: the host
 wall time per request, the device's busy share of that wall time (the union
 of kernel intervals), and device time per request grouped by kind (the port's
-kernels, matrix products, everything else) and by kernel name, and the
-peak of allocated device memory. With
+kernels, matrix products, everything else:
+``mpa_tpu_torch.utils.profiling.category_breakdown``) and by kernel name
+(``op_breakdown``), and the peak of allocated device memory. With
 ``--train`` the unit is the preset's train step (its optimizer, dropout 0.5,
 train-mode BatchNorm) on the training CLI's synthetic clouds instead of a
 request. ``--bf16`` builds ``markov_cls`` or ``markov_partseg`` with
@@ -75,27 +78,20 @@ import statistics
 import subprocess
 import sys
 import time
-from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-# The windowed names first: "knn_kernel" and "scatter_mean_kernel" are
-# parts of theirs.
-PORT_KERNELS = ("windowed_knn_kernel", "windowed_attention_fwd_kernel",
-                "windowed_attention_bwd_kernel", "windowed_scatter_mean_kernel",
-                "knn_kernel", "fps_kernel", "gather_rows_kernel",
-                "transition_attention_fwd_kernel", "scatter_add_rows_kernel",
-                "transition_attention_bwd_kernel", "scatter_mean_kernel", "ball_query_kernel")
 PRESETS = {"cls": "scanobjectnn_cls", "partseg": "shapenetpart", "semseg": "s3dis_semseg",
            "repsurf": "scanobjectnn_2x", "partseg_fp": "shapenetpart_fp",
-           "pose": "pose_modelnet40", "completion": "completion"}
+           "pose": "pose_modelnet40", "completion": "completion", "dgcnn": "scanobjectnn_cls"}
 # --medians: the requests and train steps a root's process times of each model.
 MEDIAN_REQUESTS, MEDIAN_STEPS = 60, 30
 # Preset fields each model is profiled with, beyond the preset's own.
-OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="window_all")}
+OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="window_all"),
+             "dgcnn": dict(model="dgcnn")}
 
 
 TIMED = ("knn_kernel", "windowed_knn_kernel", "fps_kernel", "transition_attention_fwd_kernel",
@@ -107,18 +103,6 @@ TIMED = ("knn_kernel", "windowed_knn_kernel", "fps_kernel", "transition_attentio
 REQUEST_ONLY = ("fps_kernel", "windowed_knn_kernel", "transition_attention_fwd_kernel",
                 "windowed_attention_fwd_kernel", "scatter_mean_kernel",
                 "windowed_scatter_mean_kernel", "ball_query_kernel")
-
-
-def kind(name: str) -> str:
-    if "fps_slice_kernel" in name:  # fps_kernel's sliced form (feature clouds)
-        return "fps_kernel"
-    for k in PORT_KERNELS:
-        if k in name:
-            return k
-    low = name.lower()
-    if "gemm" in low or "sgemm" in low or "cutlass" in low or "xmma" in low:
-        return "matmul (cuBLAS)"
-    return "other PyTorch kernels"
 
 
 def exported_program(serve, make):
@@ -186,7 +170,7 @@ def make_requests(model: str, batch: int, points: int, dtype_kw: dict, exported:
             pts, cats, _ = realistic_partseg(batch, points, seed=i)
             return torch.from_numpy(pts).cuda(), torch.from_numpy(cats).cuda()
     else:
-        serve = load_classifier(PRESETS[model], seed=0, **dtype_kw)
+        serve = load_classifier(PRESETS[model], seed=0, **OVERRIDES.get(model, {}), **dtype_kw)
 
         def make(i):
             return (torch.from_numpy(
@@ -550,6 +534,8 @@ def main() -> int:
             print(json.dumps(time_saved(Path(args.time_saved), set(args.names.split(",")))))
         return 0
     sys.path.insert(0, str(REPO))
+    from mpa_tpu_torch.utils.profiling import category_breakdown, device_events, op_breakdown
+
     if args.kernels:
         return kernels_main(args)
     if args.medians:
@@ -588,10 +574,7 @@ def main() -> int:
         Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(args.trace)
 
-    # Device events, less the spans that annotate a region (the optimizer's
-    # step), which overlap the kernels inside them.
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    kernels = device_events(prof)
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -604,12 +587,8 @@ def main() -> int:
     if cur_e is not None:
         busy += cur_e - cur_s
     n = args.requests
-    by_kind, by_name, count = defaultdict(float), defaultdict(float), defaultdict(int)
-    for e in kernels:
-        dur = (e.time_range.end - e.time_range.start) / 1e3  # us -> ms
-        by_kind[kind(e.name)] += dur / n
-        by_name[e.name] += dur / n
-        count[e.name] += 1
+    by_kind = {r["category"]: r["ms"] / n for r in category_breakdown(prof)[1]}
+    by_name = op_breakdown(prof)[1]
     wall_ms = wall * 1e3 / n
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -624,11 +603,11 @@ def main() -> int:
     print(f"device busy per {unit}: {busy / 1e3 / n:.3f} ms "
           f"({100 * busy / 1e3 / n / wall_ms:.1f}% of wall); "
           f"kernels per {unit}: {len(kernels) / n:.1f}")
-    for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+    for k, v in by_kind.items():
         print(f"  {k:36s} {v:8.3f} ms")
     print(f"top kernels by device time per {unit}:")
-    for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"  {v:8.3f} ms  x{count[name] / n:5.1f}  {name[:110]}")
+    for r in by_name[:15]:
+        print(f"  {r['ms'] / n:8.3f} ms  x{r['count'] / n:5.1f}  {r['name'][:110]}")
     print(json.dumps({"model": cfg.model, "neighbor_mode": args.neighbor_mode, "bf16": args.bf16,
                       "exported": args.exported,
                       "unit": unit, "wall_ms": wall_ms, "busy_ms": busy / 1e3 / n,

@@ -72,6 +72,13 @@ lane) apart; and the bf16 ``markov_cls`` and ``markov_partseg`` (exact,
 ``window`` and ``window_all``) against the CPU with their launch counts by
 dtype.
 
+The extras' shapes: ``knn_kernel`` at DGCNN's k = 20 over C = 64 and 128
+(B = 4 and the served B = 64) and Disp3D's k = 16 over xyz, ``opcheck`` of
+the three ops at those shapes, an EdgeConv block's gather and scatter-add
+(bit for bit), the DGCNN served and one step against the CPU (through
+``chip_smoke.py``'s phase 10 functions and limits), and the off-path kernel
+users of phase 10d.
+
 Run on a machine with an H100:
     python -m pytest tests/test_torch_port_cuda.py -q
 """
@@ -127,6 +134,8 @@ from mpa_tpu_torch.serve.export import custom_ops
 from test_torch_port_op_cases import CASES as OP_CASES
 from test_torch_port_op_cases import case as op_case
 from test_torch_port_op_cases import case_id as op_case_id
+from test_torch_port_op_cases import PATH_CASES as OP_PATH_CASES
+from test_torch_port_op_cases import path_case as op_path_case
 
 
 @pytest.fixture
@@ -193,6 +202,11 @@ KNN_CASES = [
     (16, 7000, 500, 3, False, False, "grid", 2),
     (16, 777, 333, 9, False, False, "normal", 2),
     (8, 1001, 300, 130, False, False, "normal", 2),
+    # DGCNN's feature-space searches at k = 20 (C = 64 and 128; B = 64, its
+    # served batch, takes the 4 x 4 micro-tiles), and Disp3D's at k = 16 on xyz.
+    (20, 1024, 1024, 64, False, True, "normal", 4),
+    (20, 1024, 1024, 128, False, True, "normal", 64),
+    (16, 1024, 1024, 3, False, True, "normal", 8),
 ]
 
 
@@ -1703,6 +1717,76 @@ def test_opcheck_custom_op(dev, name, dtype, shifted):
     if not name.endswith("attention_bwd"):
         utils.append("test_aot_dispatch_dynamic")
     torch.library.opcheck(getattr(torch.ops.mpa, name).default, args, test_utils=utils)
+
+
+@pytest.mark.parametrize("case", sorted(OP_PATH_CASES))
+def test_opcheck_custom_op_at_the_extras_shapes(dev, case):
+    """``opcheck`` of ``mpa::knn`` at k = 20 (C = 64, 128) and k = 16 (C = 3)
+    and of ``mpa::gather`` and ``mpa::scatter_add`` on an EdgeConv block's
+    rows (k = 20, C = 128), as ``test_opcheck_custom_op``."""
+    name, args, _ = op_path_case(case)
+    args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    torch.library.opcheck(getattr(torch.ops.mpa, name).default, args, test_utils=[
+        "test_schema", "test_autograd_registration", "test_faketensor",
+        "test_aot_dispatch_dynamic"])
+
+
+def test_edgeconv_gather_and_scatter_add_match_plain(dev):
+    """An EdgeConv block's gather of the k = 20 feature-space neighbours'
+    rows (C = 128, ``index_points`` on ``[B, N, 20]`` indices) and its
+    backward: the gather bit for bit, the scatter-add bit for bit against
+    the plain version on the CPU (edges in ascending order) and within 1e-5
+    of it on the card; one launch of each."""
+    x = _cloud(21, (8, 1024, 128), dev)
+    _, idx = knn_plain(20, x, x)
+    g = _cloud(22, (8, 1024, 20, 128), dev)
+    leaf = x.clone().requires_grad_(True)
+    kernels.reset_launch_counts()
+    rows = index_points(leaf, idx)
+    (grad,) = torch.autograd.grad(rows, leaf, g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gather_rows_kernel"] == 1
+    assert kernels.LAUNCHES["scatter_add_rows_kernel"] == 1
+    assert torch.equal(rows, gather_plain(x, idx))
+    flat_idx, flat_g = idx.reshape(8, -1), g.reshape(8, -1, 128)
+    assert torch.equal(grad.cpu(), scatter_add_plain(flat_g.cpu(), flat_idx.cpu(), 1024))
+    _close(grad, scatter_add_plain(flat_g, flat_idx, 1024), rtol=1e-5)
+
+
+def test_dgcnn_on_cuda_matches_cpu_and_counts_launches(dev):
+    """The DGCNN at its published widths served on the card against the CPU
+    (``chip_smoke.dgcnn_parity``, B = 4 x 1024, within ``DGCNN_LIMITS``,
+    its 8 launches) and one step against the CPU's
+    (``chip_smoke.train_parity``, the path's limits and launches)."""
+    report = chip_smoke.dgcnn_parity()
+    assert chip_smoke.within(report, chip_smoke.DGCNN_LIMITS), report
+    counts = {}
+    for name, _ in report["recorded"]:
+        counts[name] = counts.get(name, 0) + 1
+    assert counts == chip_smoke.DGCNN_FORWARD
+    assert [inp["k"] for name, inp in report["recorded"] if name == "knn_kernel"] == [20] * 4
+    assert [inp["base"].shape[-1] for name, inp in report["recorded"]
+            if name == "knn_kernel"] == [3, 64, 64, 128]
+    spec = chip_smoke.DGCNN_PATH
+    parity = chip_smoke.train_parity("dgcnn")
+    assert parity["launches"] == spec["per_train_step"]
+    assert parity["loss_diff"] <= spec["loss_limit"]
+    name, units = parity["grad_units"][0]
+    assert units <= spec["grad_limit"], f"grad {name}: {units:.3f} units"
+    name, err = parity["stat"]
+    assert err <= spec["stat_limit"], f"{name}: relative error {err:.3e}"
+
+
+def test_offpath_kernel_users_on_cuda_match_cpu(dev):
+    """``chip_smoke.offpath_phase``: ``Disp3DEncoder``, ``knn_surface_features``,
+    ``inner_correlation(index=)`` and the k = 5 umbrella of a train-mode
+    ``MarkovClassifier`` on the card against the CPU, every launch replayed."""
+    counts, rows = chip_smoke.offpath_phase("test")
+    assert counts["disp3d"] == {"knn_kernel": 1, "gather_rows_kernel": 7}
+    assert counts["knn_surface_features"] == {"knn_kernel": 1, "gather_rows_kernel": 1}
+    assert counts["inner_correlation"] == {"gather_rows_kernel": 1}
+    assert counts["umbrella_k5"]["knn_kernel"] == chip_smoke.CLS_FORWARD["knn_kernel"] + 1
+    assert len(rows) == sum(sum(c.values()) for c in counts.values())
 
 
 def _tiny_export_case(path: str, dev):

@@ -24,6 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import test_torch_port_cls  # noqa: E402,F401  (pins torch to one thread)
 
 from test_torch_port_op_cases import B, C, CASES, K, N, S, SPEC, case, case_id  # noqa: E402
+from test_torch_port_op_cases import PATH_CASES, path_case  # noqa: E402
 
 from mpa_tpu_torch import kernels  # noqa: E402
 from mpa_tpu_torch.ops import library  # noqa: E402
@@ -49,6 +50,17 @@ def test_fake_matches_the_plain_op_and_launches_nothing(name, dtype, shifted):
             assert g is None
             continue
         assert g.device.type == "meta"
+        assert (tuple(g.shape), g.dtype, g.stride()) == (tuple(w.shape), w.dtype, w.stride())
+
+
+@pytest.mark.parametrize("case", sorted(PATH_CASES))
+def test_fake_matches_the_plain_op_at_the_extras_shapes(case):
+    """The fakes at DGCNN's and Disp3D's launch shapes (k = 20 and 16, C up
+    to 128), as above."""
+    name, args, want = path_case(case)
+    meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
+    got = getattr(torch.ops.mpa, name).default(*meta)
+    for g, w in zip(_outputs(got), _outputs(want)):
         assert (tuple(g.shape), g.dtype, g.stride()) == (tuple(w.shape), w.dtype, w.stride())
 
 

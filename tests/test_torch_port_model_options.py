@@ -16,6 +16,21 @@
 - ``LinearUnit(norm="layer")`` against ``mpa_tpu`` and the frozen
   reference fixture ``nn_linear_unit_layer.npz``.
 - ``mi_aux_loss``: value and gradient.
+- The constructor options ``mpa_tpu`` has beyond its defaults, each at a
+  non-default value against its ``mpa_tpu`` module:
+  ``UmbrellaSurfaceConstructor(k, channels, aggr_type, return_dist,
+  random_inv)`` in eval and train mode (its running statistics too),
+  ``SurfaceAbstractionCD(pos_channel, return_polar, return_normal)``,
+  ``MarkovClassifier(umbrella_k, umbrella_aggr)`` in train mode (where the
+  umbrella runs) with the flips ``mpa_tpu`` draws from its key,
+  ``RepSurfSSG2x(umbrella_k, umbrella_aggr, return_dist, return_polar)``
+  and ``PointNetFeaturePropagation(dtype=torch.bfloat16)``. Tolerances: the
+  modules within 1e-5 (1e-4 in train mode for the set abstraction and for
+  the whole repsurf classifier, as ``test_torch_port_repsurf.py`` holds
+  them), the classifier's train-mode log-probs within 1e-4; bf16 within
+  one bf16 rounding of the output's largest entry (``2^-8`` of it: the
+  float32 sums of a bf16 product in another order may round to the
+  neighbouring bf16 value), the output bf16 on both sides.
 """
 
 import os
@@ -30,6 +45,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from oracle_cache import oracle, subtree  # noqa: E402
 from test_torch_port_cls import SMALL, _nest, _x, jax_variables, port  # noqa: E402
+from test_torch_port_repsurf import SMALL as REPSURF_SMALL  # noqa: E402
+from test_torch_port_repsurf import _sa_inputs  # noqa: E402
 
 import chip_smoke  # noqa: E402  (grad_error_units and its limit; imports torch only)
 from mpa_tpu.models import MarkovPartSeg as JaxMarkovPartSeg  # noqa: E402
@@ -39,10 +56,19 @@ from mpa_tpu.nn import KeepHighResolutionEncoder as JaxEncoder  # noqa: E402
 from mpa_tpu.nn import LinearUnit as JaxLinearUnit  # noqa: E402
 from mpa_tpu.nn import LocalMerge as JaxLocalMerge  # noqa: E402
 from mpa_tpu.nn import LocalTrans as JaxLocalTrans  # noqa: E402
+from mpa_tpu.models import MarkovClassifier as JaxMarkovClassifier  # noqa: E402
+from mpa_tpu.models.repsurf_ssg_2x import RepSurfSSG2x as JaxRepSurf  # noqa: E402
+from mpa_tpu.nn.feature_propagation import (  # noqa: E402
+    PointNetFeaturePropagation as JaxFeaturePropagation,
+)
+from mpa_tpu.nn.surface_abstraction import SurfaceAbstractionCD as JaxSACD  # noqa: E402
+from mpa_tpu.nn.umbrella_constructor import UmbrellaSurfaceConstructor as JaxUmbrella  # noqa: E402
 from mpa_tpu.train.losses import mi_aux_loss as jax_mi_aux_loss  # noqa: E402
 from mpa_tpu_torch.models import MarkovClassifier, MarkovPartSeg, MarkovPartSegFP  # noqa: E402
-from mpa_tpu_torch.models import MarkovSemSeg  # noqa: E402
+from mpa_tpu_torch.models import MarkovSemSeg, RepSurfSSG2x  # noqa: E402
 from mpa_tpu_torch.nn import LinearUnit, LocalMerge, LocalTrans  # noqa: E402
+from mpa_tpu_torch.nn import PointNetFeaturePropagation, SurfaceAbstractionCD  # noqa: E402
+from mpa_tpu_torch.nn import UmbrellaSurfaceConstructor  # noqa: E402
 from mpa_tpu_torch.nn.keephigh import KeepHighResolutionEncoder  # noqa: E402
 from mpa_tpu_torch.ops.fps import pick_fps_bands  # noqa: E402
 from mpa_tpu_torch.train import mi_aux_loss  # noqa: E402
@@ -351,3 +377,168 @@ def test_mi_aux_loss_matches_mpa_tpu():
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
     for t, g in zip(ts, want_grads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-5, atol=1e-7)
+
+
+# -- the constructor options ----------------------------------------------------------
+
+
+def jit_variables(module, x):
+    """``jax_variables`` of a whole model from a jitted init (the eager one
+    takes 20-30 s for these two)."""
+    variables = jax.jit(lambda r, a: module.init(r, a, train=False))(jax.random.key(0), x)
+    flat = {"/".join(p.key for p in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(dict(variables))[0]}
+    rng = np.random.default_rng(0)
+    for key, v in flat.items():
+        leaf = key.rsplit("/", 1)[-1]
+        if leaf in ("scale", "var"):
+            flat[key] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+        elif leaf in ("bias", "mean"):
+            flat[key] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+    return flat
+
+
+def _stats_close(tm, upd, names):
+    for bn in names:
+        stats = upd["batch_stats"]
+        for part in bn.split("."):
+            stats = stats[part]
+        mod = tm.get_submodule(bn)
+        np.testing.assert_allclose(mod.running_mean.numpy(), np.asarray(stats["mean"]),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(mod.running_var.numpy(), np.asarray(stats["var"]),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("k,channels,aggr,return_dist,random_inv,train", [
+    (5, 12, "max", False, True, True),  # 9 channels a triangle, flips from the key
+    (7, 16, "avg", True, False, True),  # no inversion: neither flips nor a generator needed
+    (5, 12, "sum", False, True, False),
+])
+def test_umbrella_constructor_options_match_mpa_tpu(k, channels, aggr, return_dist,
+                                                    random_inv, train):
+    x = _x(30 + k, (3, 40, 3))
+    kw = dict(k=k, channels=channels, aggr_type=aggr, return_dist=return_dist,
+              random_inv=random_inv)
+    jm = JaxUmbrella(**kw)
+    flat = jax_variables(jm, jnp.asarray(x))
+    assert flat["params/mlp0/kernel"].shape == (10 if return_dist else 9, channels)
+    tm, unused = port(UmbrellaSurfaceConstructor(**kw), flat)
+    assert unused == []
+    if not train:
+        want = jm.apply(_nest(flat), jnp.asarray(x), train=False)
+        with torch.no_grad():
+            got = tm(torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        return
+    key = jax.random.key(k)
+    want, upd = jm.apply(_nest(flat), jnp.asarray(x), train=True, rng=key, mutable=["batch_stats"])
+    flips = None
+    if random_inv:
+        flips = torch.from_numpy(
+            np.asarray(jax.random.randint(key, (3,), 0, 2)).astype(np.float32) * 2.0 - 1.0)
+    tm.train()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), flips=flips)
+    assert tuple(got.shape) == (3, 40, channels)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    _stats_close(tm, upd, ("bn0", "bn1"))
+
+
+@pytest.mark.parametrize("pos_channel,polar,normal,group_all,train", [
+    (3, False, False, False, False),  # offsets only; the features without the normals
+    (3, True, True, False, True),  # the polar channels on the feature side of the split
+    (4, True, False, True, False),  # the whole cloud, split inside the polar channels
+])
+def test_surface_abstraction_cd_options_match_mpa_tpu(pos_channel, polar, normal, group_all,
+                                                      train):
+    center, nrm, feature = _sa_inputs(23, feat=12)
+    kw = dict(npoint=0 if group_all else 32, radius=0.0 if group_all else 0.2,
+              nsample=0 if group_all else 24, group_all=group_all, return_polar=polar,
+              return_normal=normal)
+    jm = JaxSACD(pos_channel=pos_channel, mlp=(16, 24), **kw)
+    jargs = (jnp.asarray(center), jnp.asarray(nrm), jnp.asarray(feature))
+    flat = jax_variables(jm, *jargs)
+    tm, unused = port(SurfaceAbstractionCD(in_channel=(10 if normal else 0) + 12, mlp=(16, 24),
+                                           pos_channel=pos_channel, **kw), flat)
+    assert unused == [] and tm.mlp_l0.in_features == pos_channel
+    targs = (torch.from_numpy(center), torch.from_numpy(nrm), torch.from_numpy(feature))
+    if train:
+        (_, _, want), upd = jm.apply(_nest(flat), *jargs, train=True, mutable=["batch_stats"])
+        tm.train()
+    else:
+        _, _, want = jm.apply(_nest(flat), *jargs, train=False)
+    with torch.no_grad():
+        _, _, got = tm(*targs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4 if train else 1e-5)
+    if train:
+        _stats_close(tm, upd, ("bn_l0", "bn_f0"))
+
+
+def test_markov_cls_umbrella_options_match_mpa_tpu():
+    """``use_umbrella`` with ``umbrella_k=5`` and a max over the fan, in
+    train mode (the umbrella runs there only), dropout 0: the log-probs
+    within 1e-4 (train-mode BatchNorm over four clouds, float32 sums in
+    another order) and the umbrella's updated statistics within 1e-5, the
+    normal flips those ``mpa_tpu`` draws from the key it is given."""
+    B, N = 4, 128
+    x = _x(40, (B, N, 3))
+    kw = dict(num_classes=10, use_umbrella=True, umbrella_k=5, umbrella_aggr="max",
+              dropout=0.0, npoints=SMALL["npoints"], channels=SMALL["channels"],
+              encoder_features=SMALL["encoder_features"])
+    jm = JaxMarkovClassifier(**kw)
+    flat = jit_variables(jm, jnp.asarray(x))
+    assert flat["params/surface_constructor/mlp0/kernel"].shape == (10, 10)
+    want, upd = jax.jit(lambda v, a: jm.apply(v, a, train=True, rng=KEY, mutable=["batch_stats"]))(
+        _nest(flat), jnp.asarray(x))
+    flips = np.asarray(jax.random.randint(KEY, (B,), 0, 2)).astype(np.float32) * 2.0 - 1.0
+    tm, unused = port(MarkovClassifier(**kw), flat)
+    assert unused == [] and (tm.surface_constructor.k, tm.surface_constructor.aggr_type) == (
+        5, "max")
+    tm.train()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), flips=torch.from_numpy(flips))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+    _stats_close(tm, upd, ("surface_constructor.bn0", "surface_constructor.bn1"))
+
+
+def test_repsurf_umbrella_and_polar_options_match_mpa_tpu():
+    """Eval log-probs of ``RepSurfSSG2x(umbrella_k=5, umbrella_aggr="avg",
+    return_dist=False, return_polar=False)`` at ``test_torch_port_repsurf``'s
+    small size, within 1e-4."""
+    x = _x(41, (2, 128, 3)) * np.float32(0.2)
+    kw = dict(num_classes=15, umbrella_k=5, umbrella_aggr="avg", return_dist=False,
+              return_polar=False, **REPSURF_SMALL)
+    jm = JaxRepSurf(**kw)
+    flat = jit_variables(jm, jnp.asarray(x))
+    want = np.asarray(jax.jit(lambda v, p: jm.apply(v, p, train=False))(_nest(flat),
+                                                                          jnp.asarray(x)))
+    tm, unused = port(RepSurfSSG2x(**kw), flat)
+    assert unused == [] and tm.sa1.mlp_l0.in_features == 3
+    assert tm.surface_constructor.mlp0.in_features == 9
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_feature_propagation_dtype_matches_mpa_tpu():
+    """``PointNetFeaturePropagation(dtype=torch.bfloat16)``: ``conv`` in
+    ``LinearUnit``'s mixed precision form, eval mode, against ``mpa_tpu``'s
+    ``dtype=jnp.bfloat16`` run eagerly (so XLA keeps every bf16 rounding)."""
+    rng = np.random.default_rng(42)
+    B, n, S, C, out = 2, 48, 16, 12, 8
+    fine, coarse, feats = (rng.standard_normal(s).astype(np.float32)
+                           for s in ((B, n, 3), (B, S, 3), (B, S, C)))
+    jm = JaxFeaturePropagation(out, dtype=jnp.bfloat16)
+    flat = jax_variables(jm, jnp.asarray(fine), jnp.asarray(coarse), jnp.asarray(feats))
+    want = jm.apply(_nest(flat), jnp.asarray(fine), jnp.asarray(coarse), jnp.asarray(feats),
+                    train=False)
+    tm, unused = port(PointNetFeaturePropagation(C, out, dtype=torch.bfloat16), flat)
+    assert unused == [] and tm.conv.dtype == torch.bfloat16
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(fine), torch.from_numpy(coarse), torch.from_numpy(feats))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2.0 ** -8 * float(np.abs(want).max()))

@@ -1,9 +1,10 @@
 """The arguments of each ``mpa::`` op at small shapes, with its plain
 version's outputs, shared by the CPU test of the ops' fakes
 (``test_torch_port_custom_ops.py``) and their ``opcheck`` on the card
-(``test_torch_port_cuda.py``); and, on the CPU, that the cases cover every
-op, in bf16 exactly the ops of the kernels that take bf16 storage. Imports
-no JAX.
+(``test_torch_port_cuda.py``); the same for the shapes of DGCNN's and
+Disp3D's launches (``PATH_CASES``); and, on the CPU, that the cases cover
+every op, in bf16 exactly the ops of the kernels that take bf16 storage.
+Imports no JAX.
 """
 
 import numpy as np
@@ -98,6 +99,36 @@ CASES = ([(name, torch.float32, False) for name in library.OPS if name not in AT
 
 def case_id(name: str, dtype: torch.dtype, shifted: bool) -> str:
     return f"{name}-{str(dtype)[6:]}{'-shifted' if shifted else ''}"
+
+
+# The DGCNN and Disp3D launches at narrowed B and N: knn_kernel at k = 20 over
+# feature clouds of C = 64 and 128 and at k = 16 over xyz, and the gather and
+# scatter-add of an EdgeConv block's [B, N * 20] rows at C = 128.
+PATH_CASES = {
+    "dgcnn-knn-k20-c64": ("knn", 20, 64),
+    "dgcnn-knn-k20-c128": ("knn", 20, 128),
+    "disp3d-knn-k16-c3": ("knn", 16, 3),
+    "dgcnn-gather-k20-c128": ("gather", 20, 128),
+    "dgcnn-scatter_add-k20-c128": ("scatter_add", 20, 128),
+}
+
+
+def path_case(case: str):
+    """``(op name, op arguments, plain outputs)`` of ``PATH_CASES[case]`` on
+    CPU inputs: ``[2, 96, C]`` clouds (the kNN against themselves, as
+    DGCNN's and Disp3D's searches are), ``[2, 96 * k]`` rows."""
+    name, k, c = PATH_CASES[case]
+    rng = np.random.default_rng(1)
+    n = 96
+    if name == "knn":
+        points = _rand(rng, (B, n, c))
+        return name, (k, points, points), knn_plain(k, points, points)
+    idx = torch.from_numpy(rng.integers(0, n, (B, n * k))).to(torch.int32)
+    if name == "gather":
+        points = _rand(rng, (B, n, c))
+        return name, (points, idx), gather_plain(points, idx)
+    grads = _rand(rng, (B, n * k, c))
+    return name, (grads, idx, n), scatter_add_plain(grads, idx, n)
 
 
 def test_cases_cover_every_op_and_its_storage_types():

@@ -5,7 +5,7 @@ CPU.
 entry of ``chip_smoke.PLANTED_FAULTS``, replaces one text in one file (a
 kernel source, or for ``dp`` the data-parallel step) and
 reads the copy's ``--parity`` readings on the card (``bf16``: the mixed
-precision paths'); it raises when the text
+precision paths', ``dgcnn``: phase 10's DGCNN); it raises when the text
 does not occur exactly once. Here every entry's text is held to its file, so
 that a redesign which removes or duplicates a planted line fails in the
 CPU tests and not only on the card.
@@ -29,7 +29,7 @@ FAULTS = sorted(name for name, fault in chip_smoke.PLANTED_FAULTS.items() if fau
 @pytest.mark.parametrize("name", FAULTS)
 def test_planted_fault_text_occurs_once(name):
     path, file, old, new = chip_smoke.PLANTED_FAULTS[name]
-    assert path in ("partseg", "semseg", "repsurf", "dp", "bf16"), path
+    assert path in ("partseg", "semseg", "repsurf", "dp", "bf16", "dgcnn"), path
     assert file.startswith("mpa_tpu_torch/"), file  # the copies hold the port only
     text = (REPO / file).read_text()
     assert text.count(old) == 1, f"{name!r}: {old!r} occurs {text.count(old)} times in {file}"
@@ -38,5 +38,5 @@ def test_planted_fault_text_occurs_once(name):
 
 def test_every_parity_path_has_a_planted_fault():
     paths = {fault[0] for fault in chip_smoke.PLANTED_FAULTS.values() if fault is not None}
-    assert paths == {"partseg", "semseg", "repsurf", "dp", "bf16"}
+    assert paths == {"partseg", "semseg", "repsurf", "dp", "bf16", "dgcnn"}
     assert chip_smoke.PLANTED_FAULTS["none"] is None
