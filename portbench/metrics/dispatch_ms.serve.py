@@ -1,0 +1,4 @@
+"""Host ms from the benchmark's call into the program's serve entry to its
+return, the mean over the measured window's units."""
+
+from portbench.readings import dispatch_ms as read  # noqa: F401

@@ -1,0 +1,5 @@
+"""Device ms a train unit of the kernels that are neither the program's own
+nor matrix products: the model's glue (BatchNorm, elementwise work,
+reductions, concatenations), copies and fills left out."""
+
+from portbench.readings import glue_ms as read  # noqa: F401

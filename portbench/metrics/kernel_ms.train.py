@@ -1,0 +1,3 @@
+"""Device ms a train unit of the program's twelve hand-written kernels."""
+
+from portbench.readings import kernel_ms as read  # noqa: F401
