@@ -144,7 +144,7 @@ from mpa_tpu_torch.train.votes import vote_predict
 from mpa_tpu_torch.utils.device import resolve_device
 from mpa_tpu_torch.utils.init import apply_weight_init, init_like_flax
 from mpa_tpu_torch.utils.logging import ExperimentLogger, make_logger
-from mpa_tpu_torch.utils.profiling import count_params
+from mpa_tpu_torch.utils.profiling import count_params, span
 from mpa_tpu_torch.utils.torch_import import import_reference_checkpoint
 
 # (train clouds, eval clouds) of the synthetic dataset, per task; for
@@ -346,13 +346,14 @@ def augment_batch(cfg: TrainConfig, points: torch.Tensor, step: int,
     scale, shift = augmentation(cfg)
     if not (scale or shift):
         return points
-    n, rows = _rows(shard, points.shape[0])
-    generator = stream_generator(cfg.seed, AUG_STREAM, step, points.device)
-    if scale:
-        points = augment.scale_points(points, augment.draw_scales(generator, n, points)[rows])
-    if shift:
-        points = augment.shift_points(points, augment.draw_shifts(generator, n, points)[rows])
-    return points
+    with span("train.augment", step):
+        n, rows = _rows(shard, points.shape[0])
+        generator = stream_generator(cfg.seed, AUG_STREAM, step, points.device)
+        if scale:
+            points = augment.scale_points(points, augment.draw_scales(generator, n, points)[rows])
+        if shift:
+            points = augment.shift_points(points, augment.draw_shifts(generator, n, points)[rows])
+        return points
 
 
 def _say(log: Optional[ExperimentLogger], msg: str) -> None:

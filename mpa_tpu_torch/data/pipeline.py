@@ -8,7 +8,11 @@ the card runs the previous step; the consumer issues every device copy,
 stream behind the running step. That keeps ``mpa_tpu``'s threading
 contract (``pipeline.py:55-64``): the producer does host work only. An
 exception in the producer reaches the consumer and is raised there; it does
-not pose as the end of the data.
+not pose as the end of the data. The producer's spans are
+``pipeline.transform`` and ``pipeline.pin``, the consumer's
+``pipeline.wait`` (which counts the waits, and those that found the queue
+empty, in ``profiling.COUNTS``) and ``pipeline.copy``; each takes the
+batch's index as its unit.
 
 Data parallelism: every rank iterates the same shuffled global batches (the
 same seed) and keeps its own rows (:func:`host_shard`);
@@ -17,6 +21,7 @@ same seed) and keeps its own rows (:func:`host_shard`);
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Any, Callable, Iterator, Optional, Sequence, Tuple
@@ -24,6 +29,8 @@ from typing import Any, Callable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from mpa_tpu_torch.utils.profiling import COUNTS, span
 
 
 def batch_iterator(
@@ -83,10 +90,13 @@ def prefetch_to_device(
 
     def producer():
         try:
-            for item in iterator:
+            for i, item in enumerate(iterator):
                 if transform is not None:
-                    item = transform(item)
-                if not put(_map(host, item)):
+                    with span("pipeline.transform", i):
+                        item = transform(item)
+                with span("pipeline.pin", i):
+                    item = _map(host, item)
+                if not put(item):
                     return
             put(end)
         except BaseException as e:  # the consumer raises it; it is not the end
@@ -95,13 +105,19 @@ def prefetch_to_device(
     thread = threading.Thread(target=producer, daemon=True, name="prefetch_to_device")
     thread.start()
     try:
-        while True:
-            item = q.get()
+        for i in itertools.count():
+            with span("pipeline.wait", i):
+                COUNTS["input_waits"] += 1
+                if q.empty():
+                    COUNTS["input_empty"] += 1
+                item = q.get()
             if item is end:
                 return
             if isinstance(item, BaseException):
                 raise item
-            yield _map(lambda t: t.to(device, non_blocking=True), item)
+            with span("pipeline.copy", i):
+                item = _map(lambda t: t.to(device, non_blocking=True), item)
+            yield item
     finally:
         stop.set()
         thread.join(timeout=10.0)

@@ -21,7 +21,9 @@ Every max over neighbours or points is ``torch.amax``, whose gradient, like
 ``jnp.max``'s, is split evenly among tied maxima. The kNN's distances are
 dropped, so it searches detached features: no gradient flows through the
 search, as none does in ``mpa_tpu``. Dropout acts in train mode only and
-draws its masks from the ``torch.Generator`` the caller passes.
+draws its masks from the ``torch.Generator`` the caller passes. The four
+blocks and the head are the spans ``block.edge1`` .. ``block.edge4`` and
+``block.head`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from mpa_tpu_torch.models.registry import register_model
 from mpa_tpu_torch.nn.linear import BatchNorm, leaky_relu, seeded_dropout
 from mpa_tpu_torch.ops.gather import index_points
 from mpa_tpu_torch.ops.knn import knn
+from mpa_tpu_torch.utils.profiling import span
 
 
 def get_graph_feature(x: torch.Tensor, k: int = 20) -> torch.Tensor:
@@ -97,15 +100,17 @@ class DGCNN(nn.Module):
         x = points[..., :3]
         blocks = []
         for i in range(self.depth):
-            x = getattr(self, f"edge{i + 1}")(x)
+            with span(f"block.edge{i + 1}"):
+                x = getattr(self, f"edge{i + 1}")(x)
             blocks.append(x)
-        x = leaky_relu(self.bn5(self.conv5(torch.cat(blocks, dim=-1))))
-        g = torch.cat([torch.amax(x, dim=1), torch.mean(x, dim=1)], dim=-1)
-        g = leaky_relu(self.bn6(self.linear1(g)))
-        g = seeded_dropout(g, self.dropout, self.training, generator)
-        g = leaky_relu(self.bn7(self.linear2(g)))
-        g = seeded_dropout(g, self.dropout, self.training, generator)
-        return self.linear3(g)
+        with span("block.head"):
+            x = leaky_relu(self.bn5(self.conv5(torch.cat(blocks, dim=-1))))
+            g = torch.cat([torch.amax(x, dim=1), torch.mean(x, dim=1)], dim=-1)
+            g = leaky_relu(self.bn6(self.linear1(g)))
+            g = seeded_dropout(g, self.dropout, self.training, generator)
+            g = leaky_relu(self.bn7(self.linear2(g)))
+            g = seeded_dropout(g, self.dropout, self.training, generator)
+            return self.linear3(g)
 
 
 @register_model("dgcnn")

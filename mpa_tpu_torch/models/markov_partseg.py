@@ -15,7 +15,9 @@ starts when ``fps_generator`` or ``fps_starts`` is given
 ``compute_dtype=torch.bfloat16`` is ``mpa_tpu``'s mixed precision, in every
 neighbour mode: the parameters stay float32, the encoder-decoder and
 ``conv8`` .. ``conv10`` compute in bf16, and ``conv11`` takes their output
-widened to float32 (``mpa_tpu/models/markov_partseg.py:64-75``).
+widened to float32 (``mpa_tpu/models/markov_partseg.py:64-75``). The head
+(``conv8`` .. ``conv11``) is the span ``block.head``
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from mpa_tpu_torch.models.registry import register_model
 from mpa_tpu_torch.nn.keephigh_partseg import KeepHighResolutionPartSeg
 from mpa_tpu_torch.nn.linear import LinearUnit, check_compute_dtype, seeded_dropout
 from mpa_tpu_torch.nn.window_mode import morton_sort, morton_unsort
+from mpa_tpu_torch.utils.profiling import span
 
 
 class MarkovPartSeg(nn.Module):
@@ -82,13 +85,14 @@ class MarkovPartSeg(nn.Module):
         xyz, inv_perm = points[..., :3], None
         if self.keep_high.windowed:
             xyz, inv_perm = morton_sort(xyz)
-        x = self.conv8(self.keep_high(xyz, label_onehot, fps_generator=fps_generator,
-                                      fps_starts=fps_starts))
-        x = seeded_dropout(x, self.dropout, self.training, generator)
-        x = self.conv10(self.conv9(x))
-        # conv11 has no compute dtype: its weight's type promotes the input.
-        x = x.to(torch.promote_types(x.dtype, self.conv11.weight.dtype))
-        return morton_unsort(F.log_softmax(self.conv11(x), dim=-1), inv_perm)
+        x = self.keep_high(xyz, label_onehot, fps_generator=fps_generator,
+                           fps_starts=fps_starts)
+        with span("block.head"):
+            x = seeded_dropout(self.conv8(x), self.dropout, self.training, generator)
+            x = self.conv10(self.conv9(x))
+            # conv11 has no compute dtype: its weight's type promotes the input.
+            x = x.to(torch.promote_types(x.dtype, self.conv11.weight.dtype))
+            return morton_unsort(F.log_softmax(self.conv11(x), dim=-1), inv_perm)
 
 
 @register_model("markov_partseg")

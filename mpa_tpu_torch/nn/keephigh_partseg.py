@@ -24,6 +24,10 @@ does with ``rng`` (``keephigh_partseg.py:76-77``): ``fps_starts[i]``
 scale), or starts drawn from ``fps_generator`` (``draw_starts``, in ladder
 order).
 
+Each block call is a span named ``block.<attribute>`` (``block.la0``,
+``block.fps1`` for the FPS and gather into scale 1, ``block.up_conv4``,
+...; ``utils/profiling.py``).
+
 ``dtype`` (``torch.bfloat16``: ``mpa_tpu``'s mixed precision) gives every
 state, Fuse and LinearUnit bf16 compute, in every neighbour mode: the
 windowed attention and scatter-mean take bf16 rows as the exact ones do,
@@ -48,6 +52,7 @@ from mpa_tpu_torch.nn.window_mode import (
     spec_or_none,
 )
 from mpa_tpu_torch.ops.gather import index_points
+from mpa_tpu_torch.utils.profiling import span
 
 
 class KeepHighResolutionPartSeg(WindowModes, nn.Module):
@@ -104,35 +109,44 @@ class KeepHighResolutionPartSeg(WindowModes, nn.Module):
         positions: List[Optional[torch.Tensor]] = [xyz] + [None] * top
         fps_list: List[torch.Tensor] = []
         knn_list: List[Optional[torch.Tensor]] = [None] * (top + 1)  # scale s into scale s-1
-        feats[0], knn_list[0], dist0 = self.la0(xyz, xyz)  # self-kNN of the full cloud
+        with span("block.la0"):  # self-kNN of the full cloud
+            feats[0], knn_list[0], dist0 = self.la0(xyz, xyz)
         cur_xyz = xyz
         for i, npoint in enumerate(self.npoints):
-            fps_idx = self.fps_scale(cur_xyz, npoint, i, fps_generator, fps_starts)
-            new_xyz = index_points(cur_xyz, fps_idx)
-            feats[i + 1], knn_list[i + 1], _ = getattr(self, f"la{i + 1}")(
-                new_xyz, cur_xyz, feature=feats[i], fps_idx=fps_idx)
+            with span(f"block.fps{i + 1}"):
+                fps_idx = self.fps_scale(cur_xyz, npoint, i, fps_generator, fps_starts)
+                new_xyz = index_points(cur_xyz, fps_idx)
+            with span(f"block.la{i + 1}"):
+                feats[i + 1], knn_list[i + 1], _ = getattr(self, f"la{i + 1}")(
+                    new_xyz, cur_xyz, feature=feats[i], fps_idx=fps_idx)
             positions[i + 1] = new_xyz
             fps_list.append(fps_idx)
             cur_xyz = new_xyz
 
         # ---- decoder: up-states interleaved with cross-scale Fuse ----------
         up_feats: List[Optional[torch.Tensor]] = [None] * (top + 1)
-        up_feats[top] = self.fuse1(feats[:top] + [self.mlp(feats[top])],
-                                   fps_list, knn_list, positions)
+        with span("block.mlp"):
+            coarsest = self.mlp(feats[top])
+        with span("block.fuse1"):
+            up_feats[top] = self.fuse1(feats[:top] + [coarsest], fps_list, knn_list, positions)
         for step, s in enumerate(range(top - 1, -1, -1)):
             num_fine = positions[s].shape[1]
             # Windowed, the stored encoder index is window-constrained exactly
             # when the pair admits a spec (LocalMerge's admission).
             wspec = spec_or_none(positions[s + 1].shape[1], num_fine) if self.windowed else None
-            up = getattr(self, f"up_conv{s + 1}")(
-                up_feats[s + 1], mid_op=scatter_mean_op(knn_list[s + 1], num_fine, wspec))
+            with span(f"block.up_conv{s + 1}"):
+                up = getattr(self, f"up_conv{s + 1}")(
+                    up_feats[s + 1], mid_op=scatter_mean_op(knn_list[s + 1], num_fine, wspec))
             # Scale 0's self-kNN was searched by la0 on the same positions.
-            f_s, _, _ = getattr(self, f"la{s + 1}_up")(
-                positions[s], positions[s], feature=up,
-                spatial_knn=(dist0, knn_list[0]) if s == 0 else None)
+            with span(f"block.la{s + 1}_up"):
+                f_s, _, _ = getattr(self, f"la{s + 1}_up")(
+                    positions[s], positions[s], feature=up,
+                    spatial_knn=(dist0, knn_list[0]) if s == 0 else None)
             # The fuse sees the pre-decoder features at every other scale.
             mixed = feats[:s] + [f_s] + feats[s + 1:]
-            up_feats[s] = getattr(self, f"fuse{step + 2}")(mixed, fps_list, knn_list, positions)
+            with span(f"block.fuse{step + 2}"):
+                up_feats[s] = getattr(self, f"fuse{step + 2}")(mixed, fps_list, knn_list,
+                                                               positions)
 
         # ---- per-point output ----------------------------------------------
         global_rep = torch.cat([torch.amax(f, dim=1) for f in up_feats], dim=-1)  # [B, sum(ch)]

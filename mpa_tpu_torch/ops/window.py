@@ -72,6 +72,7 @@ from mpa_tpu_torch.ops.pairwise import dot_in_channel_order
 from mpa_tpu_torch.ops.scatter import scatter_mean_bwd_cuda, scatter_mean_fake, scatter_mean_plain
 from mpa_tpu_torch.ops.scatter import check_args as check_scatter
 from mpa_tpu_torch.ops.scatter import check_cuda_args as check_scatter_cuda
+from mpa_tpu_torch.utils import profiling
 from mpa_tpu_torch.utils.device import on_cuda
 
 # windowed_knn_kernel's limits: each thread's list of k in registers (32
@@ -139,6 +140,7 @@ def check_in_window(idx: torch.Tensor, spec: WindowSpec, what: str) -> None:
         raise ValueError(f"{what}: idx has {idx.shape[1]} rows, the spec {spec.S}")
     win0 = spec.window_start(idx.device)[None, :, None]
     outside = (idx < win0) | (idx >= win0 + spec.window)
+    profiling.host_sync("window.check")
     if bool(outside.any()):
         raise ValueError(f"{what}: {int(outside.sum())} indices lie outside their rows' "
                          f"windows ({spec})")

@@ -17,6 +17,10 @@ these are its eager counterparts, and ``export_inference``,
 ``save_exported``, ``load_exported`` and ``load_inference``
 (``serve/export.py``) its exported ones. The model code is imported when a
 loader builds a model, so that loading an exported artifact imports none.
+An eager call is the span ``serve.request``, with ``serve.inputs`` (the
+conversion, the checks and the copy to the card) and ``serve.forward``
+inside it, and counts the calls and the points where it blocks the host on
+the card (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -30,12 +34,29 @@ from mpa_tpu_torch.configs import PRESETS, model_kwargs
 from mpa_tpu_torch.serve.export import (
     export_inference, load_exported, load_inference, save_exported,
 )
+from mpa_tpu_torch.utils import profiling
 from mpa_tpu_torch.utils.device import DeviceLike, resolve_device
+from mpa_tpu_torch.utils.profiling import span
 
 
 def _as_tensor(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     value = value if torch.is_tensor(value) else np.asarray(value)
-    return torch.as_tensor(value, dtype=dtype).to(device)
+    t = torch.as_tensor(value, dtype=dtype)
+    if t.device.type == "cpu" and device.type == "cuda":  # a blocking copy to the card
+        profiling.host_sync("serve.input_copy")
+    return t.to(device)
+
+
+def _read_int(t: torch.Tensor) -> int:
+    """``int(t)`` of a one-element tensor: a host read of the device."""
+    profiling.host_sync("serve.category_read")
+    return int(t)
+
+
+def _request() -> int:
+    """Count a serve call; its number is the unit of its spans."""
+    profiling.COUNTS["serve_calls"] += 1
+    return profiling.COUNTS["serve_calls"]
 
 
 def _points(points, device: torch.device) -> torch.Tensor:
@@ -53,9 +74,11 @@ class Classifier:
         self.device = device
 
     def __call__(self, points) -> torch.Tensor:
-        x = _points(points, self.device)
-        with torch.inference_mode():
-            return self.model(x)
+        with span("serve.request", _request()):
+            with span("serve.inputs"):
+                x = _points(points, self.device)
+            with span("serve.forward"), torch.inference_mode():
+                return self.model(x)
 
 
 class Segmenter:
@@ -67,16 +90,20 @@ class Segmenter:
         self.device = device
 
     def __call__(self, points, category) -> torch.Tensor:
-        x = _points(points, self.device)
-        cat = _as_tensor(category, torch.long, self.device)
-        n_cat = self.model.num_categories
-        if cat.dim() != 1 or cat.shape[0] != x.shape[0]:
-            raise ValueError(f"category must be [B={x.shape[0]}], got {tuple(cat.shape)}")
-        if cat.numel() and not (0 <= int(cat.min()) and int(cat.max()) < n_cat):
-            raise ValueError(f"category values must lie in [0, {n_cat})")
-        onehot = torch.nn.functional.one_hot(cat, n_cat).to(torch.float32)
-        with torch.inference_mode():
-            return self.model((x, onehot))
+        with span("serve.request", _request()):
+            with span("serve.inputs"):
+                x = _points(points, self.device)
+                cat = _as_tensor(category, torch.long, self.device)
+                n_cat = self.model.num_categories
+                if cat.dim() != 1 or cat.shape[0] != x.shape[0]:
+                    raise ValueError(f"category must be [B={x.shape[0]}], got "
+                                     f"{tuple(cat.shape)}")
+                if cat.numel() and not (0 <= _read_int(cat.min())
+                                        and _read_int(cat.max()) < n_cat):
+                    raise ValueError(f"category values must lie in [0, {n_cat})")
+                onehot = torch.nn.functional.one_hot(cat, n_cat).to(torch.float32)
+            with span("serve.forward"), torch.inference_mode():
+                return self.model((x, onehot))
 
 
 class SemanticSegmenter:
@@ -88,12 +115,14 @@ class SemanticSegmenter:
         self.device = device
 
     def __call__(self, points) -> torch.Tensor:
-        x = _points(points, self.device)
-        want = 3 + self.model.feature_channels
-        if x.shape[-1] != want:
-            raise ValueError(f"points must be [B, N, {want}], got {tuple(x.shape)}")
-        with torch.inference_mode():
-            return self.model(x)
+        with span("serve.request", _request()):
+            with span("serve.inputs"):
+                x = _points(points, self.device)
+                want = 3 + self.model.feature_channels
+                if x.shape[-1] != want:
+                    raise ValueError(f"points must be [B, N, {want}], got {tuple(x.shape)}")
+            with span("serve.forward"), torch.inference_mode():
+                return self.model(x)
 
 
 __all__ = [

@@ -35,6 +35,7 @@ from mpa_tpu_torch.configs import TrainConfig
 from mpa_tpu_torch.models.markov_pose import rotation_geodesic_loss
 from mpa_tpu_torch.train.losses import completion_loss, smooth_cls_loss, smooth_seg_loss
 from mpa_tpu_torch.train.schedules import Schedule, cosine_schedule, step_decay_schedule
+from mpa_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -95,28 +96,37 @@ def make_train_step(
     the step count before its update. The model runs in train mode, and
     takes ``state.fps_generator`` for its keyed FPS starts when one is set.
     ``reduce_grads`` (``GradReducer``) runs between the backward and the
-    optimizer.
+    optimizer. The step is the span ``train.step`` (its unit the step
+    count), with ``train.forward``, ``train.loss``, ``train.backward`` and
+    ``train.optimizer`` (the zero-gradient fill, ``reduce_grads`` and the
+    optimizer's step) inside it.
     """
 
     def train_step(state: TrainState, points: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        lr = float(schedule(state.step // steps_per_epoch))
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        keyed = {} if state.fps_generator is None else {"fps_generator": state.fps_generator}
-        loss = loss_fn(state.model(points, generator=state.generator, **keyed), labels)
-        loss.backward()
-        params = [p for group in state.optimizer.param_groups for p in group["params"]]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        loss = loss.detach()
-        if reduce_grads is not None:
-            loss = reduce_grads(params, loss)
-        state.optimizer.step()
-        state.step += 1
-        return loss
+        with span("train.step", state.step):
+            lr = float(schedule(state.step // steps_per_epoch))
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            state.model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            keyed = {} if state.fps_generator is None else {"fps_generator": state.fps_generator}
+            with span("train.forward"):
+                out = state.model(points, generator=state.generator, **keyed)
+            with span("train.loss"):
+                loss = loss_fn(out, labels)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                params = [p for group in state.optimizer.param_groups for p in group["params"]]
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                loss = loss.detach()
+                if reduce_grads is not None:
+                    loss = reduce_grads(params, loss)
+                state.optimizer.step()
+            state.step += 1
+            return loss
 
     return train_step
 

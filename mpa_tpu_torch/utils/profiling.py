@@ -13,15 +13,96 @@ category (:func:`kernel_category`: the port's kernels one by one, cuBLAS's
 matrix products, everything else), as ``mpa_tpu``'s read an XSpace by XLA
 op and HLO category. ``mpa_tpu``'s ``load_xspace`` has no counterpart:
 the profile is read in the process that took it, with no trace file.
+
+The program's own spans and counters live here too. :func:`span` marks a
+layer boundary of the program (the serve and train entries, the input
+pipeline, each model block; ``PERF.md`` lists the names). While
+``spans`` is None, the default, a span costs one read of that global;
+while it is a list, each span appends ``(name, parent, unit, thread,
+start_ns, end_ns)`` to it on ``time.time_ns()``'s clock, the one a
+``torch.profiler`` trace's events map onto through ``trace_start_ns()``,
+and enters a ``RecordFunction`` of the name (the profiler's
+``_RecordFunctionFast``, about 2 us; ``torch.profiler.record_function``
+costs 15-17 us a span on the card's host), so a profile shows the same
+names. ``COUNTS`` counts, whatever ``spans`` is, the points where
+the program blocks the host on the device (``host_syncs.<site>``), the
+serve calls, and the input pipeline's waits and how many found its queue
+empty.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Iterator, List, Tuple
+import threading
+import time
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
+
+# None: no span is kept. A list: each span appends
+# ``(name, parent, unit, thread, start_ns, end_ns)`` to it.
+spans: Optional[list] = None
+
+# The sites where the program blocks the host on the device, each counted
+# under ``host_syncs.<site>`` (:func:`host_syncs` sums them).
+SYNC_SITES = ("serve.input_copy", "serve.category_read", "window.check")
+COUNTS: Dict[str, int] = {**{f"host_syncs.{s}": 0 for s in SYNC_SITES},
+                          "serve_calls": 0, "input_waits": 0, "input_empty": 0}
+
+_OFF = contextlib.nullcontext()
+_open = threading.local()  # each thread's stack of open spans, as (name, unit)
+
+
+def reset_counts() -> None:
+    for name in COUNTS:
+        COUNTS[name] = 0
+
+
+def host_sync(site: str) -> None:
+    """Count one point where the program blocks the host on the device."""
+    COUNTS["host_syncs." + site] += 1
+
+
+def host_syncs(counts: Dict[str, int]) -> int:
+    """The host syncs of ``counts`` (a copy of ``COUNTS``), over every site."""
+    return sum(n for name, n in counts.items() if name.startswith("host_syncs."))
+
+
+class _Span:
+    __slots__ = ("out", "name", "unit", "parent", "start", "rf")
+
+    def __init__(self, out: list, name: str, unit):
+        self.out, self.name, self.unit = out, name, unit
+
+    def __enter__(self) -> None:
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.parent = stack[-1][0] if stack else None
+        if self.unit is None and stack:
+            self.unit = stack[-1][1]
+        stack.append((self.name, self.unit))
+        self.rf = torch._C._profiler._RecordFunctionFast(self.name)
+        self.rf.__enter__()
+        self.start = time.time_ns()
+
+    def __exit__(self, *exc) -> None:
+        end = time.time_ns()
+        self.rf.__exit__(*exc)
+        _open.stack.pop()
+        self.out.append((self.name, self.parent, self.unit, threading.current_thread().name,
+                         self.start, end))
+
+
+def span(name: str, unit=None):
+    """A context that marks the program's layer ``name``; ``unit`` identifies
+    the step, request or batch (a span without one takes its parent's). A
+    no-op while ``spans`` is None, and under ``torch.compile`` or
+    ``torch.export``, whose graphs take no profiler op."""
+    if spans is None or torch.compiler.is_compiling():
+        return _OFF
+    return _Span(spans, name, unit)
 
 
 @contextlib.contextmanager

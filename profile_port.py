@@ -33,15 +33,10 @@ requests through the model's exported program (``serve.export_inference``
 on the first request, saved and loaded back with ``load_inference``)
 instead of the eager loader, so that the host share of the two can be
 compared. Every traced request's clouds are made, and the request answered
-once, before the trace. Needs a CUDA card; exits non-zero without one.
-
-    python3 profile_port.py --medians [--against DIR ...]
-
-The eager request and train step times of cls and part-seg (their
-presets' batches; 60 requests cycling through four made before the clock
-starts, 30 steps after two warm-ups), each root in its own process in
-turns (others, this, this, others), with medians per root and pooled over
-a root's runs; written to ``chiprun_out/medians.json`` (``--out``).
+once, before the trace. The program's spans are on while it is traced, so
+``--trace`` shows its layers (``serve.request``, ``train.step``,
+``block.*``; ``mpa_tpu_torch/utils/profiling.py``) beside the kernels.
+Needs a CUDA card; exits non-zero without one.
 
     python3 profile_port.py --kernels [--bf16] [--names a,b] [--inputs PATH] [--against DIR ...]
 
@@ -74,7 +69,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -87,8 +81,6 @@ REPO = Path(__file__).resolve().parent
 PRESETS = {"cls": "scanobjectnn_cls", "partseg": "shapenetpart", "semseg": "s3dis_semseg",
            "repsurf": "scanobjectnn_2x", "partseg_fp": "shapenetpart_fp",
            "pose": "pose_modelnet40", "completion": "completion", "dgcnn": "scanobjectnn_cls"}
-# --medians: the requests and train steps a root's process times of each model.
-MEDIAN_REQUESTS, MEDIAN_STEPS = 60, 30
 # Preset fields each model is profiled with, beyond the preset's own.
 OVERRIDES = {"semseg": dict(num_points=16384, batch_size=2, neighbor_mode="window_all"),
              "dgcnn": dict(model="dgcnn")}
@@ -415,72 +407,6 @@ def kernels_main(args) -> int:
     return 0
 
 
-def medians_saved() -> dict:
-    """The eager request and train step times of cls and part-seg with the
-    ``mpa_tpu_torch`` first on ``sys.path``, in ms: ``MEDIAN_REQUESTS``
-    requests cycling through four made before the clock starts (each
-    answered once first, with two more as warm-ups), and ``MEDIAN_STEPS``
-    steps after two warm-ups (each step's batch made in it, as
-    ``cli.train`` makes it)."""
-    out = {}
-    for model in ("cls", "partseg"):
-        cfg = load_cfg(model)
-        for unit, n in (("request", MEDIAN_REQUESTS), ("step", MEDIAN_STEPS)):
-            if unit == "step":
-                run, warm, pick = make_train_steps(model, cfg.batch_size, {}), 2, lambda i: 2 + i
-            else:
-                run = make_requests(model, cfg.batch_size, cfg.num_points, {})
-                warm, pick = 6, lambda i: 2 + i % 4
-            for i in range(warm):
-                run(i)
-            torch.cuda.synchronize()
-            ms = []
-            for i in range(n):
-                t0 = time.perf_counter()
-                res = run(pick(i))
-                if unit == "step":
-                    float(res)  # waits for the step
-                else:
-                    torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-            out[f"{model} {unit}"] = ms
-            del run
-            torch.cuda.empty_cache()
-    return out
-
-
-def medians_main(args) -> int:
-    """``--medians``: this tree's and each ``--against`` root's eager
-    request and step times, each root in its own process, in turns."""
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(f"card: {card}", flush=True)
-    others = [Path(d).resolve() for d in args.against or []]
-    roots = ([(d.name, d) for d in others] + [("this", REPO), ("this", REPO)]
-             + [(d.name, d) for d in reversed(others)])
-    runs = []
-    for label, root in roots:
-        got = run_root(["--medians-saved"], root)
-        if got is None:
-            return 1
-        runs.append((label, got))
-        print(f"{label} ({root}): " + ", ".join(
-            f"{k} median {statistics.median(v):.3f} ms" for k, v in got.items()), flush=True)
-    pooled = {}
-    for label, got in runs:
-        for k, v in got.items():
-            pooled.setdefault(label, {}).setdefault(k, []).extend(v)
-    summary = {label: {k: statistics.median(v) for k, v in d.items()}
-               for label, d in pooled.items()}
-    for label, d in summary.items():
-        print(f"pooled {label}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in d.items()))
-    out = REPO / "chiprun_out" / (args.out or "medians.json")
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps({"card": card, "runs": runs, "medians": summary}, indent=1))
-    print(json.dumps({"card": card, "medians": summary}))
-    return 0
-
-
 def load_cfg(model: str):
     from mpa_tpu_torch.configs import PRESETS as CONFIGS
 
@@ -507,15 +433,11 @@ def main() -> int:
     ap.add_argument("--inputs", default=None,
                     help="with --kernels: keep the recording here, or reuse it")
     ap.add_argument("--out", default=None,
-                    help="with --kernels or --medians: the file under chiprun_out/ (default "
-                         "kernel_times.json, medians.json)")
+                    help="with --kernels: the file under chiprun_out/ (default "
+                         "kernel_times.json)")
     ap.add_argument("--exported", action="store_true",
                     help="requests through the model's exported program (serve.export_inference, "
                          "then load_inference), not the eager loader")
-    ap.add_argument("--medians", action="store_true",
-                    help="the eager request and step medians of cls and part-seg, with "
-                         "--against: against other checkouts")
-    ap.add_argument("--medians-saved", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--time-saved", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--record-saved", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--root", default=None, help=argparse.SUPPRESS)
@@ -523,23 +445,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: needs a CUDA card", file=sys.stderr)
         return 2
-    if args.time_saved or args.record_saved or args.medians_saved:
+    if args.time_saved or args.record_saved:
         sys.path[:0] = [args.root, str(REPO)]
-        if args.medians_saved:
-            print(json.dumps(medians_saved()))
-        elif args.record_saved:
+        if args.record_saved:
             record_kernel_inputs(Path(args.record_saved), args.bf16)
             print(json.dumps("recorded"))
         else:
             print(json.dumps(time_saved(Path(args.time_saved), set(args.names.split(",")))))
         return 0
     sys.path.insert(0, str(REPO))
+    from mpa_tpu_torch.utils import profiling
     from mpa_tpu_torch.utils.profiling import category_breakdown, device_events, op_breakdown
 
     if args.kernels:
         return kernels_main(args)
-    if args.medians:
-        return medians_main(args)
     cfg = load_cfg(args.model)
     batch, points = args.batch or cfg.batch_size, cfg.num_points
     if args.model == "completion":
@@ -564,12 +483,16 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for i in range(args.requests):
-            run(2 + i)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    profiling.spans = []  # the program's spans, so that the trace names its layers
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(args.requests):
+                run(2 + i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        profiling.spans = None
     if args.trace:
         Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(args.trace)
