@@ -20,7 +20,8 @@ and part-seg through ``cli.train`` and ``cli.eval`` (phase 5) and the
 S3DIS rooms through ``cli.train`` and the sliding scene inference (phase
 6), and DGCNN (``--model dgcnn``) served, trained and exported with the
 extras' other kernel users (phase 10). It shows that they run through the
-port's twelve hand-written kernels (nine forward, three backward):
+port's twelve hand-written kernels (nine forward, three backward) and, in
+train mode, the fused BatchNorm + LeakyReLU pair (phase 3b):
 
 1. the card (``nvidia-smi`` name and power limit), then the kernel build
    from ``mpa_tpu_torch/kernels/csrc`` and its seconds;
@@ -227,6 +228,12 @@ port's twelve hand-written kernels (nine forward, three backward):
    (``OFFPATH_REL_LIMIT``), every launch replayed. Its readings print as
    ``[10 ...]`` lines before the card line; the kernels line is phases
    1-9's;
+3b. the fused train-mode BatchNorm + LeakyReLU (``ops/batch_norm.py``,
+   run after the launch floor, or alone with ``--batch-norm``): forward and
+   backward against the plain version on the card at the rows of the main
+   paths' widest norms and at shapes that reach the kernels' other forms,
+   within ``BATCH_NORM_LIMITS``, each row's time beside its bound and the
+   plain version's time;
 4. a ``{"kernels": [...]}`` JSON line (the bf16 launches as entries of
    their own, ``NAME[bf16]``), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -455,6 +462,98 @@ DGCNN_LIMITS = {"max_abs": 1e-3}
 # another order (cuBLAS against the CPU), every kNN on coordinates (exact on
 # both sides) or its indices handed over.
 OFFPATH_REL_LIMIT = 1e-4
+
+
+# Phase 3b's rows ``(R, C, act)``: part-seg's full-resolution units at 256 x
+# 2048 points (C = 64, and 512 in its head) and DGCNN's last EdgeConv block at
+# 64 x 1024 x 20 edges (C = 256), the shapes the benchmark's train cells run;
+# then shapes that reach the reduction's other shapes (``reduce_config``): one
+# row, and seven, where each row group takes channels of its own; two and one
+# channels a thread; one block a column; many blocks a column at C = 1024.
+BATCH_NORM_ROWS = [(524288, 64, True), (524288, 512, True), (1310720, 256, True),
+                   (524288, 64, False)]
+BATCH_NORM_FORMS = [(1, 64, True), (7, 3, True), (1000, 10, False), (4096, 1030, True),
+                    (3, 2052, True), (65536, 1024, True), (64, 512, True)]
+# The kernels against the plain version on the card, each the largest
+# difference over the largest magnitude: the forward's output and running
+# statistics against ``batch_norm_act_plain``, the backward's against autograd
+# through it. The kernels take every sum in the order of PyTorch's own
+# reduction and round every step as the plain version's operations do, so
+# they agree bit for bit: each limit is 0.
+BATCH_NORM_LIMITS = {"y": 0.0, "running": 0.0, "dx": 0.0, "dweight": 0.0, "dbias": 0.0}
+
+
+def batch_norm_row(R: int, C: int, act: bool, timed: bool) -> dict:
+    """One phase 3b row: the fused forward and backward on ``[R, C]`` rows
+    against the plain version, and with ``timed`` their times (``time_graph``)
+    beside the bound (the bytes of the input read once and the output written
+    once at 3.35 TB/s: forward x in and y out, backward dy and x in and dx
+    out) and the plain version's (``time_events``; its backward is
+    autograd's)."""
+    from mpa_tpu_torch import kernels
+    from mpa_tpu_torch.ops import batch_norm as bn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(R * 7 + C)
+    x = torch.randn((R, C), generator=g, device=dev) * 3.0 + 0.5
+    w = torch.rand((C,), generator=g, device=dev) + 0.5
+    b = torch.randn((C,), generator=g, device=dev) * 0.1
+    dy = torch.randn((R, C), generator=g, device=dev)
+    rm, rv = torch.randn((C,), generator=g, device=dev), torch.rand((C,), generator=g, device=dev)
+    stats_k, stats_p = (rm.clone(), rv.clone()), (rm.clone(), rv.clone())
+    before = dict(kernels.NORM_LAUNCHES)
+    y, mean, rstd = bn.batch_norm_act_op(x, w, b, *stats_k, 1e-5, 0.1, act)
+    dx, dw, db = bn.batch_norm_act_bwd_op(dy, x, w, b, mean, rstd, act)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    want = bn.batch_norm_act_plain(*leaves, *stats_p, 1e-5, 0.1, act)
+    wdx, wdw, wdb = torch.autograd.grad(want, leaves, dy)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in kernels.NORM_LAUNCHES.items()} == {
+        "batch_norm_act_kernel": 1, "batch_norm_act_bwd_kernel": 1}
+
+    def gap(got, ref):
+        return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+    row = {"R": R, "C": C, "act": act, "reduction": bn.reduce_config(R, C), "gaps": {
+        "y": gap(y, want.detach()),
+        "running": max(gap(k, p) for k, p in zip(stats_k, stats_p)),
+        "dx": gap(dx, wdx), "dweight": gap(dw, wdw), "dbias": gap(db, wdb)}}
+    bad = {k: v for k, v in row["gaps"].items() if not v <= BATCH_NORM_LIMITS[k]}
+    assert not bad, f"batch_norm_act [{R}, {C}] act={act}: {bad} over {BATCH_NORM_LIMITS}"
+    if timed:
+        def plain_bwd():
+            out = bn.batch_norm_act_plain(*leaves, *stats_p, 1e-5, 0.1, act)
+            torch.autograd.grad(out, leaves, dy)
+
+        row.update(
+            ms=time_graph(lambda: bn.batch_norm_act_op(x, w, b, *stats_k, 1e-5, 0.1, act)),
+            bwd_ms=time_graph(lambda: bn.batch_norm_act_bwd_op(dy, x, w, b, mean, rstd, act)),
+            bound_ms=8 * R * C / PEAK_BYTES_PER_S * 1e3,
+            bwd_bound_ms=12 * R * C / PEAK_BYTES_PER_S * 1e3,
+            plain_ms=time_events(lambda: bn.batch_norm_act_plain(x, w, b, *stats_p, 1e-5, 0.1,
+                                                                 act)),
+            plain_fwd_bwd_ms=time_events(plain_bwd))
+    return row
+
+
+def batch_norm_phase(tag: str) -> list:
+    """Phase 3b: ``BATCH_NORM_ROWS`` checked and timed, ``BATCH_NORM_FORMS``
+    checked; one log line a row."""
+    card = card_line()
+    rows = []
+    for R, C, act in BATCH_NORM_ROWS + BATCH_NORM_FORMS:
+        row = batch_norm_row(R, C, act, timed=(R, C, act) in BATCH_NORM_ROWS)
+        rows.append(row)
+        gaps = ", ".join(f"{k} {v:.2e}" for k, v in row["gaps"].items())
+        line = f"[{tag}] [{R}, {C}] act={act} reduction {row['reduction']}: {gaps}"
+        if "ms" in row:
+            line += (f"; ({card}) forward {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, "
+                     f"plain {row['plain_ms']:.4f}), backward {row['bwd_ms']:.4f} ms (bound "
+                     f"{row['bwd_bound_ms']:.4f}); plain forward + autograd backward "
+                     f"{row['plain_fwd_bwd_ms']:.4f} ms")
+        log(line)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def path_spec(path: str) -> dict:
@@ -3453,6 +3552,8 @@ def main() -> int:
                              "dp", "bf16", "dgcnn"],
                     help="only that path's card-against-CPU readings, as JSON")
     ap.add_argument("--exported-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--batch-norm", action="store_true",
+                    help="only phase 3b, the fused BatchNorm's rows, after the build")
     ap.add_argument("--planted-faults", nargs="?", const="all",
                     choices=["all", "partseg", "semseg", "repsurf", "dp", "bf16", "dgcnn"],
                     help="the --parity readings of copies with one fault planted in each "
@@ -3480,6 +3581,15 @@ def main() -> int:
         return 0
     if args.parity:
         print(json.dumps(parity_readings(args.parity)), flush=True)
+        return 0
+    if args.batch_norm:
+        log(f"[3b] {card_line()}")
+        build.build(force=True)
+        build.load()
+        for line in build.ptxas_log.splitlines():
+            if line.startswith("== batch_norm") or "batch_norm" in line:
+                log(f"[3b build] {line.strip()}")
+        print(json.dumps({"batch_norm": batch_norm_phase("3b batch_norm")}), flush=True)
         return 0
 
     t_all = time.perf_counter()
@@ -3545,6 +3655,8 @@ def main() -> int:
     floor = launch_floor()
     log(f"[3 floor] empty_kernel (one block of one thread) in the same CUDA-graph harness: "
         f"{floor:.4f} ms a launch")
+    batch_norm = batch_norm_phase("3b batch_norm")
+    torch.cuda.empty_cache()
 
     # -- 5: the recipe, cli.train -> checkpoint -> cli.eval, on data trees -------
     recipe_work = tempfile.TemporaryDirectory()  # kept for phase 9's cli.export
@@ -3660,7 +3772,7 @@ def main() -> int:
     log(f"[10 total] {t10:.1f} s")
     print(card, flush=True)  # the card, exactly as nvidia-smi reports it
     log(f"[4 total] {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": summary}), flush=True)
+    print(json.dumps({"kernels": summary, "batch_norm": batch_norm}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

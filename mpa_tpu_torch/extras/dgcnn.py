@@ -24,6 +24,13 @@ search, as none does in ``mpa_tpu``. Dropout acts in train mode only and
 draws its masks from the ``torch.Generator`` the caller passes. The four
 blocks and the head are the spans ``block.edge1`` .. ``block.edge4`` and
 ``block.head`` (``utils/profiling.py``).
+
+Each BatchNorm and the LeakyReLU after it (``bn`` of every EdgeConv block,
+``bn5``, ``bn6``, ``bn7``) are one call, ``BatchNorm(x, act=True)``: in
+train mode on the card the fused kernels of ``ops/batch_norm.py`` over the
+``[B, N, k, C]`` edge rows (or the pooled rows), keeping the edge tensor
+and not its normalised copy for the backward; in eval mode ``F.batch_norm``
+and then the LeakyReLU.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch
 from torch import nn
 
 from mpa_tpu_torch.models.registry import register_model
-from mpa_tpu_torch.nn.linear import BatchNorm, leaky_relu, seeded_dropout
+from mpa_tpu_torch.nn.linear import BatchNorm, seeded_dropout
 from mpa_tpu_torch.ops.gather import index_points
 from mpa_tpu_torch.ops.knn import knn
 from mpa_tpu_torch.utils.profiling import span
@@ -51,8 +58,8 @@ def get_graph_feature(x: torch.Tensor, k: int = 20) -> torch.Tensor:
 
 
 class _EdgeConv(nn.Module):
-    """One EdgeConv block: ``conv`` (bias-free) -> ``bn`` -> LeakyReLU over
-    the edge features, then the max over the k neighbours."""
+    """One EdgeConv block: ``conv`` (bias-free) -> ``bn`` with its LeakyReLU
+    over the edge features, then the max over the k neighbours."""
 
     def __init__(self, in_features: int, features: int, k: int):
         super().__init__()
@@ -61,7 +68,7 @@ class _EdgeConv(nn.Module):
         self.bn = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        e = leaky_relu(self.bn(self.conv(get_graph_feature(x, self.k))))
+        e = self.bn(self.conv(get_graph_feature(x, self.k)), act=True)
         return torch.amax(e, dim=2)
 
 
@@ -104,11 +111,11 @@ class DGCNN(nn.Module):
                 x = getattr(self, f"edge{i + 1}")(x)
             blocks.append(x)
         with span("block.head"):
-            x = leaky_relu(self.bn5(self.conv5(torch.cat(blocks, dim=-1))))
+            x = self.bn5(self.conv5(torch.cat(blocks, dim=-1)), act=True)
             g = torch.cat([torch.amax(x, dim=1), torch.mean(x, dim=1)], dim=-1)
-            g = leaky_relu(self.bn6(self.linear1(g)))
+            g = self.bn6(self.linear1(g), act=True)
             g = seeded_dropout(g, self.dropout, self.training, generator)
-            g = leaky_relu(self.bn7(self.linear2(g)))
+            g = self.bn7(self.linear2(g), act=True)
             g = seeded_dropout(g, self.dropout, self.training, generator)
             return self.linear3(g)
 

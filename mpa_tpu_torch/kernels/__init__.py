@@ -14,6 +14,12 @@ are counted and recorded there; the scatter-means' backward launches
 modes (``ops/window.py``); ``ball_query_kernel`` the set abstraction of
 ``repsurf_ssg_2x`` (``ops/ball_query.py``).
 
+``NORM_KERNELS``, the fused train-mode BatchNorm + LeakyReLU forward and
+backward (``ops/batch_norm.py``, three device kernels each), count each call
+in ``NORM_LAUNCHES`` through :func:`norm_launched` and are never recorded:
+replaying a launch and bounding its work is what a recording is for, and
+neither ``chip_smoke.py``'s replays nor the benchmark's bound know them.
+
 Eight kernels also take bf16 storage, the mixed precision models'
 (``compute_dtype=torch.bfloat16``): ``BF16_KERNELS``, the five of the
 exact path and the three windowed ones that ``markov_partseg``'s window
@@ -41,6 +47,8 @@ KERNELS = (
     "ball_query_kernel",
 )
 
+NORM_KERNELS = ("batch_norm_act_kernel", "batch_norm_act_bwd_kernel")
+
 BF16_KERNELS = (
     "gather_rows_kernel",
     "transition_attention_fwd_kernel",
@@ -67,6 +75,7 @@ SOURCES: Dict[str, str] = {
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 LAUNCHES_BF16: Dict[str, int] = {name: 0 for name in BF16_KERNELS}
+NORM_LAUNCHES: Dict[str, int] = {name: 0 for name in NORM_KERNELS}
 
 # When a list, every launch also appends ``(name, inputs)`` to it, so a
 # measurement can replay each kernel on the very inputs its path gave it.
@@ -78,6 +87,8 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
     for name in BF16_KERNELS:
         LAUNCHES_BF16[name] = 0
+    for name in NORM_KERNELS:
+        NORM_LAUNCHES[name] = 0
 
 
 def launched(name: str, inputs: dict, bf16: bool = False) -> None:
@@ -88,3 +99,8 @@ def launched(name: str, inputs: dict, bf16: bool = False) -> None:
         LAUNCHES_BF16[name] += 1
     if recorded is not None:
         recorded.append((name, inputs))
+
+
+def norm_launched(name: str) -> None:
+    """Count one call of the norm kernel ``name``; nothing is recorded."""
+    NORM_LAUNCHES[name] += 1

@@ -126,6 +126,8 @@ _SIGNATURES = {
     "mpa_windowed_attention_bwd": [_VP] * 7 + [_I] * 7 + [_VP],
     "mpa_windowed_scatter_mean": [_VP] * 5 + [_I] * 11 + [_VP],
     "mpa_ball_query": [_VP, _VP, _VP] + [_I] * 5 + [ctypes.c_float, _I, _VP],
+    "mpa_batch_norm_act": [_VP] * 9 + [_I] * 10 + [ctypes.c_float] * 4 + [_I, _VP],
+    "mpa_batch_norm_act_bwd": [_VP] * 10 + [_I] * 11 + [_VP],
     "mpa_empty": [_VP],
 }
 

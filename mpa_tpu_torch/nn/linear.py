@@ -6,10 +6,16 @@ for key (``utils/convert.py``).
 
 BatchNorm follows flax (``nn.BatchNorm(momentum=0.9, epsilon=1e-5,
 use_fast_variance=False)``), not ``torch.nn.BatchNorm1d``, in train mode: it
-normalises with the biased batch variance computed in two passes, and keeps
-that biased variance, not the unbiased one, in its running statistics. Given
-a process group (``mpa_tpu_torch/parallel``), its statistics are those of
-the global batch, as ``mpa_tpu``'s are under a data-parallel ``jit``.
+normalises with the biased batch variance taken from deviations about the
+mean, and keeps that biased variance, not the unbiased one, in its running
+statistics. Given a process group (``mpa_tpu_torch/parallel``), its
+statistics are those of the global batch, as ``mpa_tpu``'s are under a
+data-parallel ``jit``. ``BatchNorm.forward(x, act=True)`` applies the unit's
+LeakyReLU too: in train mode without a process group the norm and its
+activation are one call of ``ops/batch_norm.py::batch_norm_act``, the fused
+kernels on a CUDA tensor and the plain arithmetic on a CPU one; eval mode
+(``F.batch_norm``) and a set process group take the plain code with the
+LeakyReLU after it.
 ``norm="layer"`` is flax's ``nn.LayerNorm(epsilon=1e-5)`` (the reference's
 ``norm1``). ``act=False`` leaves the LeakyReLU out, as flax's ``act`` field
 does (``mpa_tpu/nn/linear.py:30,60``); it has no parameters, so the
@@ -21,7 +27,8 @@ cast, with the input, to ``dtype``; the product and then the bias add are
 taken in ``dtype``, each rounded (:func:`dense`); the norm and the
 LeakyReLU run in float32 on the widened result (flax's float32 scale
 promotes it), and the unit's output is cast to ``dtype``. Without a norm
-the LeakyReLU runs in ``dtype``, as flax's does.
+the LeakyReLU runs in ``dtype``, as flax's does. A BatchNorm unit hands its
+LeakyReLU to the norm (``act``); a LayerNorm unit applies it after.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from mpa_tpu_torch.ops.batch_norm import batch_norm_act, leaky_relu, normalise_plain
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -62,7 +71,9 @@ class BatchNorm(nn.BatchNorm1d):
     bias`` (flax's ``_normalize``); the running statistics become
     ``0.9 * running + (1 - 0.9) * batch`` with the biased ``var`` (flax
     ``momentum=0.9`` is torch ``momentum=0.1``). Eval mode normalises with the
-    running statistics.
+    running statistics. ``act``: LeakyReLU(0.2) on the output, fused with
+    the norm in train mode without a process group
+    (``ops/batch_norm.py::batch_norm_act``).
 
     With ``process_group`` set (``parallel.sync_batchnorm``), train mode
     reduces over the global batch of every rank of the group, in flax's two
@@ -80,30 +91,31 @@ class BatchNorm(nn.BatchNorm1d):
     def _global_sum(self, t: torch.Tensor) -> torch.Tensor:
         return _AllReduceSum.apply(t, self.process_group)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: bool = False) -> torch.Tensor:
+        stats = (self.running_mean, self.running_var)
+        if self.training and self.process_group is None:
+            return batch_norm_act(x, self.weight, self.bias, *stats, self.eps, self.momentum,
+                                  act)
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            if self.process_group is None:
-                mean = torch.mean(x, dim=dims)
-                centred = x - mean
-                var = torch.mean(centred * centred, dim=dims)
-            else:
-                rows = x.new_full((1,), float(x.numel() // x.shape[-1]))
-                total = self._global_sum(torch.cat([torch.sum(x, dim=dims), rows]))
-                count = total[-1]
-                mean = total[:-1] / count
-                centred = x - mean
-                var = self._global_sum(torch.sum(centred * centred, dim=dims)) / count
-            y = centred * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-            keep = 1.0 - self.momentum  # flax's momentum
-            with torch.no_grad():
-                self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
-                self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
-            return y
-        flat = x.reshape(-1, x.shape[-1])
-        y = F.batch_norm(flat, self.running_mean, self.running_var, self.weight, self.bias,
-                         False, 0.0, self.eps)
-        return y.reshape(x.shape)
+            rows = x.new_full((1,), float(x.numel() // x.shape[-1]))
+            total = self._global_sum(torch.cat([torch.sum(x, dim=dims), rows]))
+            count = total[-1]
+            mean = total[:-1] / count
+            centred = x - mean
+            var = self._global_sum(torch.sum(centred * centred, dim=dims)) / count
+            y = normalise_plain(centred, mean, var, self.weight, self.bias, *stats, self.eps,
+                                self.momentum)
+        else:
+            flat = x.reshape(-1, x.shape[-1])
+            y = F.batch_norm(flat, *stats, self.weight, self.bias, False, 0.0,
+                             self.eps).reshape(x.shape)
+        # Where nothing differentiates it, the activation overwrites the
+        # norm's own output: the caller still holds x, and a third full-size
+        # tensor would raise a served request's peak memory.
+        if act:
+            y = leaky_relu(y, inplace=not (torch.is_grad_enabled() and y.requires_grad))
+        return y
 
 
 def seeded_dropout(x: torch.Tensor, p: float, training: bool,
@@ -143,15 +155,6 @@ def dense_bias(linear: nn.Linear, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return linear.bias if dtype is None else linear.bias.to(dtype)
 
 
-def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.leaky_relu(x, 0.2)``: in float32 ``F.leaky_relu``; in bf16
-    ``where(x >= 0, x, bf16(0.2) * x)``, the slope a bf16 weak scalar as in
-    JAX (``F.leaky_relu`` would multiply by the float32 0.2)."""
-    if x.dtype != torch.bfloat16:
-        return F.leaky_relu(x, negative_slope=0.2)
-    return torch.where(x >= 0, x, x * torch.tensor(0.2, dtype=x.dtype))
-
-
 class LinearUnit(nn.Module):
     """Linear -> {BatchNorm | LayerNorm | none} -> LeakyReLU(0.2) (where
     ``act``); with ``dtype``, the mixed precision form of the module doc."""
@@ -183,8 +186,11 @@ class LinearUnit(nn.Module):
         if mid_op is not None:
             bias = dense_bias(self.linear, self.dtype)
             x = mid_op(x - bias) + bias
-        if self.norm is not None:
-            x = self.norm(x if self.dtype is None else x.float())
-        if self.act:
-            x = leaky_relu(x)
+        if isinstance(self.norm, BatchNorm):
+            x = self.norm(x if self.dtype is None else x.float(), act=self.act)
+        else:
+            if self.norm is not None:
+                x = self.norm(x if self.dtype is None else x.float())
+            if self.act:
+                x = leaky_relu(x)
         return x if self.dtype is None else x.to(self.dtype)

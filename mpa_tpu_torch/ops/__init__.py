@@ -16,6 +16,7 @@ from mpa_tpu_torch.ops.fps import (
 )
 from mpa_tpu_torch.ops.gather import index_points, mod_index, resort_points
 from mpa_tpu_torch.ops.ball_query import ball_query
+from mpa_tpu_torch.ops.batch_norm import batch_norm_act
 from mpa_tpu_torch.ops.attention import transition_attention
 from mpa_tpu_torch.ops.scatter import scatter_mean_upsample
 from mpa_tpu_torch.ops.interp import three_nn_interpolate
@@ -40,6 +41,7 @@ __all__ = [
     "mod_index",
     "resort_points",
     "ball_query",
+    "batch_norm_act",
     "transition_attention",
     "scatter_mean_upsample",
     "three_nn_interpolate",

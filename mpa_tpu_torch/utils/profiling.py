@@ -26,8 +26,9 @@ and enters a ``RecordFunction`` of the name (the profiler's
 costs 15-17 us a span on the card's host), so a profile shows the same
 names. ``COUNTS`` counts, whatever ``spans`` is, the points where
 the program blocks the host on the device (``host_syncs.<site>``), the
-serve calls, and the input pipeline's waits and how many found its queue
-empty.
+serve calls, the input pipeline's waits and how many found its queue
+empty, and the train-mode BatchNorms that took the fused kernels
+(``batch_norm_act.fused``, ``ops/batch_norm.py``).
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ spans: Optional[list] = None
 # under ``host_syncs.<site>`` (:func:`host_syncs` sums them).
 SYNC_SITES = ("serve.input_copy", "serve.category_read", "window.check")
 COUNTS: Dict[str, int] = {**{f"host_syncs.{s}": 0 for s in SYNC_SITES},
-                          "serve_calls": 0, "input_waits": 0, "input_empty": 0}
+                          "serve_calls": 0, "input_waits": 0, "input_empty": 0,
+                          "batch_norm_act.fused": 0}
 
 _OFF = contextlib.nullcontext()
 _open = threading.local()  # each thread's stack of open spans, as (name, unit)

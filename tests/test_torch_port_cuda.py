@@ -79,6 +79,11 @@ the three ops at those shapes, an EdgeConv block's gather and scatter-add
 ``chip_smoke.py``'s phase 10 functions and limits), and the off-path kernel
 users of phase 10d.
 
+The fused train-mode BatchNorm + LeakyReLU (``ops/batch_norm.py``) against
+the plain version and autograd through it, bit for bit, at every reduction
+shape and at part-seg's widest rows, and a train-mode ``LinearUnit`` through
+it against the CPU, with its counts.
+
 Run on a machine with an H100:
     python -m pytest tests/test_torch_port_cuda.py -q
 """
@@ -1717,6 +1722,58 @@ def test_opcheck_custom_op(dev, name, dtype, shifted):
     if not name.endswith("attention_bwd"):
         utils.append("test_aot_dispatch_dynamic")
     torch.library.opcheck(getattr(torch.ops.mpa, name).default, args, test_utils=utils)
+
+
+@pytest.mark.parametrize("R,C,act", chip_smoke.BATCH_NORM_FORMS + chip_smoke.BATCH_NORM_ROWS[:1])
+def test_batch_norm_act_kernels_match_plain(dev, R, C, act):
+    """The fused BatchNorm's forward and backward against the plain version
+    and autograd through it, bit for bit, at the shapes that reach each
+    reduction shape and at part-seg's widest rows (phase 3b's check,
+    untimed)."""
+    chip_smoke.batch_norm_row(R, C, act, timed=False)
+
+
+@pytest.mark.parametrize("act", [True, False])
+def test_batch_norm_unit_trains_through_the_fused_kernels(dev, act):
+    """A train-mode ``LinearUnit`` on the card: one fused call each way
+    (``COUNTS["batch_norm_act.fused"]``, ``kernels.NORM_LAUNCHES``), nothing
+    recorded, its output, running statistics and gradients against the same
+    unit on the CPU, and an eval-mode call that takes ``F.batch_norm``."""
+    from mpa_tpu_torch.nn.linear import LinearUnit
+    from mpa_tpu_torch.utils import profiling
+
+    torch.manual_seed(0)
+    cpu = LinearUnit(24, 64, act=act).train()
+    card = LinearUnit(24, 64, act=act).to(dev).train()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((8, 300, 24))
+    g = torch.randn((8, 300, 64))
+    xc = x.to(dev).requires_grad_(True)
+    x.requires_grad_(True)
+    profiling.reset_counts()
+    kernels.reset_launch_counts()
+    kernels.recorded = []
+    try:
+        out = card(xc)
+        (out * g.to(dev)).sum().backward()
+        assert kernels.recorded == []
+    finally:
+        kernels.recorded = None
+    assert profiling.COUNTS["batch_norm_act.fused"] == 1
+    assert kernels.NORM_LAUNCHES == {"batch_norm_act_kernel": 1, "batch_norm_act_bwd_kernel": 1}
+    want = cpu(x)
+    (want * g).sum().backward()
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(xc.grad.cpu(), x.grad, rtol=1e-4, atol=1e-4)
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-3,
+                                   msg=lambda m: f"{name}: {m}")
+    for name in ("running_mean", "running_var"):
+        torch.testing.assert_close(getattr(card.norm, name).cpu(), getattr(cpu.norm, name),
+                                   rtol=1e-5, atol=1e-6)
+    with torch.no_grad():
+        card.eval()(xc)
+    assert profiling.COUNTS["batch_norm_act.fused"] == 1
 
 
 @pytest.mark.parametrize("case", sorted(OP_PATH_CASES))

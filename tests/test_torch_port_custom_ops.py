@@ -1,6 +1,6 @@
 """The kernel entries as ``torch.library`` custom ops, on the CPU.
 
-Each of the twelve ops ``mpa::*`` (``mpa_tpu_torch/ops/library.py``) has a
+Each of the fourteen ops ``mpa::*`` (``mpa_tpu_torch/ops/library.py``) has a
 CUDA implementation, which launches its kernel, and a fake, which
 ``torch.export`` calls with storage-less tensors. The CUDA implementations
 run only on a card, in ``tests/test_torch_port_cuda.py``
@@ -9,7 +9,7 @@ for float32 and bf16 where its kernel takes bf16 storage (the attention ops
 with and without value shifts): the op called on meta tensors, which
 dispatch to its fake, gives outputs of the shapes, dtypes and strides that
 its plain version gives on CPU inputs of the same shapes; the call leaves
-``kernels.LAUNCHES`` unchanged; and the op is registered under the
+``kernels.LAUNCHES`` and ``kernels.NORM_LAUNCHES`` unchanged; and the op is registered under the
 namespace an exported artifact's manifest names, with no CPU kernel (an op
 given CPU tensors raises, as the wrappers never give it any).
 """
@@ -40,9 +40,10 @@ def _outputs(out):
 def test_fake_matches_the_plain_op_and_launches_nothing(name, dtype, shifted):
     args, want = case(name, dtype, shifted)
     meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
-    before = dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_BF16)
+    before = dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_BF16), dict(kernels.NORM_LAUNCHES)
     got = getattr(torch.ops.mpa, name).default(*meta)
-    assert (dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_BF16)) == before
+    assert (dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_BF16),
+            dict(kernels.NORM_LAUNCHES)) == before
     got, want = _outputs(got), _outputs(want)
     assert len(got) == len(want)
     for g, w in zip(got, want):
@@ -80,7 +81,8 @@ def test_fake_refuses_what_the_kernel_refuses():
 
 def test_every_kernel_entry_is_an_op_of_the_manifest_namespace():
     assert serve_export.OP_NAMESPACE == library.NAMESPACE == "mpa"
-    assert len(library.OPS) == len(set(library.OPS)) == len(kernels.KERNELS) == 12
+    assert len(library.OPS) == len(set(library.OPS)) == 14
+    assert len(kernels.KERNELS) + len(kernels.NORM_KERNELS) == 14
     for name in library.OPS:
         op = getattr(torch.ops.mpa, name).default
         assert op._schema.name == f"mpa::{name}"

@@ -14,6 +14,7 @@ from mpa_tpu_torch import kernels
 from mpa_tpu_torch.ops import library
 from mpa_tpu_torch.ops.attention import attention_bwd_plain, attention_plain
 from mpa_tpu_torch.ops.ball_query import ball_query_plain
+from mpa_tpu_torch.ops.batch_norm import batch_norm_act_bwd_plain, batch_norm_act_plain
 from mpa_tpu_torch.ops.fps import fps_plain
 from mpa_tpu_torch.ops.gather import gather_plain, scatter_add_plain
 from mpa_tpu_torch.ops.knn import knn_plain
@@ -34,6 +35,7 @@ OP_KERNELS = {
     "windowed_knn": "windowed_knn_kernel", "windowed_attention": "windowed_attention_fwd_kernel",
     "windowed_attention_bwd": "windowed_attention_bwd_kernel",
     "windowed_scatter_mean": "windowed_scatter_mean_kernel", "ball_query": "ball_query_kernel",
+    "batch_norm_act": "batch_norm_act_kernel", "batch_norm_act_bwd": "batch_norm_act_bwd_kernel",
 }
 
 
@@ -88,6 +90,16 @@ def case(name: str, dtype: torch.dtype, shifted: bool):
     if name == "ball_query":
         xyz, centres = _rand(rng, (B, N, 3)), _rand(rng, (B, S, 3))
         return (0.8, K, xyz, centres), ball_query_plain(0.8, K, xyz, centres)
+    if name in ("batch_norm_act", "batch_norm_act_bwd"):
+        x, w, b = _rand(rng, (N, C)), _rand(rng, (C,)), _rand(rng, (C,))
+        mean, rstd = x.mean(dim=0), torch.rsqrt(x.var(dim=0, unbiased=False) + 1e-5)
+        if name == "batch_norm_act_bwd":
+            dy = _rand(rng, (N, C))
+            return (dy, x, w, b, mean, rstd, True), batch_norm_act_bwd_plain(dy, x, w, b, mean,
+                                                                             rstd, True)
+        stats = (torch.zeros(C), torch.ones(C))
+        y = batch_norm_act_plain(x, w, b, *(t.clone() for t in stats), 1e-5, 0.1, True)
+        return (x, w, b) + stats + (1e-5, 0.1, True), (y, mean, rstd)
     raise KeyError(name)
 
 
@@ -133,7 +145,7 @@ def path_case(case: str):
 
 def test_cases_cover_every_op_and_its_storage_types():
     assert set(OP_KERNELS) == set(library.OPS)
-    assert sorted(OP_KERNELS.values()) == sorted(kernels.KERNELS)
+    assert sorted(OP_KERNELS.values()) == sorted(kernels.KERNELS + kernels.NORM_KERNELS)
     assert sorted(OP_KERNELS[n] for n in BF16_OPS) == sorted(kernels.BF16_KERNELS)
     assert {n for n, d, _ in CASES if d == torch.float32} == set(library.OPS)
     assert {n for n, d, _ in CASES if d == torch.bfloat16} == set(BF16_OPS)
