@@ -265,3 +265,8 @@ PRESETS = {
         scheduler="cos", eta_min=1e-5, epochs=200, seed=2800,
     ),
 }
+# The S3DIS recipe in the large-scene mode: 16384-point blocks, every kNN,
+# attention and upsample inside its row's Morton window and the encoder's FPS
+# banded; the ladder 8192/4096/2048/1024 admits a window at every scale pair.
+PRESETS["s3dis_semseg_window_all"] = PRESETS["s3dis_semseg"].with_overrides(
+    num_points=16384, neighbor_mode="window_all")

@@ -22,6 +22,13 @@ order. Dropout acts in train mode only and draws its mask from the
 ``torch.Generator`` the caller passes. In train mode the encoder's FPS takes
 keyed starts when ``fps_generator`` or ``fps_starts`` is given
 (``WindowModes.fps_scale``), as ``mpa_tpu``'s takes them from ``rng``.
+
+Each block call is a span named ``block.<attribute>``, as in part-seg
+(``nn/keephigh_partseg.py``): ``block.la0`` (with ``feat_in``),
+``block.fps1`` .. ``block.fps4`` (FPS and its gather), ``block.la1`` ..
+``block.la4``, ``block.mlp``, ``block.fuse_top``, ``block.up_conv1`` ..
+``block.up_conv4``, ``block.la1_up`` .. ``block.la4_up``, ``block.fuse1`` ..
+``block.fuse4`` and ``block.head`` (``conv5`` to the log-probs).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from mpa_tpu_torch.nn.window_mode import (
     spec_or_none,
 )
 from mpa_tpu_torch.ops.gather import index_points
+from mpa_tpu_torch.utils.profiling import span
 
 
 class MarkovSemSeg(WindowModes, nn.Module):
@@ -110,47 +118,59 @@ class MarkovSemSeg(WindowModes, nn.Module):
         top = len(self.npoints)
 
         # ---- encoder ladder ------------------------------------------------
-        f0, idx0, d0 = self.la0(xyz, xyz)  # self-kNN of the full block
-        if self.feat_in is not None:
-            f0 = self.feat_in(torch.cat([f0, extra], dim=-1))
+        with span("block.la0"):
+            f0, idx0, d0 = self.la0(xyz, xyz)  # self-kNN of the full block
+            if self.feat_in is not None:
+                f0 = self.feat_in(torch.cat([f0, extra], dim=-1))
         feats: List[Optional[torch.Tensor]] = [f0] + [None] * top
         positions: List[Optional[torch.Tensor]] = [xyz] + [None] * top
         fps_list: List[torch.Tensor] = []
         knn_list: List[Optional[torch.Tensor]] = [idx0] + [None] * top  # scale s into s-1
         cur_xyz = xyz
         for i, npoint in enumerate(self.npoints):
-            fps_idx = self.fps_scale(cur_xyz, npoint, i, fps_generator, fps_starts)
-            new_xyz = index_points(cur_xyz, fps_idx)
-            feats[i + 1], knn_list[i + 1], _ = getattr(self, f"la{i + 1}")(
-                new_xyz, cur_xyz, feature=feats[i], fps_idx=fps_idx)
+            with span(f"block.fps{i + 1}"):
+                fps_idx = self.fps_scale(cur_xyz, npoint, i, fps_generator, fps_starts)
+                new_xyz = index_points(cur_xyz, fps_idx)
+            with span(f"block.la{i + 1}"):
+                feats[i + 1], knn_list[i + 1], _ = getattr(self, f"la{i + 1}")(
+                    new_xyz, cur_xyz, feature=feats[i], fps_idx=fps_idx)
             positions[i + 1] = new_xyz
             fps_list.append(fps_idx)
             cur_xyz = new_xyz
 
         # ---- decoder: up-states interleaved with cross-scale Fuse ----------
         up_feats: List[Optional[torch.Tensor]] = [None] * (top + 1)
-        up_feats[top] = self.fuse_top(feats[:top] + [self.mlp(feats[top])],
-                                      fps_list, knn_list, positions)
+        with span("block.mlp"):
+            coarsest = self.mlp(feats[top])
+        with span("block.fuse_top"):
+            up_feats[top] = self.fuse_top(feats[:top] + [coarsest], fps_list, knn_list,
+                                          positions)
         for step, s in enumerate(range(top - 1, -1, -1)):
             num_fine = positions[s].shape[1]
             # Windowed, the stored encoder index is window-constrained exactly
             # when the pair admits a spec (LocalMerge's admission).
             wspec = spec_or_none(positions[s + 1].shape[1], num_fine) if self.windowed else None
-            up = getattr(self, f"up_conv{s + 1}")(
-                up_feats[s + 1], mid_op=scatter_mean_op(knn_list[s + 1], num_fine, wspec))
+            with span(f"block.up_conv{s + 1}"):
+                up = getattr(self, f"up_conv{s + 1}")(
+                    up_feats[s + 1], mid_op=scatter_mean_op(knn_list[s + 1], num_fine, wspec))
             # Scale 0's self-kNN was searched by la0 on the same positions.
-            f_s, _, _ = getattr(self, f"la{s + 1}_up")(
-                positions[s], positions[s], feature=up,
-                spatial_knn=(d0, idx0) if s == 0 else None)
+            with span(f"block.la{s + 1}_up"):
+                f_s, _, _ = getattr(self, f"la{s + 1}_up")(
+                    positions[s], positions[s], feature=up,
+                    spatial_knn=(d0, idx0) if s == 0 else None)
             mixed = feats[:s] + [f_s] + feats[s + 1:]
-            up_feats[s] = getattr(self, f"fuse{step + 1}")(mixed, fps_list, knn_list, positions)
+            with span(f"block.fuse{step + 1}"):
+                up_feats[s] = getattr(self, f"fuse{step + 1}")(mixed, fps_list, knn_list,
+                                                               positions)
 
         # ---- per-point head ------------------------------------------------
-        global_rep = torch.cat([torch.amax(f, dim=1) for f in up_feats], dim=-1)  # [B, sum(ch)]
-        x = torch.cat([self.conv5(up_feats[0]), global_rep[:, None, :].expand(B, N, -1)], dim=-1)
-        x = seeded_dropout(self.head1(x), self.dropout, self.training, generator)
-        x = self.head3(self.head2(x))
-        return morton_unsort(F.log_softmax(x, dim=-1), inv_perm)
+        with span("block.head"):
+            global_rep = torch.cat([torch.amax(f, dim=1) for f in up_feats], dim=-1)
+            x = torch.cat([self.conv5(up_feats[0]), global_rep[:, None, :].expand(B, N, -1)],
+                          dim=-1)
+            x = seeded_dropout(self.head1(x), self.dropout, self.training, generator)
+            x = F.log_softmax(self.head3(self.head2(x)), dim=-1)
+        return morton_unsort(x, inv_perm)
 
 
 @register_model("markov_semseg")

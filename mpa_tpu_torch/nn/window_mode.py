@@ -9,6 +9,9 @@ plumbing is defined once here:
   and the decoder's scatter-mean banded; the feature-space kNN stays exact;
 - ``'window_all'``: the feature-space kNN and FPS banded too, the full
   large-scene mode.
+
+:func:`morton_sort` and :func:`morton_unsort` are the spans
+``window.morton_sort`` and ``window.morton_unsort`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from mpa_tpu_torch.ops.fps import banded_farthest_point_sample, keyed_start, pic
 from mpa_tpu_torch.ops.morton import morton_order
 from mpa_tpu_torch.ops.scatter import scatter_mean_upsample
 from mpa_tpu_torch.ops.window import WindowSpec, make_window_spec, windowed_scatter_mean
+from mpa_tpu_torch.utils.profiling import span
 
 NEIGHBOR_MODES = ("exact", "window", "window_all")
 
@@ -54,9 +58,10 @@ def scatter_mean_op(knn_idx: torch.Tensor, num_fine: int,
 def morton_sort(points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort ``[B, N, 3+F]`` points along the Morton curve of their xyz;
     returns ``(sorted points, inverse permutation)``."""
-    perm = morton_order(points[..., :3]).long()
-    inv_perm = torch.argsort(perm, dim=-1)
-    return torch.gather(points, 1, perm[..., None].expand(-1, -1, points.shape[-1])), inv_perm
+    with span("window.morton_sort"):
+        perm = morton_order(points[..., :3]).long()
+        inv_perm = torch.argsort(perm, dim=-1)
+        return torch.gather(points, 1, perm[..., None].expand(-1, -1, points.shape[-1])), inv_perm
 
 
 def morton_unsort(out: torch.Tensor, inv_perm: Optional[torch.Tensor]) -> torch.Tensor:
@@ -64,7 +69,8 @@ def morton_unsort(out: torch.Tensor, inv_perm: Optional[torch.Tensor]) -> torch.
     :func:`morton_sort`; the identity when ``inv_perm`` is None."""
     if inv_perm is None:
         return out
-    return torch.gather(out, 1, inv_perm[..., None].expand(-1, -1, out.shape[-1]))
+    with span("window.morton_unsort"):
+        return torch.gather(out, 1, inv_perm[..., None].expand(-1, -1, out.shape[-1]))
 
 
 class WindowModes:

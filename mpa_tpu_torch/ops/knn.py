@@ -21,6 +21,9 @@ upcast to float32 before any distance, on both devices, as ``mpa_tpu``'s
 ``square_distance`` takes their products in float32
 (``mpa_tpu/ops/pairwise.py:34-43``): ``knn_kernel`` stays float32, and the
 distances are float32.
+
+Each call of :func:`knn` counts one exact search in
+``COUNTS["knn.exact"]`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from mpa_tpu_torch.kernels import build
 from mpa_tpu_torch.ops import library
 from mpa_tpu_torch.ops.gather import gather_cuda, scatter_add_cuda
 from mpa_tpu_torch.ops.pairwise import square_distance
+from mpa_tpu_torch.utils import profiling
 from mpa_tpu_torch.utils.device import on_cuda
 
 MAX_K = 64
@@ -172,6 +176,7 @@ def knn(
     Returns:
       ``(sqr_dists [B, S, k] float32, idx [B, S, k] int32)``, ascending.
     """
+    profiling.COUNTS["knn.exact"] += 1
     if on_cuda(base, "base"):
         base, query = base.float().contiguous(), query.float().contiguous()
         if library.needs_grad(base, query):

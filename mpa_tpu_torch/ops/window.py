@@ -356,8 +356,12 @@ def windowed_knn_with_spec(
       ``spec`` is the window the search used, for the attention and
       scatter-mean that follow. Raises ValueError (from
       :func:`make_window_spec`) when the scale pair admits no window.
+
+    Each search counts one in ``COUNTS["knn.windowed"]``
+    (``utils/profiling.py``).
     """
     spec = make_window_spec(query.shape[1], base.shape[1], sq=sq)
+    profiling.COUNTS["knn.windowed"] += 1
     if on_cuda(base, "base"):
         base, query = base.float().contiguous(), query.float().contiguous()
         if library.needs_grad(base, query):

@@ -27,8 +27,12 @@ costs 15-17 us a span on the card's host), so a profile shows the same
 names. ``COUNTS`` counts, whatever ``spans`` is, the points where
 the program blocks the host on the device (``host_syncs.<site>``), the
 serve calls, the input pipeline's waits and how many found its queue
-empty, and the train-mode BatchNorms that took the fused kernels
-(``batch_norm_act.fused``, ``ops/batch_norm.py``).
+empty, the train-mode BatchNorms that took the fused kernels
+(``batch_norm_act.fused``, ``ops/batch_norm.py``), and each neighbour
+search where it is dispatched: ``knn.windowed`` in
+``ops/window.py::windowed_knn_with_spec``, ``knn.exact`` in
+``ops/knn.py::knn`` (a window mode's scale pair that admits no window
+searches exactly, and counts there).
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ spans: Optional[list] = None
 SYNC_SITES = ("serve.input_copy", "serve.category_read", "window.check")
 COUNTS: Dict[str, int] = {**{f"host_syncs.{s}": 0 for s in SYNC_SITES},
                           "serve_calls": 0, "input_waits": 0, "input_empty": 0,
-                          "batch_norm_act.fused": 0}
+                          "batch_norm_act.fused": 0, "knn.windowed": 0, "knn.exact": 0}
 
 _OFF = contextlib.nullcontext()
 _open = threading.local()  # each thread's stack of open spans, as (name, unit)

@@ -8,7 +8,10 @@ layer, nested as ``PERF.md`` lists them, each unit's spans sharing its
 identifier; the input pipeline's producer spans run on its thread; the
 serve entry counts its host reads; each span's ``record_function`` event
 in a profile lies where the span does on the same clock; and an exported
-program holds no profiler op.
+program holds no profiler op. A ``markov_semseg`` forward opens each block's
+span once, and in ``window_all`` the Morton sort's and unsort's; its
+neighbour searches count as windowed there and as exact in ``exact`` mode,
+and ``windowed_search_share.train`` reads the share from the counters.
 """
 
 import threading
@@ -38,6 +41,14 @@ PARTSEG_BLOCKS = ({"block.la0", "block.mlp", "block.head"}
                   | {f"block.la{i}_up" for i in range(1, 5)}
                   | {f"block.fuse{i}" for i in range(1, 6)})
 DGCNN_BLOCKS = {"block.edge1", "block.edge2", "block.edge3", "block.edge4", "block.head"}
+SEMSEG_BLOCKS = ({"block.la0", "block.mlp", "block.fuse_top", "block.head"}
+                 | {f"block.{b}{i}" for b in ("la", "fps", "up_conv", "fuse") for i in range(1, 5)}
+                 | {f"block.la{i}_up" for i in range(1, 5)})
+# A semseg forward's neighbour searches: la0's self-kNN; la1-la4 a spatial and a
+# feature-space one each; la2_up-la4_up the same, la1_up its feature-space one
+# (scale 0's spatial index is la0's); the fuses toward scales 2, 1 and 0 one
+# fresh search for each coarser scale two or more away.
+SEMSEG_SEARCHES = 1 + 2 * 4 + (1 + 2 * 3) + (1 + 2 + 3)
 
 
 @pytest.fixture
@@ -208,3 +219,35 @@ def test_exported_program_holds_no_profiler_op(recording):
     assert recording == []
     targets = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
     assert targets and not [t for t in targets if "profiler" in t or "record_function" in t]
+
+
+@pytest.mark.parametrize("mode", ["window_all", "exact"])
+def test_semseg_spans_and_neighbour_search_counts(mode, recording):
+    """At 2 x 2048 points (ladder 1024/512/256/128) every scale pair admits
+    a window, so ``window_all`` searches nothing exactly."""
+    torch.manual_seed(0)
+    model = get_model("markov_semseg", npoints=(1024, 512, 256, 128), neighbor_mode=mode).eval()
+    points = np.random.default_rng(1).standard_normal((2, 2048, 9)).astype(np.float32)
+    with torch.no_grad():
+        model(torch.from_numpy(points))
+    morton = {"window.morton_sort", "window.morton_unsort"} if mode == "window_all" else set()
+    assert sorted(s[0] for s in recording) == sorted(SEMSEG_BLOCKS | morton)  # each once
+    assert all(s[1] is None for s in recording)  # no entry span around a bare forward
+    windowed = SEMSEG_SEARCHES if mode == "window_all" else 0
+    assert profiling.COUNTS["knn.windowed"] == windowed
+    assert profiling.COUNTS["knn.exact"] == SEMSEG_SEARCHES - windowed
+
+
+def test_windowed_search_share_reads_the_counters():
+    from portbench.spec import PKG, load_module
+
+    read = load_module(PKG / "metrics" / "windowed_search_share.train.py",
+                       "portbench.metrics.windowed_search_share.train").read
+    assert read({}, {"knn.windowed": 3, "knn.exact": 1}) == 75.0
+    assert read({}, {"knn.windowed": SEMSEG_SEARCHES, "knn.exact": 0}) == 100.0
+    assert read({}, {"knn.windowed": 0, "knn.exact": 0}) is None
+    assert read({}, {"serve_calls": 2}) is None  # a program without the counters
+    profiling.reset_counts()
+    profiling.COUNTS["knn.exact"] = 4
+    assert read({}) == 0.0  # the program's own counters
+    profiling.reset_counts()
